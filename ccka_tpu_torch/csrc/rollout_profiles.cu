@@ -1,25 +1,21 @@
 // Rule-profile fleet rollout on Hopper: one thread steps one cluster
-// through the whole horizon under the Peak/Off-Peak rule.
+// through the whole horizon under the Peak/Off-Peak rule, or under the
+// carbon-aware re-rank of its zone weights.
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run (the Pallas TPU kernel of
-// _make_kernel(policy="profiles"), plain exo stream, no carried state),
-// with its in-kernel sampler _uniform + _poisson_small_kernel.
+// _make_kernel(policy="profiles") and, with CARBON, policy="carbon";
+// plain exo stream, no carried state), with its in-kernel sampler
+// _uniform + _poisson_small_kernel.
 //
-// Computes, per cluster and tick, exactly what the port's plain rollout
-// does (ccka_tpu_torch/sim/dynamics.py::step under the rule policy, folded
-// by sim/metrics.py::SummaryAcc): select one of two profiles on is_peak,
-// HPA desired pods, the K-deep provisioning pipeline, Poisson spot
-// interruptions, scheduling, the softmax cheapest-zone split with the
-// per-pool cap, consolidation (sigmoid timers, PDB budget), and the cost,
-// carbon, latency and SLO accounting into 16 accumulators, emitted as an
-// out[24, B] block (rows 16..23 zero).
-//
-// Arithmetic follows the plain version op for op: sums over the pool,
-// zone and capacity-type axes are the same left-to-right chains; a
-// division by a literal is a multiply by its float reciprocal, as
-// PyTorch's CUDA division by a Python scalar is; build with -fmad=false
-// and without fast math so that no multiply-add is fused and expf, logf,
-// cosf, sqrtf are the same library functions PyTorch calls.
+// The action of a tick is a per-cluster select of two constant profiles
+// on is_peak. With CARBON the zone weights of that action are replaced by
+// CarbonAwarePolicy.decide (ccka_tpu_torch/policy/carbon.py): per zone
+// max(sigmoid(sharpness * rel + stickiness * occupancy), min_weight) from
+// this tick's carbon row and the fleet's placement before the step, in
+// the plain version's operation order. The three constants are launch
+// arguments. What the action then does is rollout_tick.cuh::tick, the
+// code the plain rollout (sim/dynamics.py::step, sim/metrics.py) is held
+// against; the result is an out[24, B] block of accumulators.
 //
 // Bound, at B = 32768 clusters x T = 2880 ticks, default preset: the
 // kernel reads 3Z+3 = 12 of the stream's 16 rows (the rest are padding)
@@ -37,427 +33,87 @@
 // bound; prefetching exo rows into shared memory (cp.async or TMA) is
 // later work.
 //
-// Randomness: in stochastic mode each spot row of each (cluster, tick)
-// takes one Philox4x32-10 call at counter (cluster, tick, p*Z+z, 0), key
-// (seed low, seed high), and uses 3 of its 4 words, bit for bit the
-// stream of ccka_tpu_torch/sim/random.py. philox_uniform_kernel writes the
-// same uniforms for a grid of (tick, row, cluster).
+// philox_uniform_kernel writes the uniforms of the tick's Philox stream
+// for a grid of (tick, row, cluster); it is on no rollout path.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rollout_tick.cuh"
 
 namespace {
 
-constexpr int kParams = 22;
+using namespace ccka;
+
 constexpr int kMaxAct = 32;
-constexpr int kOutRows = 24;
 constexpr int kBlock = 64;
-constexpr float kEps = 1e-6f;
-
-// Packed scalar params: ccka_tpu_torch/sim/megakernel.py::_PARAM_NAMES.
-enum {
-  DT_S, PPN, BASE_OD, MAXN0, MAXN1, SA00, SA01, SA10, SA11, INTERRUPT_P,
-  PDB, FRAG, UNDERUTIL, WATTS_IDLE, WATTS_FULL, RPS, SLO_FRAC, TAU_S,
-  LAT_BASE, LAT_SLO
-};
-
-// Latency-proxy curve (ccka_tpu_torch/config.py).
-constexpr float kRhoClip = 0.98f;
-constexpr float kCurveCoef = 3.0f;
 
 struct Profiles {
   float p[kParams];
   float act[2][kMaxAct];  // [off-peak, peak] action coordinates
+  float carbon[3];        // sharpness, min_weight, stickiness (CARBON only)
 };
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float to_uniform(uint32_t w) {
-  return (float)(w >> 8) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <int P, int Z, int K, bool STOCH>
+template <int P, int Z, int K, bool STOCH, bool CARBON>
 __global__ void __launch_bounds__(kBlock)
 rollout_profiles_kernel(const float* __restrict__ exo,
                         float* __restrict__ out, const Profiles pr, int T,
                         int B, int rows, uint32_t k0, uint32_t k1) {
-  static_assert(P == 2, "the packed params carry two pools");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
-  const float dt_s = pr.p[DT_S], ppn = pr.p[PPN], base_od = pr.p[BASE_OD];
-  const float max_nodes[P] = {pr.p[MAXN0], pr.p[MAXN1]};
-  const float sa[P][2] = {{pr.p[SA00], pr.p[SA01]}, {pr.p[SA10], pr.p[SA11]}};
-  const float p_int = pr.p[INTERRUPT_P], pdb = pr.p[PDB];
-  const float frag = pr.p[FRAG], underutil = pr.p[UNDERUTIL];
-  const float w_idle = pr.p[WATTS_IDLE], w_full = pr.p[WATTS_FULL];
-  const float rps = pr.p[RPS], slo_frac = pr.p[SLO_FRAC];
-  const float tau_s = pr.p[TAU_S], lat_base = pr.p[LAT_BASE];
-  const float lat_slo = pr.p[LAT_SLO];
-  const float dt_hr = dt_s * (1.0f / 3600.0f);
-  const float base_z = base_od * (1.0f / (float)Z);
-  const float base_cap = base_od * ppn;
-  const float one_m_pdb = 1.0f - pdb;
-  const float one_p_frag = 1.0f + frag;
-  const float w_span = w_full - w_idle;
-
-  float nodes[P][Z][2], pipe[K][P][Z][2], running[2], timer[P];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    timer[p] = 0.0f;
-#pragma unroll
-    for (int z = 0; z < Z; ++z)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        nodes[p][z][c] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) pipe[k][p][z][c] = 0.0f;
-      }
-  }
-  running[0] = running[1] = 0.0f;
-  float acc_cost = 0.f, acc_carbon = 0.f, acc_req = 0.f, acc_slo = 0.f;
-  float acc_evict = 0.f, nct_sum[2] = {0.f, 0.f}, served_sum = 0.f;
-  float capacity_sum = 0.f, waste_sum = 0.f, lat_sum = 0.f, lat_max = 0.f;
-  float queue_sum = 0.f, int_sum = 0.f;
-
+  const Consts<P, Z> k(pr.p);
+  Fleet<P, Z, K> s;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
-    const float* x = exo + (size_t)t * plane + b;
-    float spot[Z], od[Z], carb[Z], demand[2];
-#pragma unroll
-    for (int z = 0; z < Z; ++z) {
-      spot[z] = x[(size_t)z * B];
-      od[z] = x[(size_t)(Z + z) * B];
-      carb[z] = x[(size_t)(2 * Z + z) * B];
-    }
-    demand[0] = x[(size_t)(3 * Z) * B];
-    demand[1] = x[(size_t)(3 * Z + 1) * B];
+    const TickExo<Z> e(exo + (size_t)t * plane + b, B);
     // The rule: per-cluster select of the two profiles on is_peak. Every
     // coordinate index below is a compile-time constant, so both loads
     // come from the parameter bank and the select stays in registers.
-    const bool peak = x[(size_t)(3 * Z + 2) * B] > 0.5f;
-    auto a = [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; };
+    const bool peak = e.is_peak > 0.5f;
+    auto sel = [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; };
+    TickAction<P, Z> a;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int z = 0; z < Z; ++z) a.zw[p][z] = sel(p * Z + z);
+      a.ct[p][0] = sel(P * Z + p * 2);
+      a.ct[p][1] = sel(P * Z + p * 2 + 1);
+      a.aggr[p] = sel(P * Z + 2 * P + p);
+      a.after[p] = sel(P * Z + 3 * P + p);
+    }
+    a.hpa[0] = sel(P * Z + 4 * P);
+    a.hpa[1] = sel(P * Z + 4 * P + 1);
 
-    // 1. desired pods (HPA lever).
-    float desired[2];
-    desired[0] = demand[0] * a(P * Z + 4 * P + 0);
-    desired[1] = demand[1] * a(P * Z + 4 * P + 1);
-
-    // 2. pipeline arrivals and shift.
+    if (CARBON) {
+      // Zone weight from observed carbon and the pre-step placement.
+      float csum = e.carb[0];
 #pragma unroll
-    for (int p = 0; p < P; ++p)
+      for (int z = 1; z < Z; ++z) csum = csum + e.carb[z];
+      const float cmean = csum * (1.0f / (float)Z);
+      float nodes_z[Z];
 #pragma unroll
-      for (int z = 0; z < Z; ++z)
+      for (int z = 0; z < Z; ++z) {  // chained capacity type, then pool
+        float n = s.nodes[0][z][0];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          nodes[p][z][c] = nodes[p][z][c] + pipe[0][p][z][c];
+        for (int i = 1; i < 2 * P; ++i) n = n + s.nodes[i % P][z][i / P];
+        nodes_z[z] = n;
+      }
+      float ntot = nodes_z[0];
 #pragma unroll
-          for (int k = 0; k + 1 < K; ++k) pipe[k][p][z][c] = pipe[k + 1][p][z][c];
-          pipe[K - 1][p][z][c] = 0.0f;
-        }
-
-    // 3. spot interruptions.
-    float interrupted_total = 0.0f;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
+      for (int z = 1; z < Z; ++z) ntot = ntot + nodes_z[z];
+      ntot = ntot + 1e-6f;
 #pragma unroll
       for (int z = 0; z < Z; ++z) {
-        const float spot_n = nodes[p][z][0];
-        const float lam = spot_n * p_int;
-        float intr = lam;
-        if (STOCH) {
-          const uint4 w = philox4x32_10(
-              make_uint4((uint32_t)b, (uint32_t)t, (uint32_t)(p * Z + z), 0u),
-              k0, k1);
-          const float u = to_uniform(w.x);
-          float tt = expf(-lam), cdf = tt, count = 0.0f;
+        const float occ = fminf(
+            fmaxf(nodes_z[z] / ntot * (float)Z - 1.0f, -1.0f), 1.0f);
+        const float rel = (cmean - e.carb[z]) / (cmean + 1e-6f);
+        const float w = fmaxf(
+            sigmoid(pr.carbon[0] * rel + pr.carbon[2] * occ), pr.carbon[1]);
 #pragma unroll
-          for (int k = 1; k <= 4; ++k) {
-            count = count + (u > cdf ? 1.0f : 0.0f);
-            tt = tt * lam * (1.0f / (float)k);
-            cdf = cdf + tt;
-          }
-          const float u1 = fmaxf(to_uniform(w.y), 1e-7f);
-          const float u2 = to_uniform(w.z);
-          const float normal =
-              sqrtf(-2.0f * logf(u1)) * cosf(6.28318530717958647692f * u2);
-          const float gauss = rintf(lam + sqrtf(lam) * normal);
-          const float sample = lam < 0.5f ? count : fmaxf(gauss, 0.0f);
-          intr = fminf(sample, spot_n);
-        }
-        nodes[p][z][0] = spot_n - intr;
-        interrupted_total = (p == 0 && z == 0) ? intr : interrupted_total + intr;
+        for (int p = 0; p < P; ++p) a.zw[p][z] = w;
       }
-
-    // 4. scheduling (class c <-> capacity type c).
-    float nodes_ct[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float s = nodes[0][0][c];
-#pragma unroll
-      for (int i = 1; i < P * Z; ++i) s = s + nodes[i / Z][i % Z][c];
-      nodes_ct[c] = s;
     }
-    const float cap_ct[2] = {nodes_ct[0] * ppn, nodes_ct[1] * ppn + base_cap};
-    float pending[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      running[c] = fminf(desired[c], cap_ct[c]);
-      pending[c] = desired[c] - running[c];
-    }
-
-    // 5. provisioning: need, cheapest-fit softmax split, per-pool cap.
-    float need[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float inc = pipe[0][0][0][c];
-#pragma unroll
-      for (int i = 1; i < K * P * Z; ++i)
-        inc = inc + pipe[i / (P * Z)][(i / Z) % P][i % Z][c];
-      need[c] = fmaxf(pending[c] / ppn - inc, 0.0f);
-    }
-    float price_sum = spot[0];
-    price_sum = price_sum + od[0];
-#pragma unroll
-    for (int z = 1; z < Z; ++z) {
-      price_sum = price_sum + spot[z];
-      price_sum = price_sum + od[z];
-    }
-    const float tau = 0.1f * (price_sum * (1.0f / (float)(2 * Z))) + kEps;
-    float cheap[Z][2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float xz[Z];
-#pragma unroll
-      for (int z = 0; z < Z; ++z) xz[z] = -(c == 0 ? spot[z] : od[z]) / tau;
-      float m = xz[0];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) m = fmaxf(m, xz[z]);
-      float e[Z];
-#pragma unroll
-      for (int z = 0; z < Z; ++z) e[z] = expf(xz[z] - m);
-      float s = e[0];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) s = s + e[z];
-#pragma unroll
-      for (int z = 0; z < Z; ++z) cheap[z][c] = e[z] / s;
-    }
-    float newn[P][Z][2];
-    float wsum[2];
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int z = 0; z < Z; ++z)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float allow = a(P * Z + p * 2 + c) * sa[p][c];
-          newn[p][z][c] = a(p * Z + z) * allow * cheap[z][c];
-        }
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float s = newn[0][0][c];
-#pragma unroll
-      for (int i = 1; i < P * Z; ++i) s = s + newn[i / Z][i % Z][c];
-      wsum[c] = s;
-    }
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int z = 0; z < Z; ++z)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float frac =
-              wsum[c] > kEps ? newn[p][z][c] / (wsum[c] + kEps) : 0.0f;
-          newn[p][z][c] = frac * need[c];
-        }
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      float now_n = nodes[p][0][0];
-      now_n = now_n + nodes[p][0][1];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) {
-        now_n = now_n + nodes[p][z][0];
-        now_n = now_n + nodes[p][z][1];
-      }
-      float now_p = pipe[0][p][0][0];
-      now_p = now_p + pipe[0][p][0][1];
-#pragma unroll
-      for (int i = 1; i < K * Z; ++i) {
-        now_p = now_p + pipe[i / Z][p][i % Z][0];
-        now_p = now_p + pipe[i / Z][p][i % Z][1];
-      }
-      const float pool_now = now_n + now_p;
-      float pool_new = newn[p][0][0];
-      pool_new = pool_new + newn[p][0][1];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) {
-        pool_new = pool_new + newn[p][z][0];
-        pool_new = pool_new + newn[p][z][1];
-      }
-      const float headroom = fmaxf(max_nodes[p] - pool_now, 0.0f);
-      const float scale =
-          pool_new > kEps ? fminf(headroom / (pool_new + kEps), 1.0f) : 1.0f;
-#pragma unroll
-      for (int z = 0; z < Z; ++z)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          pipe[K - 1][p][z][c] = newn[p][z][c] * scale;
-    }
-
-    // 6. consolidation.
-    const float used_karp[2] = {running[0],
-                                fmaxf(running[1] - base_cap, 0.0f)};
-    float empty[2], aggr_ct[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float repack = used_karp[c] / ppn;
-      const float slack = fmaxf(nodes_ct[c] - repack, 0.0f);
-      empty[c] = fmaxf(nodes_ct[c] - repack * one_p_frag, 0.0f);
-      const float util = used_karp[c] / (nodes_ct[c] * ppn + kEps);
-      const float under = sigmoid((underutil - util) * (1.0f / 0.05f));
-      const float budget = one_m_pdb * used_karp[c];
-      aggr_ct[c] = fminf(slack, empty[c] + under * budget / ppn);
-    }
-    float removed_ct[2];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float aggr = a(P * Z + 2 * P + p);
-      const float after = a(P * Z + 3 * P + p);
-      float rem[Z][2];
-#pragma unroll
-      for (int z = 0; z < Z; ++z)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float share = nodes[p][z][c] / (nodes_ct[c] + kEps);
-          rem[z][c] = share * (empty[c] * (1.0f - aggr) + aggr_ct[c] * aggr);
-        }
-      float rem_p = rem[0][0];
-      rem_p = rem_p + rem[0][1];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) {
-        rem_p = rem_p + rem[z][0];
-        rem_p = rem_p + rem[z][1];
-      }
-      const float tmr = rem_p > 1e-3f ? timer[p] + dt_s : 0.0f;
-      const float gate = sigmoid((tmr - after) / tau_s);
-#pragma unroll
-      for (int z = 0; z < Z; ++z)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float removed = rem[z][c] * gate;
-          nodes[p][z][c] = fmaxf(nodes[p][z][c] - removed, 0.0f);
-          removed_ct[c] = (p == 0 && z == 0) ? removed : removed_ct[c] + removed;
-        }
-      timer[p] = gate > 0.5f ? 0.0f : tmr;
-    }
-    const float evicted =
-        (fmaxf(removed_ct[0] - empty[0], 0.0f) +
-         fmaxf(removed_ct[1] - empty[1], 0.0f)) * ppn * 0.5f;
-
-    // 7. accounting on the post-step fleet.
-    float nzc[Z][2];
-#pragma unroll
-    for (int z = 0; z < Z; ++z)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float s = nodes[0][z][c];
-#pragma unroll
-        for (int p = 1; p < P; ++p) s = s + nodes[p][z][c];
-        nzc[z][c] = c == 1 ? s + base_z : s;
-      }
-    float cost = nzc[0][0] * spot[0];
-    cost = cost + nzc[0][1] * od[0];
-#pragma unroll
-    for (int z = 1; z < Z; ++z) {
-      cost = cost + nzc[z][0] * spot[z];
-      cost = cost + nzc[z][1] * od[z];
-    }
-    cost = cost * dt_hr;
-    float watts[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float tot = nzc[0][c];
-#pragma unroll
-      for (int z = 1; z < Z; ++z) tot = tot + nzc[z][c];
-      const float util =
-          tot > kEps ? fminf(running[c] / (tot * ppn + kEps), 1.0f) : 0.0f;
-      watts[c] = w_idle + w_span * util;
-    }
-    float carbon = 0.0f;
-#pragma unroll
-    for (int z = 0; z < Z; ++z)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float kwh = nzc[z][c] * watts[c] * (1.0f / 1000.0f) * dt_hr;
-        const float g = kwh * carb[z];
-        carbon = (z == 0 && c == 0) ? g : carbon + g;
-      }
-    const float requests =
-        (fminf(running[0], demand[0]) + fminf(running[1], demand[1])) * rps *
-        dt_s;
-    const float load =
-        (demand[0] + demand[1]) / ((cap_ct[0] + cap_ct[1]) + kEps);
-    const float rho = fminf(fmaxf(load, 0.0f), kRhoClip);
-    const float lat =
-        lat_base * (1.0f + kCurveCoef * rho * rho / (1.0f - rho));
-    const float queue = pending[0] + pending[1];
-    const bool met = running[0] >= slo_frac * demand[0] - kEps &&
-                     running[1] >= slo_frac * demand[1] - kEps;
-    const float lat_ok = lat_slo > 0.0f ? (lat <= lat_slo ? 1.0f : 0.0f) : 1.0f;
-    const float slo_ok = (met ? 1.0f : 0.0f) * lat_ok;
-
-    // 8. accumulators: episode totals, then SummaryAcc.update.
-    acc_cost = acc_cost + cost;
-    acc_carbon = acc_carbon + carbon;
-    acc_req = acc_req + requests;
-    acc_slo = acc_slo + slo_ok * dt_s;
-    acc_evict = acc_evict + evicted;
-    float nbc[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float s = nodes[0][0][c];
-#pragma unroll
-      for (int i = 1; i < P * Z; ++i) s = s + nodes[i / Z][i % Z][c];
-      nbc[c] = s;
-      nct_sum[c] = nct_sum[c] + s;
-    }
-    const float capacity = ((nbc[0] + nbc[1]) + base_od) * ppn;
-    const float served = running[0] + running[1];
-    served_sum = served_sum + served;
-    capacity_sum = capacity_sum + capacity;
-    waste_sum = waste_sum + fmaxf(capacity - served, 0.0f);
-    lat_sum = lat_sum + lat;
-    lat_max = fmaxf(lat_max, lat);
-    queue_sum = queue_sum + queue;
-    int_sum = int_sum + interrupted_total;
+    tick<P, Z, K, STOCH>(k, s, a, e, b, t, k0, k1);
   }
-
-  const float vals[16] = {acc_cost,     acc_carbon, acc_req,    acc_slo,
-                          acc_evict,    nct_sum[0], nct_sum[1], served_sum,
-                          capacity_sum, waste_sum,  lat_sum,    lat_max,
-                          queue_sum,    int_sum,    0.0f,       0.0f};
-#pragma unroll
-  for (int r = 0; r < kOutRows; ++r)
-    out[(size_t)r * B + b] = r < 16 ? vals[r] : 0.0f;
+  s.store(out, B, b);
 }
 
 __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
@@ -476,18 +132,47 @@ __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
   }
 }
 
-template <int P, int Z, int K>
+template <int P, int Z, int K, bool CARBON>
 cudaError_t launch(const float* exo, float* out, const Profiles& pr, int T,
                    int B, int rows, uint32_t k0, uint32_t k1, bool stochastic,
                    cudaStream_t s) {
   const dim3 grid((B + kBlock - 1) / kBlock), block(kBlock);
   if (stochastic)
-    rollout_profiles_kernel<P, Z, K, true>
+    rollout_profiles_kernel<P, Z, K, true, CARBON>
         <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, k0, k1);
   else
-    rollout_profiles_kernel<P, Z, K, false>
+    rollout_profiles_kernel<P, Z, K, false, CARBON>
         <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, k0, k1);
   return cudaGetLastError();
+}
+
+// carbon: null for the rule profiles, else {sharpness, min_weight,
+// stickiness}.
+int run(const float* exo, float* out, const float* params,
+        const float* actions, int n_act, int P, int Z, int K, int T, int B,
+        int rows, unsigned long long seed, int stochastic,
+        const float* carbon, void* stream) {
+  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  Profiles pr;
+  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
+  for (int j = 0; j < 2; ++j)
+    for (int i = 0; i < kMaxAct; ++i)
+      pr.act[j][i] = i < n_act ? actions[j * n_act + i] : 0.0f;
+  for (int i = 0; i < 3; ++i) pr.carbon[i] = carbon ? carbon[i] : 0.0f;
+  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
+  const uint32_t k1 = (uint32_t)(seed >> 32);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool st = stochastic != 0;
+  if (P == 2 && Z == 3 && K == 3)
+    return (int)(carbon
+                     ? launch<2, 3, 3, true>(exo, out, pr, T, B, rows, k0, k1, st, s)
+                     : launch<2, 3, 3, false>(exo, out, pr, T, B, rows, k0, k1, st, s));
+  if (P == 2 && Z == 4 && K == 3)
+    return (int)(carbon
+                     ? launch<2, 4, 3, true>(exo, out, pr, T, B, rows, k0, k1, st, s)
+                     : launch<2, 4, 3, false>(exo, out, pr, T, B, rows, k0, k1, st, s));
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -502,23 +187,21 @@ extern "C" int ccka_rollout_profiles(const float* exo, float* out,
                                      int Z, int K, int T, int B, int rows,
                                      unsigned long long seed, int stochastic,
                                      void* stream) {
-  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1)
-    return (int)cudaErrorInvalidValue;
-  Profiles pr;
-  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
-  for (int j = 0; j < 2; ++j)
-    for (int i = 0; i < kMaxAct; ++i)
-      pr.act[j][i] = i < n_act ? actions[j * n_act + i] : 0.0f;
-  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
-  const uint32_t k1 = (uint32_t)(seed >> 32);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (P == 2 && Z == 3 && K == 3)
-    return (int)launch<2, 3, 3>(exo, out, pr, T, B, rows, k0, k1,
-                                stochastic != 0, s);
-  if (P == 2 && Z == 4 && K == 3)
-    return (int)launch<2, 4, 3>(exo, out, pr, T, B, rows, k0, k1,
-                                stochastic != 0, s);
-  return (int)cudaErrorInvalidValue;
+  return run(exo, out, params, actions, n_act, P, Z, K, T, B, rows, seed,
+             stochastic, nullptr, stream);
+}
+
+// As ccka_rollout_profiles, with the zone weights re-ranked by carbon.
+extern "C" int ccka_rollout_carbon(const float* exo, float* out,
+                                   const float* params, const float* actions,
+                                   int n_act, int P, int Z, int K, int T,
+                                   int B, int rows, unsigned long long seed,
+                                   int stochastic, float sharpness,
+                                   float min_weight, float stickiness,
+                                   void* stream) {
+  const float carbon[3] = {sharpness, min_weight, stickiness};
+  return run(exo, out, params, actions, n_act, P, Z, K, T, B, rows, seed,
+             stochastic, carbon, stream);
 }
 
 // out: device [3, n_ticks, n_rows, n_clusters] float32.

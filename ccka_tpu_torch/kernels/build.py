@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rollout_profiles.cu",)
+SOURCES = ("rollout_profiles.cu", "rollout_mlp.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -36,11 +36,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # PyTorch version's separate operations are.
               "-fmad=false", "-Xptxas", "-v")
 
-_VP, _I, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+_VP, _I, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                      ctypes.c_float)
+# The C interface of each source: function -> argument types.
 _SIGNATURES = {
-    "ccka_rollout_profiles": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                              _ULL, _I, _VP),
-    "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
+    "rollout_profiles.cu": {
+        "ccka_rollout_profiles": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                  _I, _ULL, _I, _VP),
+        "ccka_rollout_carbon": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                _I, _ULL, _I, _F, _F, _F, _VP),
+        "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
+    },
+    "rollout_mlp.cu": {
+        "ccka_rollout_mlp": (_VP,) * 11 + (_I,) * 10 + (_ULL, _I, _VP),
+    },
 }
 
 
@@ -59,8 +68,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library of ``source``, named by a hash of it, of every header
+    beside it and of the flags."""
+    digest = hashlib.sha256(
+        b"".join(f.read_bytes() for f in
+                 (CSRC / source, *sorted(CSRC.glob("*.cuh"))))
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 
@@ -98,10 +111,10 @@ def build_all() -> dict[str, tuple[Path, str, float]]:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build("rollout_profiles.cu")[0]))
-    for name, argtypes in _SIGNATURES.items():
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source`` (built on first use)."""
+    lib = ctypes.CDLL(str(build(source)[0]))
+    for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -124,29 +137,80 @@ def _require_cuda_f32(t: torch.Tensor, name: str) -> None:
                          f"(contiguous={t.is_contiguous()})")
 
 
+def _check_stream(exo: torch.Tensor, out: torch.Tensor, out_shape: tuple,
+                  T: int) -> None:
+    _require_cuda_f32(exo, "exo")
+    _require_cuda_f32(out, "out")
+    if tuple(out.shape) != out_shape or out.device != exo.device:
+        raise ValueError(f"out must be {list(out_shape)} on {exo.device}")
+    if T > exo.shape[0]:
+        raise ValueError(f"T={T} exceeds the stream's {exo.shape[0]} ticks")
+
+
 def launch_rollout_profiles(out: torch.Tensor, exo: torch.Tensor,
                             params: np.ndarray, actions: np.ndarray, *,
                             P: int, Z: int, K: int, T: int, seed: int,
-                            stochastic: bool) -> None:
+                            stochastic: bool,
+                            carbon: tuple | None = None) -> None:
     """Launch the rule-profile rollout kernel: ``exo`` [T_pad, rows, B],
     ``out`` [24, B] on one CUDA device; ``params`` [22] and ``actions``
-    [2, n_act] host float32."""
-    _require_cuda_f32(exo, "exo")
-    _require_cuda_f32(out, "out")
-    T_pad, rows, B = exo.shape
-    if out.shape != (24, B) or out.device != exo.device:
-        raise ValueError(f"out must be [24, {B}] on {exo.device}")
-    if T > T_pad:
-        raise ValueError(f"T={T} exceeds the stream's {T_pad} ticks")
+    [2, n_act] host float32. ``carbon`` = (sharpness, min_weight,
+    stickiness) launches its carbon-aware instantiation."""
+    _, rows, B = exo.shape
+    _check_stream(exo, out, (24, B), T)
     params = np.ascontiguousarray(params, np.float32)
     actions = np.ascontiguousarray(actions, np.float32)
     if params.shape != (22,) or actions.ndim != 2 or actions.shape[0] != 2:
         raise ValueError("params must be [22] and actions [2, n_act]")
-    err = library().ccka_rollout_profiles(
-        exo.data_ptr(), out.data_ptr(), params.ctypes.data,
-        actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
-        int(seed), int(stochastic), _stream(exo))
-    _check(err, f"rollout_profiles (P={P}, Z={Z}, K={K})")
+    lib = library("rollout_profiles.cu")
+    args = (exo.data_ptr(), out.data_ptr(), params.ctypes.data,
+            actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
+            int(seed), int(stochastic))
+    if carbon is None:
+        err = lib.ccka_rollout_profiles(*args, _stream(exo))
+    else:
+        err = lib.ccka_rollout_carbon(*args, *(float(c) for c in carbon),
+                                      _stream(exo))
+    _check(err, f"rollout_profiles (P={P}, Z={Z}, K={K}, "
+                f"carbon={carbon is not None})")
+
+
+def launch_rollout_mlp(out: torch.Tensor, exo: torch.Tensor,
+                       params: np.ndarray, slo: np.ndarray,
+                       codec: np.ndarray, weights: tuple, *, P: int, Z: int,
+                       K: int, T: int, seed: int, stochastic: bool) -> None:
+    """Launch the learned-policy rollout kernel: ``exo`` [T_pad, rows, B],
+    ``out`` [NP, 24, B]; ``weights`` = (w1 [NP, F, H], b1 [NP, H],
+    w2 [NP, H, H], b2 [NP, H]) bfloat16 and (w3 [NP, H, A], b3 [NP, A])
+    float32, contiguous on the stream's device; ``params`` [22], ``slo``
+    [P] and ``codec`` [4] host float32."""
+    _, rows, B = exo.shape
+    w1, b1, w2, b2, w3, b3 = weights
+    NP, F, H = w1.shape
+    A = w3.shape[-1]
+    _check_stream(exo, out, (NP, 24, B), T)
+    want = {"w1": (w1, (NP, F, H), torch.bfloat16),
+            "b1": (b1, (NP, H), torch.bfloat16),
+            "w2": (w2, (NP, H, H), torch.bfloat16),
+            "b2": (b2, (NP, H), torch.bfloat16),
+            "w3": (w3, (NP, H, A), torch.float32),
+            "b3": (b3, (NP, A), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if not (t.device == exo.device and t.dtype == dtype
+                and tuple(t.shape) == shape and t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"{list(shape)} on {exo.device}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
+    params = np.ascontiguousarray(params, np.float32)
+    slo = np.ascontiguousarray(slo, np.float32)
+    codec = np.ascontiguousarray(codec, np.float32)
+    if params.shape != (22,) or slo.shape != (P,) or codec.shape != (4,):
+        raise ValueError("params must be [22], slo [P] and codec [4]")
+    err = library("rollout_mlp.cu").ccka_rollout_mlp(
+        exo.data_ptr(), out.data_ptr(), params.ctypes.data, slo.ctypes.data,
+        codec.ctypes.data, *(t.data_ptr() for t in weights), NP, F, H, A,
+        P, Z, K, T, B, rows, int(seed), int(stochastic), _stream(exo))
+    _check(err, f"rollout_mlp (P={P}, Z={Z}, K={K}, F={F}, H={H}, A={A})")
 
 
 def launch_philox_uniforms(out: torch.Tensor, seed: int, tick0: int) -> None:
@@ -156,7 +220,7 @@ def launch_philox_uniforms(out: torch.Tensor, seed: int, tick0: int) -> None:
     if out.dim() != 4 or out.shape[0] != 3:
         raise ValueError("out must be [3, n_ticks, n_rows, n_clusters]")
     _, n_ticks, n_rows, n_clusters = out.shape
-    err = library().ccka_philox_uniforms(
+    err = library("rollout_profiles.cu").ccka_philox_uniforms(
         out.data_ptr(), int(seed), int(tick0), n_ticks, n_rows, n_clusters,
         _stream(out))
     _check(err, "philox_uniforms")

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ccka_tpu_torch.sim.dynamics import ExoStep
+from ccka_tpu_torch.sim.dynamics import ExoStep, seqsum
 from ccka_tpu_torch.sim.types import Action, ClusterState, SimParams
 
 
@@ -40,7 +40,8 @@ def observe(params: SimParams, state: ClusterState,
             exo: ExoStep) -> Observation:
     return Observation(
         nodes_pzc=state.nodes,
-        pipeline_ct=state.pipeline.sum(dim=(1, 2, 3)),
+        # Chained over (k, p, z), the order the CUDA kernels add in.
+        pipeline_ct=seqsum(state.pipeline, (1, 2, 3)),
         running=state.running,
         demand=exo.demand_pods,
         spot_price_hr=exo.spot_price_hr,

@@ -1,2 +1,2 @@
 """The cluster simulator: types, dynamics, metrics, rollouts and the
-rule-profile rollout kernel's host side."""
+rollout kernels' host side."""

@@ -7,8 +7,8 @@ batch of clusters at once (every tensor leads with B).
 
 Arithmetic order is part of the contract. Sums over the small pool, zone
 and capacity-type axes are written as one left-to-right chain
-(:func:`seqsum`), and the softmax is spelled out, so that the CUDA kernel
-(`csrc/rollout_profiles.cu`), which steps one cluster per thread in
+(:func:`seqsum`), and the softmax is spelled out, so that the CUDA kernels'
+tick (`csrc/rollout_tick.cuh`), which steps one cluster per thread in
 registers, can add in the same order and round alike. The step is
 differentiable in deterministic mode.
 """

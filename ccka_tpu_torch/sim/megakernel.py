@@ -1,21 +1,33 @@
-"""Host side of the rule-profile rollout kernel: pack, launch, finalize.
+"""Host side of the rollout kernels: pack, launch, finalize.
 
-The PyTorch form of `ccka_tpu/sim/megakernel.py`'s profiles path. One
-kernel launch (`csrc/rollout_profiles.cu`) steps a whole fleet through the
-whole horizon under the Peak/Off-Peak rule and emits the per-cluster
-accumulators as an [24, B] block; :func:`_finalize` turns that block into
-an EpisodeSummary with the same reduction code the plain rollout uses.
+The PyTorch form of `ccka_tpu/sim/megakernel.py`'s profiles, carbon and
+mlp paths. One kernel launch steps a whole fleet through the whole horizon
+and emits the per-cluster accumulators as an [24, B] block;
+:func:`_finalize` turns that block into an EpisodeSummary with the same
+reduction code the plain rollout uses. Three policies, one entry pair
+each (from [B, T, ...] traces, or from an already packed stream):
 
-Contract: the same function as ``batched_rollout_summary(params,
-initial_state(...), RulePolicy(...).action_fn(), traces, seed,
-stochastic=...)`` (`sim/rollout.py`). Both draw their spot interruptions
-from the one Philox stream of `sim/random.py`, so the two agree per
-cluster in both modes, up to float rounding that a threshold gate may
-amplify in a rare cluster.
+- the Peak/Off-Peak rule (`csrc/rollout_profiles.cu`):
+  :func:`megakernel_rollout_summary`;
+- the carbon-aware re-rank of the rule's zone weights (the same kernel's
+  carbon instantiation): :func:`carbon_megakernel_rollout_summary`;
+- a learned ActorCritic policy, or a population of them
+  (`csrc/rollout_mlp.cu`): :func:`neural_megakernel_rollout_summary`.
+
+Contract: each is the same function as ``batched_rollout_summary(params,
+initial_state(...), action_fn, traces, seed, stochastic=...)``
+(`sim/rollout.py`) under ``RulePolicy``, ``CarbonAwarePolicy`` or
+:func:`kernel_numerics_action_fn`. All draw their spot interruptions from
+the one Philox stream of `sim/random.py`, addressed by (seed, cluster,
+tick, spot row) and never by the policy: runs of different policies on one
+seed and stream are paired world for world, and a kernel agrees with its
+plain version per cluster in both modes, up to float rounding that a
+threshold gate (or, for the learned policy, the feedback through a bf16
+net) may amplify.
 
 Device rule: a stream on a CUDA device launches the kernel (or raises); a
-stream on the CPU runs the plain version. ``megakernel_summary_from_packed
-.launches`` counts the kernel launches.
+stream on the CPU runs the plain version. Each ``*_summary_from_packed``
+entry counts its kernel launches in its ``launches`` attribute.
 
 As in the JAX package, workload class c consumes capacity type c
 (``SimParams.class_ct`` is the identity by construction).
@@ -29,6 +41,7 @@ import numpy as np
 import torch
 
 from ccka_tpu_torch import resolve_device
+from ccka_tpu_torch.config import ClusterConfig
 from ccka_tpu_torch.signals.base import ExogenousTrace
 from ccka_tpu_torch.sim.metrics import EpisodeSummary, SummaryAcc
 from ccka_tpu_torch.sim.types import Action, ClusterState, SimParams
@@ -113,12 +126,6 @@ def unpack_exo(exo_packed: torch.Tensor, T: int, Z: int) -> ExogenousTrace:
         is_peak=x[:, 3 * Z + 2].permute(1, 0))
 
 
-def _meta(T: int, stochastic: bool, seed: int, t0: int = 0) -> torch.Tensor:
-    """[1, 4] int64: horizon, stochastic flag, seed, first global tick."""
-    return torch.tensor([[T, int(stochastic), int(seed), t0]],
-                        dtype=torch.int64)
-
-
 def _finalize(params: SimParams, out: torch.Tensor, T: int) -> EpisodeSummary:
     """Kernel output rows [OUT_ROWS, B] -> EpisodeSummary batch, through
     the plain rollout's own `finalize_summary`."""
@@ -161,6 +168,14 @@ MEAN_PARITY_TOLERANCES = {
     "batch_backlog_mean": 0.05,
 }
 DEFAULT_MEAN_PARITY_TOL = 0.005
+
+# The learned policy's extra latitude, on top of the shared table: a bf16
+# feedback policy amplifies rounding differences in the net forward into a
+# small systematic fleet-size offset. The scoreboard fields stay under the
+# shared tolerances; only the two fleet-shape diagnostics widen.
+NEURAL_MEAN_PARITY_TOLERANCES = {
+    "mean_nodes": 0.02, "waste_frac": 0.02,
+}
 
 
 def mean_parity_violations(kernel_summary, lax_summary,
@@ -223,52 +238,334 @@ def megakernel_summary_from_packed(params: SimParams, off_action: Action,
     """Rule-profile EpisodeSummary from a packed ``[T_pad, exo_rows, B]``
     stream (``T`` is the true horizon). A CUDA stream launches the kernel;
     a CPU stream runs the plain rollout on the unpacked views."""
-    P, Z = off_action.zone_weight.shape
-    K = int(params.provision_pipeline_k)
-    T_pad, rows, B = exo_packed.shape
-    if rows != exo_rows(Z) or T_pad < T or B < 1:
-        raise ValueError(f"packed stream {tuple(exo_packed.shape)} does not "
-                         f"fit T={T}, Z={Z} (rows must be {exo_rows(Z)})")
-    if exo_packed.device.type == "cpu":
-        return _plain_summary(params, off_action, peak_action,
-                              unpack_exo(exo_packed, T, Z), seed, stochastic)
-    if exo_packed.device.type != "cuda":
-        raise ValueError(f"unsupported device {exo_packed.device}")
-    if (P, Z, K) not in KERNEL_TOPOLOGIES:
-        raise ValueError(f"the rollout kernel is built for (P, Z, K) in "
-                         f"{KERNEL_TOPOLOGIES}, not {(P, Z, K)}")
-    from ccka_tpu_torch.kernels import build
-    from ccka_tpu_torch.sim.random import seed_key
-
-    seed_key(seed)  # range check: the kernel keys Philox by its 64 bits
-    meta = _meta(T, stochastic, seed)
-    acts = torch.stack([_pack_action(off_action), _pack_action(peak_action)])
-    out = torch.empty((_OUT_ROWS, B), dtype=torch.float32,
-                      device=exo_packed.device)
-    build.launch_rollout_profiles(
-        out, exo_packed,
-        _pack_params(params).cpu().numpy().ravel(),
-        acts.cpu().numpy(), P=P, Z=Z, K=K, T=int(meta[0, 0]),
-        seed=int(meta[0, 2]), stochastic=bool(meta[0, 1]))
-    megakernel_summary_from_packed.launches += 1
-    return _finalize(params, out, T)
+    return _profiles_summary(megakernel_summary_from_packed, params,
+                             off_action, peak_action, exo_packed, T, seed,
+                             stochastic, None)
 
 
 megakernel_summary_from_packed.launches = 0
 
 
-def _plain_summary(params, off, peak, traces, seed, stochastic):
-    """The kernel's plain version: the rule-policy rollout of
-    `sim/rollout.py` from fresh clusters."""
-    from ccka_tpu_torch.policy.rule import select_profile
+def carbon_megakernel_rollout_summary(params: SimParams, off_action: Action,
+                                      peak_action: Action,
+                                      traces: ExogenousTrace, seed: int = 0,
+                                      *, sharpness: float = 10.0,
+                                      min_weight: float = 0.05,
+                                      stickiness: float = 1.0,
+                                      stochastic: bool = True,
+                                      device=None) -> EpisodeSummary:
+    """EpisodeSummary batch for a fresh-state CarbonAwarePolicy rollout
+    (`policy/carbon.py`) of [B, T, ...] ``traces``: the carbon teacher at
+    kernel speed. Keyword defaults mirror CarbonAwarePolicy's. Same-seed
+    runs are paired with the other kernel entries."""
+    dev = resolve_device(device)
+    traces = traces.to(dev)
+    T = traces.is_peak.shape[1]
+    return carbon_megakernel_summary_from_packed(
+        _to(params, dev), _to(off_action, dev), _to(peak_action, dev),
+        _pack_exo(traces, T), T, seed, sharpness=sharpness,
+        min_weight=min_weight, stickiness=stickiness, stochastic=stochastic)
+
+
+def carbon_megakernel_summary_from_packed(params: SimParams,
+                                          off_action: Action,
+                                          peak_action: Action,
+                                          exo_packed: torch.Tensor, T: int,
+                                          seed: int = 0, *,
+                                          sharpness: float = 10.0,
+                                          min_weight: float = 0.05,
+                                          stickiness: float = 1.0,
+                                          stochastic: bool = True
+                                          ) -> EpisodeSummary:
+    """CarbonAwarePolicy EpisodeSummary from a packed stream: the packed
+    analog of :func:`carbon_megakernel_rollout_summary`."""
+    return _profiles_summary(
+        carbon_megakernel_summary_from_packed, params, off_action,
+        peak_action, exo_packed, T, seed, stochastic,
+        (float(sharpness), float(min_weight), float(stickiness)))
+
+
+carbon_megakernel_summary_from_packed.launches = 0
+
+
+def _check_packed(exo_packed: torch.Tensor, T: int, P: int, Z: int,
+                  K: int) -> None:
+    """Refuse a stream that does not fit the horizon and topology, a
+    device that is neither CPU nor CUDA, and on CUDA a topology the
+    kernels are not built for."""
+    T_pad, rows, B = exo_packed.shape
+    if rows != exo_rows(Z) or T_pad < T or B < 1:
+        raise ValueError(f"packed stream {tuple(exo_packed.shape)} does not "
+                         f"fit T={T}, Z={Z} (rows must be {exo_rows(Z)})")
+    if exo_packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {exo_packed.device}")
+    if exo_packed.device.type == "cuda" and (P, Z, K) not in KERNEL_TOPOLOGIES:
+        raise ValueError(f"the rollout kernel is built for (P, Z, K) in "
+                         f"{KERNEL_TOPOLOGIES}, not {(P, Z, K)}")
+
+
+def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
+                      seed, stochastic, carbon) -> EpisodeSummary:
+    """The rule (``carbon`` None) or carbon-aware rollout on a packed
+    stream; a kernel launch is counted on ``entry``."""
+    from ccka_tpu_torch.sim.random import seed_key
+
+    P, Z = off_action.zone_weight.shape
+    K = int(params.provision_pipeline_k)
+    _check_packed(exo_packed, T, P, Z, K)
+    seed_key(seed)  # range check: the kernel keys Philox by its 64 bits
+    if exo_packed.device.type == "cpu":
+        return _plain_summary(params, off_action, peak_action,
+                              unpack_exo(exo_packed, T, Z), seed, stochastic,
+                              carbon)
+    from ccka_tpu_torch.kernels import build
+
+    acts = torch.stack([_pack_action(off_action), _pack_action(peak_action)])
+    out = torch.empty((_OUT_ROWS, exo_packed.shape[2]), dtype=torch.float32,
+                      device=exo_packed.device)
+    build.launch_rollout_profiles(
+        out, exo_packed,
+        _pack_params(params).cpu().numpy().ravel(),
+        acts.cpu().numpy(), P=P, Z=Z, K=K, T=int(T), seed=int(seed),
+        stochastic=bool(stochastic), carbon=carbon)
+    entry.launches += 1
+    return _finalize(params, out, T)
+
+
+def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic):
+    """`sim/rollout.py`'s rollout of fresh clusters under ``action_fn``."""
     from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
                                             fresh_state)
 
-    B = traces.is_peak.shape[0]
+    states0 = fresh_state(P, Z, int(params.provision_pipeline_k),
+                          traces.is_peak.shape[0], traces.is_peak.device)
+    return batched_rollout_summary(params, states0, action_fn, traces, seed,
+                                   stochastic=stochastic)[1]
+
+
+def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None):
+    """The profile kernel's plain version: the rule-policy rollout from
+    fresh clusters, or with ``carbon`` the CarbonAwarePolicy's zone
+    weights over the same two profiles."""
+    from ccka_tpu_torch.policy.carbon import carbon_aware_action
+    from ccka_tpu_torch.policy.rule import select_profile
+
+    def rule(s, e, t):
+        return select_profile(e.is_peak, off, peak)
+
+    def carbon_aware(s, e, t):
+        return carbon_aware_action(off, peak, s, e, sharpness=carbon[0],
+                                   min_weight=carbon[1], stickiness=carbon[2])
+
     P, Z = off.zone_weight.shape
-    states0 = fresh_state(P, Z, int(params.provision_pipeline_k), B,
-                          traces.is_peak.device)
-    _, summary = batched_rollout_summary(
-        params, states0, lambda s, e, t: select_profile(e.is_peak, off, peak),
-        traces, seed, stochastic=stochastic)
+    return _plain_rollout(params, P, Z, rule if carbon is None
+                          else carbon_aware, traces, seed, stochastic)
+
+
+# ---------------------------------------------------------------------------
+# The learned policy: an ActorCritic's mean action, fused into the rollout.
+
+
+def _act_rows(P: int, Z: int) -> int:
+    """Action coordinates (= the latent width): P*Z + 4P + 2."""
+    return P * Z + 4 * P + 2
+
+
+def _obs_dim(P: int, Z: int) -> int:
+    """`observe(...).flatten()` length: nodes P*Z*2 + pipeline_ct 2 +
+    running 2 + demand 2 + 3 price/carbon vectors [Z] + is_peak + tod."""
+    return 2 * P * Z + 3 * Z + 8
+
+
+def _mlp_dims(net_params: dict, *, P: int, Z: int):
+    """Validate an ActorCritic params tree against the topology; returns
+    ``((F, H, A), was_single)``: observation, hidden and latent widths,
+    and whether the leaves lack the leading population axis."""
+    pp = net_params["params"]
+    extra = sorted(k for k in pp
+                   if k.startswith("Dense_") and k not in ("Dense_0",
+                                                           "Dense_1"))
+    if extra:
+        # Truncating a deeper torso would score a different policy than
+        # PPOBackend runs.
+        raise ValueError(f"kernel supports exactly two torso layers; net "
+                         f"has extra {extra}")
+    w1 = pp["Dense_0"]["kernel"]
+    was_single = w1.ndim == 2
+    F, H = w1.shape[-2:]
+    A = pp["actor_mean"]["kernel"].shape[-1]
+    if F != _obs_dim(P, Z):
+        raise ValueError(f"net expects obs dim {F}, topology gives "
+                         f"{_obs_dim(P, Z)}")
+    if A != _act_rows(P, Z):
+        raise ValueError(f"net emits latent dim {A}, topology needs "
+                         f"{_act_rows(P, Z)}")
+    return (int(F), int(H), int(A)), was_single
+
+
+def _pack_mlp_tensors(net_params: dict, device) -> tuple:
+    """Stacked ActorCritic params -> the kernel's weight tensors on
+    ``device``: (w1 [NP, F, H], b1 [NP, H], w2 [NP, H, H], b2 [NP, H])
+    bfloat16 and (w3 [NP, H, A], b3 [NP, A]) float32, contiguous. Weights
+    keep the tree's [in, out] layout; a single tree gets NP = 1."""
+    pp = net_params["params"]
+
+    def leaf(layer, name, dtype):
+        x = torch.as_tensor(np.asarray(pp[layer][name], np.float32),
+                            device=device)
+        if x.dim() == (1 if name == "bias" else 2):
+            x = x[None]
+        return x.to(dtype).contiguous()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return (leaf("Dense_0", "kernel", bf16), leaf("Dense_0", "bias", bf16),
+            leaf("Dense_1", "kernel", bf16), leaf("Dense_1", "bias", bf16),
+            leaf("actor_mean", "kernel", f32), leaf("actor_mean", "bias", f32))
+
+
+def _chained_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, IN] x [IN, OUT] in float32 as one chain over k in ascending
+    order, ``acc = acc + x[:, k] * w[k]`` from zero: the order in which the
+    CUDA kernel's thread adds."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(w.shape[0]):
+        acc = torch.addcmul(acc, x[:, k:k + 1], w[k:k + 1])
+    return acc
+
+
+def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
+                              params_sim: SimParams):
+    """The MLP kernel's plain version: an ``action_fn`` for
+    `sim/rollout.py` with the kernel's numerics (log1p-normalized
+    observation in bfloat16; two torso layers whose float32 sums are
+    rounded once to bfloat16, the bias added in bfloat16 and the tanh-form
+    GELU computed operation by operation in bfloat16, `models/nets.py
+    ::gelu_tanh`; a float32 head; the latent codec). It
+    differs from `train/ppo.py::PPOBackend` only in where bfloat16 rounds.
+
+    Every product is a chained float32 sum over k in ascending order
+    (:func:`_chained_product`), not ``torch.matmul``: a product of two
+    bfloat16 values is exact in float32, so the torso sums equal the
+    kernel's bit for bit on any device and whatever the TF32 settings;
+    the head's float32 products round once each in a fused multiply-add on
+    the card, as the kernel's do."""
+    from ccka_tpu_torch.models.nets import (_normalize_obs, gelu_tanh,
+                                            latent_to_action)
+    from ccka_tpu_torch.policy.base import observe
+
+    (_, _, _), was_single = _mlp_dims(
+        net_params, P=cluster.n_pools, Z=cluster.n_zones)
+    if not was_single:
+        raise ValueError("kernel_numerics_action_fn takes one net, not a "
+                         "population")
+    dev = params_sim.dt_s.device
+    w1, b1, w2, b2, w3, b3 = (x[0] for x in _pack_mlp_tensors(net_params,
+                                                               dev))
+    w1f, w2f = w1.to(torch.float32), w2.to(torch.float32)
+
+    def action_fn(state, exo, t):
+        obs = observe(params_sim, state, exo).flatten()
+        x = _normalize_obs(obs).to(torch.bfloat16)
+        h = gelu_tanh(_chained_product(x.to(torch.float32), w1f)
+                      .to(torch.bfloat16) + b1)
+        h = gelu_tanh(_chained_product(h.to(torch.float32), w2f)
+                      .to(torch.bfloat16) + b2)
+        u = _chained_product(h.to(torch.float32), w3) + b3
+        return latent_to_action(u, cluster)
+
+    return action_fn
+
+
+def neural_megakernel_rollout_summary(params: SimParams,
+                                      cluster: ClusterConfig,
+                                      net_params: dict,
+                                      traces: ExogenousTrace, seed: int = 0,
+                                      *, stochastic: bool = True,
+                                      device=None) -> EpisodeSummary:
+    """EpisodeSummary batch for fresh-state rollouts of the deterministic
+    learned policy ``latent_to_action(actor_mean(obs))`` (PPOBackend's
+    decide) fused into the kernel.
+
+    ``net_params``: an ActorCritic params tree (the checkpoints' layout);
+    a leading population axis on every leaf makes this one launch over
+    (member, cluster) returning fields ``[NP, B]`` (a single tree gives
+    ``[B]``). All members see the same world randomness, and the same seed
+    pairs them with the rule and carbon kernels. ``cluster`` gives the
+    SLO-pool mask of the fused feasibility projection."""
+    dev = resolve_device(device)
+    traces = traces.to(dev)
+    T = traces.is_peak.shape[1]
+    return neural_megakernel_summary_from_packed(
+        _to(params, dev), cluster, net_params, _pack_exo(traces, T), T, seed,
+        stochastic=stochastic)
+
+
+def neural_megakernel_summary_from_packed(params: SimParams,
+                                          cluster: ClusterConfig,
+                                          net_params: dict,
+                                          exo_packed: torch.Tensor, T: int,
+                                          seed: int = 0, *,
+                                          stochastic: bool = True
+                                          ) -> EpisodeSummary:
+    """Population-MLP EpisodeSummary from a packed stream: the packed
+    analog of :func:`neural_megakernel_rollout_summary`. A CUDA stream
+    launches the kernel once for the whole population and horizon; a CPU
+    stream runs :func:`kernel_numerics_action_fn` member by member."""
+    from ccka_tpu_torch.models.nets import (AFTER_MAX_S, HPA_BIAS, HPA_HI,
+                                            HPA_LO)
+    from ccka_tpu_torch.policy.constraints import slo_pool_mask
+    from ccka_tpu_torch.sim.random import seed_key
+
+    P, Z = cluster.n_pools, cluster.n_zones
+    K = int(params.provision_pipeline_k)
+    _check_packed(exo_packed, T, P, Z, K)
+    seed_key(seed)
+    (_, H, _), was_single = _mlp_dims(net_params, P=P, Z=Z)
+    dev = exo_packed.device
+    B = exo_packed.shape[2]
+    if dev.type == "cpu":
+        stacked = net_params if not was_single else _tree_map(
+            lambda x: np.asarray(x)[None], net_params)
+        n_members = stacked["params"]["Dense_0"]["kernel"].shape[0]
+        traces = unpack_exo(exo_packed, T, Z)
+        members = [_plain_rollout(
+            params, P, Z, kernel_numerics_action_fn(
+                _tree_map(lambda x: np.asarray(x)[i], stacked), cluster,
+                params), traces, seed, stochastic) for i in range(n_members)]
+        summary = EpisodeSummary(*(torch.stack(xs) for xs in zip(*members)))
+    else:
+        if H != 128:
+            raise ValueError(f"the MLP rollout kernel is built for hidden "
+                             f"width 128, not {H}")
+        from ccka_tpu_torch.kernels import build
+
+        weights = _pack_mlp_tensors(net_params, dev)
+        n_members = weights[0].shape[0]
+        out = torch.empty((n_members, _OUT_ROWS, B), dtype=torch.float32,
+                          device=dev)
+        build.launch_rollout_mlp(
+            out, exo_packed, _pack_params(params).cpu().numpy().ravel(),
+            slo_pool_mask(cluster, "cpu").numpy(),
+            np.array([AFTER_MAX_S, HPA_LO, HPA_HI - HPA_LO, HPA_BIAS],
+                     np.float32),
+            weights, P=P, Z=Z, K=K, T=int(T), seed=int(seed),
+            stochastic=bool(stochastic))
+        neural_megakernel_summary_from_packed.launches += 1
+        # Finalize all members at once: [NP, 24, B] -> [24, NP * B].
+        flat = _finalize(params, out.permute(1, 0, 2).reshape(_OUT_ROWS, -1),
+                         T)
+        summary = EpisodeSummary(*(x.reshape(n_members, B) for x in flat))
+    if was_single:
+        summary = EpisodeSummary(*(x[0] for x in summary))
     return summary
+
+
+neural_megakernel_summary_from_packed.launches = 0
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)

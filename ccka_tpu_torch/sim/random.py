@@ -20,7 +20,7 @@ or in blocks, a horizon taken at once or in time chunks, and any policy
 scored on the same seed draw the same numbers by construction: runs of two
 policies on one seed are paired, and no seed-stride arithmetic is needed
 to keep blocked or sharded runs equal to whole ones. The CUDA kernels
-(`csrc/rollout_profiles.cu`) compute the same function bit for bit.
+(`csrc/rollout_tick.cuh`) compute the same function bit for bit.
 
 Arithmetic is in int64 with 32-bit masks: the 32x32 -> 64-bit products are
 split into 16-bit halves so that no intermediate overflows int64.

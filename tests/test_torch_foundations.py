@@ -19,12 +19,15 @@ import ccka_tpu_torch.config as tcfg
 from ccka_tpu.signals.synthetic import SyntheticSignalSource as JSource
 from ccka_tpu.sim import SimParams as JSimParams
 from ccka_tpu_torch import bridge
+from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
 from ccka_tpu_torch.policy.rule import RulePolicy, offpeak_action, peak_action
 from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
 from ccka_tpu_torch.sim import megakernel as mk
 from ccka_tpu_torch.sim import random as prandom
 from ccka_tpu_torch.sim.rollout import initial_state
 from ccka_tpu_torch.sim.types import Action, SimParams
+from ccka_tpu_torch.train.flagship import load_flagship_backend
+from ccka_tpu_torch.train.ppo import PPOBackend
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESET_NAMES = ("default", "multiregion")
@@ -174,6 +177,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         lambda: src.batch_trace(8, [0]),
         lambda: src.batch_trace_device(8, torch.Generator(), 4),
         lambda: bridge.sim_params({}),
+        lambda: CarbonAwarePolicy(cfg.cluster),
+        lambda: PPOBackend(cfg, {"params": {}}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -181,10 +186,18 @@ def test_entry_points_raise_without_cuda(no_cuda):
     # The kernel path raises too, rather than running on the CPU.
     params = SimParams.from_config(cfg, device="cpu")
     tr = src.batch_trace(8, range(2), device="cpu")
+    off, peak = offpeak_action(cfg.cluster, "cpu"), peak_action(cfg.cluster,
+                                                                "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        mk.megakernel_rollout_summary(params, offpeak_action(cfg.cluster,
-                                                             "cpu"),
-                                      peak_action(cfg.cluster, "cpu"), tr)
+        mk.megakernel_rollout_summary(params, off, peak, tr)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mk.carbon_megakernel_rollout_summary(params, off, peak, tr)
+    net = load_flagship_backend(cfg, variant="replay", device="cpu")[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mk.neural_megakernel_rollout_summary(params, cfg.cluster, net.params,
+                                             tr)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_flagship_backend(cfg, variant="replay")
 
 
 def test_entry_points_run_on_cpu_when_asked(no_cuda):
@@ -198,7 +211,7 @@ def test_entry_points_run_on_cpu_when_asked(no_cuda):
 _BLOCKER = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "ccka_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "optax", "ccka_tpu")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -217,7 +230,9 @@ names = [m.name for m in pkgutil.walk_packages(ccka_tpu_torch.__path__,
                                                 "ccka_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "ccka_tpu_torch.kernels.build" in names, names
+for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
+             "train.checkpoint", "train.ppo", "train.flagship"):
+    assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
 from ccka_tpu_torch import default_config
@@ -235,6 +250,27 @@ s = megakernel_rollout_summary(
     offpeak_action(cfg.cluster, "cpu"), peak_action(cfg.cluster, "cpu"),
     tr, seed=3, stochastic=True, device="cpu")
 assert s.cost_usd.shape == (4,) and bool(torch.isfinite(s.cost_usd).all())
+
+# The three-policy path: the carbon teacher and the shipped flagship.
+from ccka_tpu_torch import PRESETS
+from ccka_tpu_torch.sim.megakernel import (
+    carbon_megakernel_rollout_summary, neural_megakernel_rollout_summary)
+from ccka_tpu_torch.train.flagship import load_flagship_backend
+
+cfg = PRESETS["multiregion"]()
+src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim, cfg.signals)
+tr = src.batch_trace_device(8, torch.Generator().manual_seed(1), 4,
+                            device="cpu")
+params = SimParams.from_config(cfg, device="cpu")
+c = carbon_megakernel_rollout_summary(
+    params, offpeak_action(cfg.cluster, "cpu"),
+    peak_action(cfg.cluster, "cpu"), tr, seed=3, device="cpu")
+backend, meta = load_flagship_backend(cfg, device="cpu")
+n = neural_megakernel_rollout_summary(params, cfg.cluster, backend.params,
+                                      tr, seed=3, device="cpu")
+for x in (c, n):
+    assert x.cost_usd.shape == (4,)
+    assert bool(torch.isfinite(x.cost_usd).all())
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """
@@ -251,8 +287,14 @@ def test_sources_ship_with_the_package():
     """The kernel source sits in the package and nothing is prebuilt."""
     from ccka_tpu_torch.kernels import build
 
+    assert set(build.SOURCES) == {"rollout_profiles.cu", "rollout_mlp.cu"}
+    assert set(build._SIGNATURES) == set(build.SOURCES)
     for src in build.SOURCES:
         assert (build.CSRC / src).is_file()
+        # Every header a source includes ships beside it.
+        for line in (build.CSRC / src).read_text().splitlines():
+            if line.startswith('#include "'):
+                assert (build.CSRC / line.split('"')[1]).is_file(), line
     assert "-gencode" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert all("fast_math" not in f for f in build.NVCC_FLAGS)
