@@ -146,12 +146,20 @@ cudaError_t launch(const float* exo, float* out, const Profiles& pr, int T,
   return cudaGetLastError();
 }
 
-// carbon: null for the rule profiles, else {sharpness, min_weight,
-// stickiness}.
-int run(const float* exo, float* out, const float* params,
-        const float* actions, int n_act, int P, int Z, int K, int T, int B,
-        int rows, unsigned long long seed, int stochastic,
-        const float* carbon, void* stream) {
+}  // namespace
+
+// exo: device [T_pad >= T, rows, B] float32; out: device [24, B] float32;
+// params: host [22] float32; actions: host [2, n_act] float32 (off-peak,
+// peak); carbon: null for the rule profiles, else host {sharpness,
+// min_weight, stickiness}, which re-rank the zone weights by carbon.
+// Returns a cudaError_t; cudaErrorInvalidValue for a topology or size the
+// kernel is not built for.
+extern "C" int ccka_rollout_profiles(const float* exo, float* out,
+                                     const float* params,
+                                     const float* actions, int n_act, int P,
+                                     int Z, int K, int T, int B, int rows,
+                                     unsigned long long seed, int stochastic,
+                                     const float* carbon, void* stream) {
   if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   Profiles pr;
@@ -173,35 +181,6 @@ int run(const float* exo, float* out, const float* params,
                      ? launch<2, 4, 3, true>(exo, out, pr, T, B, rows, k0, k1, st, s)
                      : launch<2, 4, 3, false>(exo, out, pr, T, B, rows, k0, k1, st, s));
   return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// exo: device [T_pad >= T, rows, B] float32; out: device [24, B] float32;
-// params: host [22] float32; actions: host [2, n_act] float32 (off-peak,
-// peak). Returns a cudaError_t; cudaErrorInvalidValue for a topology or
-// size the kernel is not built for.
-extern "C" int ccka_rollout_profiles(const float* exo, float* out,
-                                     const float* params,
-                                     const float* actions, int n_act, int P,
-                                     int Z, int K, int T, int B, int rows,
-                                     unsigned long long seed, int stochastic,
-                                     void* stream) {
-  return run(exo, out, params, actions, n_act, P, Z, K, T, B, rows, seed,
-             stochastic, nullptr, stream);
-}
-
-// As ccka_rollout_profiles, with the zone weights re-ranked by carbon.
-extern "C" int ccka_rollout_carbon(const float* exo, float* out,
-                                   const float* params, const float* actions,
-                                   int n_act, int P, int Z, int K, int T,
-                                   int B, int rows, unsigned long long seed,
-                                   int stochastic, float sharpness,
-                                   float min_weight, float stickiness,
-                                   void* stream) {
-  const float carbon[3] = {sharpness, min_weight, stickiness};
-  return run(exo, out, params, actions, n_act, P, Z, K, T, B, rows, seed,
-             stochastic, carbon, stream);
 }
 
 // out: device [3, n_ticks, n_rows, n_clusters] float32.

@@ -36,15 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # PyTorch version's separate operations are.
               "-fmad=false", "-Xptxas", "-v")
 
-_VP, _I, _ULL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
-                      ctypes.c_float)
+_VP, _I, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 # The C interface of each source: function -> argument types.
 _SIGNATURES = {
     "rollout_profiles.cu": {
         "ccka_rollout_profiles": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                                  _I, _ULL, _I, _VP),
-        "ccka_rollout_carbon": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                                _I, _ULL, _I, _F, _F, _F, _VP),
+                                  _I, _ULL, _I, _VP, _VP),
         "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
     },
     "rollout_mlp.cu": {
@@ -162,15 +159,16 @@ def launch_rollout_profiles(out: torch.Tensor, exo: torch.Tensor,
     actions = np.ascontiguousarray(actions, np.float32)
     if params.shape != (22,) or actions.ndim != 2 or actions.shape[0] != 2:
         raise ValueError("params must be [22] and actions [2, n_act]")
-    lib = library("rollout_profiles.cu")
-    args = (exo.data_ptr(), out.data_ptr(), params.ctypes.data,
-            actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
-            int(seed), int(stochastic))
-    if carbon is None:
-        err = lib.ccka_rollout_profiles(*args, _stream(exo))
-    else:
-        err = lib.ccka_rollout_carbon(*args, *(float(c) for c in carbon),
-                                      _stream(exo))
+    if carbon is not None:
+        carbon = np.ascontiguousarray(carbon, np.float32)
+        if carbon.shape != (3,):
+            raise ValueError("carbon must be (sharpness, min_weight, "
+                             "stickiness)")
+    err = library("rollout_profiles.cu").ccka_rollout_profiles(
+        exo.data_ptr(), out.data_ptr(), params.ctypes.data,
+        actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
+        int(seed), int(stochastic),
+        None if carbon is None else carbon.ctypes.data, _stream(exo))
     _check(err, f"rollout_profiles (P={P}, Z={Z}, K={K}, "
                 f"carbon={carbon is not None})")
 

@@ -16,8 +16,9 @@ any failure ends the run with a nonzero exit code:
    kernel is on no rollout path (the rollout kernels inline the same
    device function); its launch count is this phase's;
 4. default preset, B = 8192 x T = 2880, deterministic and stochastic, and
-   multiregion preset, B = 1024 x T = 2880, deterministic: the rule kernel
-   and the carbon kernel, each against its plain version (deterministic:
+   multiregion preset, B = 1024, deterministic over T = 2880 and
+   stochastic over T = 720 (phase 7 holds that mode over the whole day):
+   the rule kernel and the carbon kernel, each against its plain version (deterministic:
    batch means within 1e-4 relative, at least 99.9 % of clusters within
    2e-3 on every field; stochastic: `mean_parity_violations` empty, at
    least 99 % of clusters within 2e-3), with whether they are bitwise
@@ -40,8 +41,8 @@ any failure ends the run with a nonzero exit code:
    trace synthesis, one `_pack_exo`, then the rule, carbon and neural
    `*_summary_from_packed` entries on that stream and seed, with all
    launch counters zeroed just before and read just after, before any
-   plain version runs; then the carbon and MLP results held against their
-   plain versions on the same stream; the three policies' fleet means;
+   plain version runs; then all three results held against their plain
+   versions on the same stream; the three policies' fleet means;
    each kernel's median time of 5 launches, its bound and cluster-days/s;
 8. the rule kernel's time across fleet sizes B = 8192 ... 65536, both
    modes, against its bound and the warps per SM the launch gives;
@@ -53,7 +54,11 @@ operations over the card's peak rate for their type: the float operations
 of the plain version's tick, counted by dispatch, at the float32 rate for
 multiplies and adds that are not fused; for the MLP kernel also the
 torso's products at the dense bf16 tensor-core rate and the head's at the
-float32 rate. The terms are printed beside each bound.
+float32 rate. Operations of one execution unit add up (the tick and the
+head both need the float32 pipes); the tensor cores, the float32 pipes
+and HBM work side by side, so the slowest of them sets the bound. The
+terms, each unit's sum and the unit that sets the bound are printed
+beside it.
 
 It needs no network and runs no JAX.
 """
@@ -166,13 +171,22 @@ def mean_rel(a, b) -> dict:
 def bound(nbytes: float, op_terms: dict) -> tuple[float, str, dict]:
     """(least time in ms, "bytes" or "operations", every term in ms) for a
     call that moves ``nbytes`` and does ``op_terms``: name -> (operations,
-    the card's rate for their type). Operation terms add up."""
+    the card's rate for their type, the unit that executes them). Terms of
+    one unit add up; the units (HBM, the float32 pipes, the tensor cores)
+    run side by side, so the bound is the slowest unit's time. The dict
+    also gives each unit's sum under ``unit:<name>`` and the unit that
+    sets the bound under ``set_by``."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    terms.update({name: ops / rate * 1e3
-                  for name, (ops, rate) in op_terms.items()})
-    ops_ms = sum(v for name, v in terms.items() if name != "bytes")
-    return (max(terms["bytes"], ops_ms),
-            "bytes" if terms["bytes"] >= ops_ms else "operations", terms)
+    units: dict = {}
+    for name, (ops, rate, unit) in op_terms.items():
+        terms[name] = ops / rate * 1e3
+        units[unit] = units.get(unit, 0.0) + terms[name]
+    slowest = max(units, key=units.get)
+    by_bytes = terms["bytes"] >= units[slowest]
+    terms.update({f"unit:{u}": ms for u, ms in units.items()})
+    terms["set_by"] = "hbm" if by_bytes else slowest
+    return (max(terms["bytes"], units[slowest]),
+            "bytes" if by_bytes else "operations", terms)
 
 
 def rollout_bytes(Z: int, B: int, T: int, weight_bytes: int = 0) -> int:
@@ -315,7 +329,7 @@ def main() -> None:
         lambda: philox_plain(*ph_args), 20)))
     ph_n = 3 * ph_args[1] * ph_args[3] * ph_args[4]  # uniforms written
     ph_bound, ph_by, _ = bound(
-        ph_n * 4, {"conversion": (2 * ph_n, F32_UNFUSED_OPS_PER_S)})
+        ph_n * 4, {"conversion": (2 * ph_n, F32_UNFUSED_OPS_PER_S, "float32")})
 
     def setup(preset: str, variant: str = ""):
         cfg = PRESETS[preset]()
@@ -361,11 +375,11 @@ def main() -> None:
                 fail(f"deterministic parity ({tag})")
 
     # ---- 4. rule and carbon kernels against their plain versions
-    def parity(preset: str, B: int, modes) -> None:
+    def parity(preset: str, B: int, modes, T: int = T_DAY) -> None:
         cfg, src, params, off, peak, _ = setup(preset)
-        traces = src.batch_trace_device(T_DAY, gen(23), B, device=dev)
+        traces = src.batch_trace_device(T, gen(23), B, device=dev)
         for stochastic in modes:
-            tag = (f"{preset} B={B} T={T_DAY} "
+            tag = (f"{preset} B={B} T={T} "
                    f"{'stochastic' if stochastic else 'deterministic'}")
             hold(f"rule {tag}",
                  mk.megakernel_rollout_summary(
@@ -384,6 +398,7 @@ def main() -> None:
 
     parity("default", B_PARITY, (False, True))
     parity("multiregion", B_MULTI, (False,))
+    parity("multiregion", B_MULTI, (True,), T_DAY // 4)
 
     # The carbon constants reach the kernel, each in its place.
     cfg, src, params, off, peak, _ = setup("multiregion")
@@ -492,7 +507,8 @@ def main() -> None:
 
     def rule_bound(B: int, ops: int):
         return bound(rollout_bytes(Z, B, T_DAY),
-                     {"tick": (ops * B * T_DAY, F32_UNFUSED_OPS_PER_S)})
+                     {"tick": (ops * B * T_DAY, F32_UNFUSED_OPS_PER_S,
+                               "float32")})
 
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
@@ -605,6 +621,7 @@ def main() -> None:
     views = mk.unpack_exo(exo, T_DAY, Zm)
     checks7 = {}
     for name, action_fn, tol in (
+            ("rule", rule_fn(cfg), None),
             ("carbon", carbon_fn(cfg), None),
             ("flagship", mk.kernel_numerics_action_fn(net, cfg.cluster,
                                                       params),
@@ -635,13 +652,13 @@ def main() -> None:
                 params, off, peak, exo, T_DAY, seed=5, stochastic=True),
             bound(rollout_bytes(Zm, B_MAIN, T_DAY),
                   {"tick": (tick_ops["rule"] * B_MAIN * T_DAY,
-                            F32_UNFUSED_OPS_PER_S)})),
+                            F32_UNFUSED_OPS_PER_S, "float32")})),
         "carbon": (
             lambda: mk.carbon_megakernel_summary_from_packed(
                 params, off, peak, exo, T_DAY, seed=5, stochastic=True),
             bound(rollout_bytes(Zm, B_MAIN, T_DAY),
                   {"tick": (tick_ops["carbon"] * B_MAIN * T_DAY,
-                            F32_UNFUSED_OPS_PER_S)})),
+                            F32_UNFUSED_OPS_PER_S, "float32")})),
         "flagship": (
             lambda: mk.neural_megakernel_summary_from_packed(
                 params, cfg.cluster, net, exo, T_DAY, seed=5,
@@ -649,10 +666,11 @@ def main() -> None:
             bound(rollout_bytes(Zm, B_MAIN, T_DAY,
                                 weight_bytes=weight_bytes),
                   {"tick": (tick_ops["mlp"] * B_MAIN * T_DAY,
-                            F32_UNFUSED_OPS_PER_S),
+                            F32_UNFUSED_OPS_PER_S, "float32"),
                    "torso": (2 * (F * H + H * H) * B_MAIN * T_DAY,
-                             BF16_TENSOR_OPS_PER_S),
-                   "head": (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S)})),
+                             BF16_TENSOR_OPS_PER_S, "tensor cores"),
+                   "head": (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S,
+                            "float32")})),
     }
     main_ms = {}
     for name, (fn, (b_ms, b_by, terms)) in timed.items():
@@ -690,16 +708,23 @@ def main() -> None:
         {"name": "rollout_profiles_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:1010",
-         "launches": launches["rollout_profiles_kernel"],
+         "launches": rule_launches["rollout_profiles_kernel"],
          "launches_by_path": {
              "rule path (phase 6)": rule_launches["rollout_profiles_kernel"],
              "three-policy path (phase 7)":
                  launches["rollout_profiles_kernel"]},
          "max_abs_err": main_abs, "ms": k_ms, "plain_ms": plain_ms,
          "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
-         "shape": f"default B={B_MAIN} T={T_DAY} stochastic (phase 6)",
-         "ms_three_policy_path": main_ms["rule"][0],
-         "bound_ms_three_policy_path": main_ms["rule"][1]},
+         "shape": f"default B={B_MAIN} T={T_DAY} stochastic (phase 6): "
+                  f"launches, max_abs_err, ms, plain_ms and bound_ms are "
+                  f"all of that path",
+         "three_policy_path": {
+             "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic "
+                      f"(phase 7)",
+             "launches": launches["rollout_profiles_kernel"],
+             "max_abs_err": checks7["rule"][1], "ms": main_ms["rule"][0],
+             "plain_ms": checks7["rule"][0], "bound_ms": main_ms["rule"][1],
+             "bound_by": main_ms["rule"][2]}},
         {"name": "philox_uniform_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:228",

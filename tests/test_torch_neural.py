@@ -27,6 +27,8 @@ from ccka_tpu.models import nets as jnets
 from ccka_tpu.signals.synthetic import SyntheticSignalSource as JSource
 from ccka_tpu.sim import SimParams as JSimParams
 from ccka_tpu.sim.dynamics import ExoStep as JExoStep
+from ccka_tpu.sim.rollout import batched_rollout_summary as jbatched_rollout
+from ccka_tpu.sim.rollout import initial_state as jinitial_state
 from ccka_tpu.sim.types import ClusterState as JClusterState
 from ccka_tpu.train.flagship import flagship_checkpoint_path as jflagship_path
 from ccka_tpu_torch import bridge
@@ -142,7 +144,8 @@ def test_actor_critic_forward_matches_flax(preset, variant):
     """Bridged shipped weights, the same observations: the mean within
     0.05 in latent units (a bf16 torso may round at other places in two
     frameworks; measured 1.0e-5 and 4.8e-6 here, since the port rounds
-    where flax does), log_std and the shapes exact."""
+    where flax does), log_std and the shapes exact; the critic's value
+    within 1e-3 + 1e-5 relative (measured 6.1e-5 on values of 23 to 583)."""
     jc = jcfg.PRESETS[preset]()
     tree = _shipped_params(preset, variant)
     P, Z, K = jc.cluster.n_pools, jc.cluster.n_zones, \
@@ -169,8 +172,8 @@ def test_actor_critic_forward_matches_flax(preset, variant):
     assert diff < 0.05, diff
     np.testing.assert_array_equal(log_std.detach().numpy(),
                                   np.asarray(jlog_std))
-    np.testing.assert_allclose(value.numpy(), np.asarray(jvalue), atol=0.5,
-                               rtol=0.05)
+    np.testing.assert_allclose(value.numpy(), np.asarray(jvalue), atol=1e-3,
+                               rtol=1e-5)
 
 
 def test_bridge_round_trips_and_keeps_a_population_axis():
@@ -247,6 +250,27 @@ class _World:
         self.tree = _shipped_params(preset, variant)
         self.B, self.T = B, T
 
+    def jax_kernel(self, jtree=None):
+        """The Pallas mlp kernel in interpret mode, deterministic."""
+        return jmk.neural_megakernel_rollout_summary(
+            self.jp, self.jc.cluster,
+            jax.tree.map(jnp.asarray, self.tree) if jtree is None else jtree,
+            self.jtr, stochastic=False, b_block=128,
+            t_chunk=min(16, self.T), interpret=True)
+
+    def jax_lax(self):
+        """The JAX lax rollout under JAX's `kernel_numerics_action_fn`."""
+        states = jax.tree.map(
+            lambda x: jnp.broadcast_to(x, (self.B,) + x.shape),
+            jinitial_state(self.jc))
+        return jbatched_rollout(
+            self.jp, states,
+            jmk.kernel_numerics_action_fn(
+                jax.tree.map(jnp.asarray, self.tree), self.jc.cluster,
+                self.jp),
+            self.jtr, jax.random.split(jax.random.key(0), self.B),
+            stochastic=False)[1]
+
     def port(self, tree=None, **kw):
         return mk.neural_megakernel_rollout_summary(
             self.tp, self.tc.cluster, self.tree if tree is None else tree,
@@ -264,21 +288,30 @@ def test_short_horizon_rollout_matches_interpret_kernel(world):
     standard of tests/test_megakernel.py::test_short_horizon_exact (1e-3
     per cluster and field, five near-zero-denominator fields 2e-2).
 
-    Two implementations cannot hold that for every cluster: the policy
-    reads its state through a bf16 rounding, so a last-bit float32
-    difference in a node count now and then lands on the other side of a
-    rounding boundary and moves an action by a part in a thousand; and the
+    With the shipped nets no two implementations hold that for every
+    cluster, the JAX package's own two included (its kernel against its
+    lax path under `kernel_numerics_action_fn` leaves 18 and 5 of these
+    128 clusters outside): a sum in another order flips a hidden unit by
+    one bf16 step, which moves an action by a part in a thousand, and the
     trained policies ride the SLO threshold, where such a nudge flips one
-    tick of 32. So: at least 97 % of clusters within the standard on every
-    field (measured 127 and 126 of 128), every batch mean within it, and
-    ``evictions``, whose totals here are about 0.005 pods, within 5e-3
-    pods instead of relatively."""
+    tick of 32. So here: at least 97 % of clusters within the standard on
+    every field (measured 127 and 126 of 128), every batch mean within it,
+    and ``evictions``, whose totals here are about 0.005 pods, within 5e-3
+    pods instead of relatively. The standard itself, on every cluster, is
+    held by `test_short_horizon_exact_with_the_jax_tests_net` on the net
+    it was set for, and by `test_two_ticks_match_the_jax_lax_path` on the
+    shipped nets before feedback amplifies a flip. The port's plain
+    version is also held to be no further from JAX's lax path than JAX's
+    kernel is (4 and 1 clusters outside). ``PYTHONPATH=. python
+    tests/test_torch_neural.py`` prints these counts and the tick at
+    which each outlier leaves the standard."""
     w = world
     before = mk.neural_megakernel_summary_from_packed.launches
     port = w.port(stochastic=False)
-    kern = jmk.neural_megakernel_rollout_summary(
-        w.jp, w.jc.cluster, jax.tree.map(jnp.asarray, w.tree), w.jtr,
-        stochastic=False, b_block=128, t_chunk=16, interpret=True)
+    kern = w.jax_kernel()
+    lax_path = w.jax_lax()
+    assert _outside(_numpy(port), lax_path).sum() <= \
+        _outside(kern, lax_path).sum()
     ok = np.ones(w.B, bool)
     for f in kern._fields:
         a = getattr(port, f).numpy().astype(np.float64)
@@ -292,6 +325,81 @@ def test_short_horizon_rollout_matches_interpret_kernel(world):
         assert abs(a.mean() - b.mean()) <= tol * (abs(b.mean()) + 1e-6), f
     assert ok.mean() >= 0.97, ok.mean()
     assert mk.neural_megakernel_summary_from_packed.launches == before
+
+
+def _numpy(summary):
+    return type(summary)(*(x.numpy() for x in summary))
+
+
+def _outside(got, want, skip=()) -> np.ndarray:
+    """[B] bool: clusters with a field (not in ``skip``) outside the
+    short-horizon standard, 1e-3 relative, LOOSE fields 2e-2."""
+    bad = None
+    for f in want._fields:
+        if f in skip:
+            continue
+        a = np.asarray(getattr(got, f), np.float64)
+        b = np.asarray(getattr(want, f), np.float64)
+        out = np.abs(a - b) / (np.abs(b) + 1e-6) > LOOSE.get(f, 1e-3)
+        bad = out if bad is None else bad | out
+    return bad
+
+
+def _assert_short_horizon_standard(got, want, B: int) -> float:
+    """Every field of every cluster within 1e-3 relative (LOOSE fields
+    2e-2); returns the largest difference as a share of its tolerance."""
+    worst = 0.0
+    for f in want._fields:
+        a = np.asarray(getattr(got, f), np.float64)
+        b = np.asarray(getattr(want, f), np.float64)
+        assert a.shape == b.shape == (B,), f
+        rel = np.abs(a - b) / (np.abs(b) + 1e-6)
+        tol = LOOSE.get(f, 1e-3)
+        assert rel.max() <= tol, (f, int(rel.argmax()), rel.max())
+        worst = max(worst, float(rel.max() / tol))
+    return worst
+
+
+def _perturbed_net_params(jc, seed: int = 3, scale: float = 0.3):
+    """The net tests/test_megakernel.py sets its short-horizon standard
+    on: a fresh ActorCritic with every leaf perturbed by 0.3 * normal."""
+    import zlib
+
+    net = JActorCritic(act_dim=jlatent_dim(jc.cluster))
+    key = jax.random.key(seed)
+    p0 = net.init(key, jnp.zeros(
+        (jmk._obs_dim(jc.cluster.n_pools, jc.cluster.n_zones),)))
+    return jax.tree_util.tree_map_with_path(
+        lambda path, x: x + scale * jax.random.normal(
+            jax.random.fold_in(key, zlib.crc32(str(path).encode())
+                               % (2 ** 31)), x.shape),
+        p0)
+
+
+def test_short_horizon_exact_with_the_jax_tests_net(world):
+    """tests/test_megakernel.py::test_short_horizon_exact's standard, on
+    its net and size (B = 128 x T = 32, deterministic), for every cluster
+    and field: the port's plain version against the Pallas mlp kernel in
+    interpret mode. Measured largest difference 3.9e-7 (default) and
+    1.2e-4 (multiregion) relative."""
+    w = world
+    jtree = _perturbed_net_params(w.jc)
+    port = w.port(jax.tree.map(np.array, jtree), stochastic=False)
+    _assert_short_horizon_standard(_numpy(port), w.jax_kernel(jtree), w.B)
+
+
+@pytest.mark.parametrize("preset,variant", SHIPPED)
+def test_two_ticks_match_the_jax_lax_path(preset, variant):
+    """The shipped nets over two ticks, before feedback amplifies a
+    rounding flip: the port's plain version against the JAX lax rollout
+    under JAX's `kernel_numerics_action_fn`, every cluster and field at the
+    short-horizon standard (measured 3.0e-5 and 1.6e-4 relative at worst;
+    JAX's interpret-mode kernel sits 4.9e-4 and 7.9e-4 from the same lax
+    path)."""
+    w = _World(preset, variant, 128, 2)
+    worst = _assert_short_horizon_standard(
+        _numpy(w.port(stochastic=False)), w.jax_lax(), w.B)
+    assert worst < 0.5, worst
 
 
 def test_population_axis(world):
@@ -446,3 +554,43 @@ def test_load_flagship_backend_picks_the_topologys_file(capsys):
     # No flagship ships for the plain default topology.
     assert load_flagship_backend(tcfg.default_config(),
                                  device="cpu") == (None, None)
+
+
+def _report() -> None:
+    """Print, for each shipped net at B = 128, deterministic: how many
+    clusters each pair of implementations leaves outside the short-horizon
+    standard at T = 32 (all fields relative; port against kernel also with
+    ``evictions`` left out, as the test holds it absolutely), and for each
+    cluster outside port-against-kernel the first horizon T at which it is
+    outside, with its worst field there."""
+    for preset, variant in SHIPPED:
+        w = _World(preset, variant, 128, 32)
+        port, kern, lax_path = _numpy(w.port(stochastic=False)), \
+            w.jax_kernel(), w.jax_lax()
+        watch = np.nonzero(_outside(port, kern, skip=("evictions",)))[0]
+        print(f"{preset} T=32 clusters outside: jax kernel vs jax lax "
+              f"{_outside(kern, lax_path).sum()}, port vs jax lax "
+              f"{_outside(port, lax_path).sum()}, port vs jax kernel "
+              f"{_outside(port, kern).sum()} (without evictions "
+              f"{watch.tolist()})")
+        first = {}
+        for T in range(2, 33):
+            w = _World(preset, variant, 128, T)
+            port, kern = _numpy(w.port(stochastic=False)), w.jax_kernel()
+            for c in watch:
+                if c in first:
+                    continue
+                rel = {f: abs(getattr(port, f)[c] - np.asarray(
+                    getattr(kern, f))[c]) / (abs(np.asarray(
+                        getattr(kern, f))[c]) + 1e-6) / LOOSE.get(f, 1e-3)
+                    for f in kern._fields if f != "evictions"}
+                f = max(rel, key=rel.get)
+                if rel[f] > 1.0:
+                    first[c] = T
+                    print(f"  cluster {c}: outside from T={T} on {f}: "
+                          f"{getattr(port, f)[c]} against "
+                          f"{np.asarray(getattr(kern, f))[c]}")
+
+
+if __name__ == "__main__":
+    _report()
