@@ -1,10 +1,11 @@
 """Carry the JAX package's tuples and params trees across as the port's.
 
 The port never imports JAX. A caller that holds the JAX package's
-``SimParams``, ``Action`` or ``ExogenousTrace`` turns them into plain
-dicts of numpy arrays on its side (``jax.tree.map(np.asarray,
-x)._asdict()``) and hands those dicts here, so the same inputs go through
-both implementations. An ActorCritic params tree (the flax layout, which
+``SimParams``, ``Action``, ``ExogenousTrace``, ``FaultStep`` or
+``WorkloadStep`` turns them into plain dicts of numpy arrays on its side
+(``jax.tree.map(np.asarray, x)._asdict()``) and hands those dicts here, so
+the same inputs go through both implementations; a packed stream goes in
+as ``torch.from_numpy(np.asarray(stream))``. An ActorCritic params tree (the flax layout, which
 is also the checkpoints') turns into an ``nn.Module`` state dict and back.
 """
 
@@ -14,8 +15,10 @@ import numpy as np
 import torch
 
 from ccka_tpu_torch import resolve_device
+from ccka_tpu_torch.faults.types import FaultStep
 from ccka_tpu_torch.signals.base import ExogenousTrace
 from ccka_tpu_torch.sim.types import Action, SimParams
+from ccka_tpu_torch.workloads.types import WorkloadStep
 
 _INT_FIELDS = ("provision_pipeline_k", "wl_batch_deadline_ticks")
 
@@ -42,6 +45,19 @@ def trace(d: dict, device=None) -> ExogenousTrace:
     """``ExogenousTrace`` from a dict of numpy arrays."""
     dev = resolve_device(device)
     return ExogenousTrace(**{k: _tensor(v, dev) for k, v in d.items()})
+
+
+def fault_step(d: dict, device=None) -> FaultStep:
+    """``FaultStep`` (the JAX package's ``FaultStep`` leaves, any leading
+    axes) from a dict of numpy arrays."""
+    dev = resolve_device(device)
+    return FaultStep(**{k: _tensor(v, dev) for k, v in d.items()})
+
+
+def workload_step(d: dict, device=None) -> WorkloadStep:
+    """``WorkloadStep`` from a dict of numpy arrays."""
+    dev = resolve_device(device)
+    return WorkloadStep(**{k: _tensor(v, dev) for k, v in d.items()})
 
 
 _LINEAR = ("actor_mean", "critic")

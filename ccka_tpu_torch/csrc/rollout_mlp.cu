@@ -2,9 +2,13 @@
 // through the whole horizon, deciding every tick with a small bf16 MLP.
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run_mlp (the Pallas TPU kernel of
-// _make_kernel(policy="mlp"), plain exo stream, no carried state), the
-// deterministic policy latent_to_action(actor_mean(observe(state, exo)))
-// fused into the rollout, over a population of nets.
+// _make_kernel(policy="mlp"), with FAULTS its faults=True specialisation,
+// with WL_D its workloads=D one; no carried state), the deterministic
+// policy latent_to_action(actor_mean(observe(state, exo))) fused into the
+// rollout, over a population of nets. Under a signal outage (FAULTS) the
+// observation reads the held signals (rollout_tick.cuh::observed). One
+// build of this file holds one (FAULTS, WL_D) pair, named by the macros
+// CCKA_FAULTS and CCKA_WL_D.
 //
 // Per population member (blockIdx.y), cluster (one thread) and tick:
 //   observation, F = 2PZ+3Z+8 features in observe().flatten() order
@@ -48,6 +52,13 @@
 #include <cuda_bf16.h>
 
 #include "rollout_tick.cuh"
+
+#ifndef CCKA_FAULTS
+#define CCKA_FAULTS 0
+#endif
+#ifndef CCKA_WL_D
+#define CCKA_WL_D 0
+#endif
 
 namespace {
 
@@ -145,14 +156,14 @@ __device__ __forceinline__ bf16 normalize_obs(float o) {
   return __float2bfloat16_rn(sign * log1pf(fabsf(o)));
 }
 
-template <int P, int Z, int K, int H, bool STOCH>
+template <int P, int Z, int K, int H, bool STOCH, bool FAULTS, int WL_D>
 __global__ void __launch_bounds__(kBlock)
 rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
                    const MlpParams pr, const bf16* __restrict__ w1g,
                    const bf16* __restrict__ b1g, const bf16* __restrict__ w2g,
                    const bf16* __restrict__ b2g, const float* __restrict__ w3g,
                    const float* __restrict__ b3g, int T, int B, int rows,
-                   uint32_t k0, uint32_t k1) {
+                   int fb, int wb, uint32_t k0, uint32_t k1) {
   constexpr int F = 2 * P * Z + 3 * Z + 8;
   constexpr int A = P * Z + 4 * P + 2;
   static_assert(H % kJ == 0, "torso width must be a multiple of kJ");
@@ -185,9 +196,14 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
 
   const Consts<P, Z> k(pr.p);
   Fleet<P, Z, K> s;
+  Queues<WL_D> q;
+  TickExo<Z> held{};
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
-    const TickExo<Z> e(exo + (size_t)t * plane + b, B);
+    const float* x = exo + (size_t)t * plane + b;
+    const TickExo<Z> e(x, B);
+    const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
+    const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, t) : e;
 
     // Observation of the pre-step state, normalized, as bf16 in col1.
     {
@@ -204,14 +220,14 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
       put(s.incoming(1));
       put(s.running[0]);
       put(s.running[1]);
-      put(e.demand[0]);
-      put(e.demand[1]);
+      put(o.demand[0]);
+      put(o.demand[1]);
 #pragma unroll
-      for (int z = 0; z < Z; ++z) put(e.spot[z]);
+      for (int z = 0; z < Z; ++z) put(o.spot[z]);
 #pragma unroll
-      for (int z = 0; z < Z; ++z) put(e.od[z]);
+      for (int z = 0; z < Z; ++z) put(o.od[z]);
 #pragma unroll
-      for (int z = 0; z < Z; ++z) put(e.carb[z]);
+      for (int z = 0; z < Z; ++z) put(o.carb[z]);
       put(e.is_peak);
       put(fmodf((float)t * k.dt_s, 86400.0f) * (1.0f / 86400.0f));
     }
@@ -257,17 +273,17 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
       a.hpa[c] = pr.codec[1] +
                  pr.codec[2] * sigmoid(u[P * Z + 4 * P + c] + pr.codec[3]);
 
-    tick<P, Z, K, STOCH>(k, s, a, e, b, t, k0, k1);
+    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, b, t, k0, k1);
   }
-  s.store(out + m * (size_t)kOutRows * B, B, b);
+  s.store(out + m * (size_t)kOutRows * B, B, b, q.sums);
 }
 
 template <int P, int Z, int K, int H>
 cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const float* w3, const float* b3, int NP,
-                   int T, int B, int rows, uint32_t k0, uint32_t k1,
-                   bool stochastic, cudaStream_t s) {
+                   int T, int B, int rows, int fb, int wb, uint32_t k0,
+                   uint32_t k1, bool stochastic, cudaStream_t s) {
   constexpr int F = 2 * P * Z + 3 * Z + 8;
   constexpr int A = P * Z + 4 * P + 2;
   constexpr size_t bytes = Smem<F, H, A>::bytes;
@@ -278,11 +294,12 @@ cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
     if (err != cudaSuccess) return err;
     kernel<<<grid, block, bytes, s>>>(
         exo, out, pr, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
-        (const bf16*)b2, w3, b3, T, B, rows, k0, k1);
+        (const bf16*)b2, w3, b3, T, B, rows, fb, wb, k0, k1);
     return cudaGetLastError();
   };
-  return stochastic ? go(rollout_mlp_kernel<P, Z, K, H, true>)
-                    : go(rollout_mlp_kernel<P, Z, K, H, false>);
+  constexpr bool kFaults = CCKA_FAULTS != 0;
+  return stochastic ? go(rollout_mlp_kernel<P, Z, K, H, true, kFaults, CCKA_WL_D>)
+                    : go(rollout_mlp_kernel<P, Z, K, H, false, kFaults, CCKA_WL_D>);
 }
 
 }  // namespace
@@ -291,8 +308,10 @@ cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
 // float32; params: host [22], slo: host [P], codec: host [4] float32;
 // w1 [NP, F, H], b1 [NP, H], w2 [NP, H, H], b2 [NP, H]: device bf16;
 // w3 [NP, H, A], b3 [NP, A]: device float32, with F = 2PZ+3Z+8 and
-// A = PZ+4P+2. Returns a cudaError_t; cudaErrorInvalidValue for a
-// topology, width or size the kernel is not built for.
+// A = PZ+4P+2; fault_base / wl_base: first row of the fault / workload
+// block, -1 when the stream has none; wl_depth: the batch deadline D (0
+// without workloads). Returns a cudaError_t; cudaErrorInvalidValue for a
+// topology, width, size or lane layout this build is not made for.
 extern "C" int ccka_rollout_mlp(const float* exo, float* out,
                                 const float* params, const float* slo,
                                 const float* codec, const void* w1,
@@ -301,9 +320,13 @@ extern "C" int ccka_rollout_mlp(const float* exo, float* out,
                                 const float* b3, int NP, int F, int H, int A,
                                 int P, int Z, int K, int T, int B, int rows,
                                 unsigned long long seed, int stochastic,
+                                int fault_base, int wl_base, int wl_depth,
                                 void* stream) {
   if (P != 2 || F != 2 * P * Z + 3 * Z + 8 || A != P * Z + 4 * P + 2 ||
-      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1)
+      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1 ||
+      (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
+      (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
+      wl_base + 3 > rows)
     return (int)cudaErrorInvalidValue;
   MlpParams pr;
   for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
@@ -314,9 +337,11 @@ extern "C" int ccka_rollout_mlp(const float* exo, float* out,
   const cudaStream_t s = (cudaStream_t)stream;
   if (Z == 3 && K == 3)
     return (int)launch<2, 3, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
-                                     T, B, rows, k0, k1, stochastic != 0, s);
+                                     T, B, rows, fault_base, wl_base, k0, k1,
+                                     stochastic != 0, s);
   if (Z == 4 && K == 3)
     return (int)launch<2, 4, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
-                                     T, B, rows, k0, k1, stochastic != 0, s);
+                                     T, B, rows, fault_base, wl_base, k0, k1,
+                                     stochastic != 0, s);
   return (int)cudaErrorInvalidValue;
 }

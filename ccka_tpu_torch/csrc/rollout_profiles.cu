@@ -3,9 +3,10 @@
 // carbon-aware re-rank of its zone weights.
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run (the Pallas TPU kernel of
-// _make_kernel(policy="profiles") and, with CARBON, policy="carbon";
-// plain exo stream, no carried state), with its in-kernel sampler
-// _uniform + _poisson_small_kernel.
+// _make_kernel(policy="profiles") and, with CARBON, policy="carbon"; with
+// FAULTS its faults=True specialisation, with WL_D its workloads=D one;
+// no carried state), with its in-kernel sampler _uniform +
+// _poisson_small_kernel.
 //
 // The action of a tick is a per-cluster select of two constant profiles
 // on is_peak. With CARBON the zone weights of that action are replaced by
@@ -24,8 +25,15 @@
 // counted by chip_smoke.py) at the 33.5 T/s float32 rate for multiplies and
 // adds that are not fused takes about 2.48 ms, so operations bound it.
 //
+// Lanes: the fault block (FAULTS) and the workload block (WL_D, the
+// batch deadline in ticks) are read from rows fb and wb of the same
+// stream; CARBON with FAULTS keeps the held observation (3Z+3 floats) in
+// registers. One build of this file holds one (FAULTS, WL_D) pair, named
+// by the macros CCKA_FAULTS and CCKA_WL_D (kernels/build.py builds the
+// four pairs in parallel, one library each).
+//
 // Design: the whole state (nodes[P][Z][2], pipe[K][P][Z][2], running[2],
-// timer[P], 16 accumulators) lives in registers, and one loop runs over
+// timer[P], 16 accumulators, the workload queues) lives in registers, and one loop runs over
 // all T ticks inside the thread: no time grid, no scratch carried between
 // blocks, no padding ticks. The stream exo[t][r][b] has b innermost, so a
 // warp's reads of one row coalesce. 32768 threads fill only about 8 of an
@@ -37,6 +45,13 @@
 // for a grid of (tick, row, cluster); it is on no rollout path.
 
 #include "rollout_tick.cuh"
+
+#ifndef CCKA_FAULTS
+#define CCKA_FAULTS 0
+#endif
+#ifndef CCKA_WL_D
+#define CCKA_WL_D 0
+#endif
 
 namespace {
 
@@ -51,19 +66,25 @@ struct Profiles {
   float carbon[3];        // sharpness, min_weight, stickiness (CARBON only)
 };
 
-template <int P, int Z, int K, bool STOCH, bool CARBON>
+template <int P, int Z, int K, bool STOCH, bool CARBON, bool FAULTS,
+          int WL_D>
 __global__ void __launch_bounds__(kBlock)
 rollout_profiles_kernel(const float* __restrict__ exo,
                         float* __restrict__ out, const Profiles pr, int T,
-                        int B, int rows, uint32_t k0, uint32_t k1) {
+                        int B, int rows, int fb, int wb, uint32_t k0,
+                        uint32_t k1) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
   const Consts<P, Z> k(pr.p);
   Fleet<P, Z, K> s;
+  Queues<WL_D> q;
+  TickExo<Z> held{};
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
-    const TickExo<Z> e(exo + (size_t)t * plane + b, B);
+    const float* x = exo + (size_t)t * plane + b;
+    const TickExo<Z> e(x, B);
+    const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
     // The rule: per-cluster select of the two profiles on is_peak. Every
     // coordinate index below is a compile-time constant, so both loads
     // come from the parameter bank and the select stays in registers.
@@ -84,9 +105,10 @@ rollout_profiles_kernel(const float* __restrict__ exo,
 
     if (CARBON) {
       // Zone weight from observed carbon and the pre-step placement.
-      float csum = e.carb[0];
+      const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, t) : e;
+      float csum = o.carb[0];
 #pragma unroll
-      for (int z = 1; z < Z; ++z) csum = csum + e.carb[z];
+      for (int z = 1; z < Z; ++z) csum = csum + o.carb[z];
       const float cmean = csum * (1.0f / (float)Z);
       float nodes_z[Z];
 #pragma unroll
@@ -104,16 +126,16 @@ rollout_profiles_kernel(const float* __restrict__ exo,
       for (int z = 0; z < Z; ++z) {
         const float occ = fminf(
             fmaxf(nodes_z[z] / ntot * (float)Z - 1.0f, -1.0f), 1.0f);
-        const float rel = (cmean - e.carb[z]) / (cmean + 1e-6f);
+        const float rel = (cmean - o.carb[z]) / (cmean + 1e-6f);
         const float w = fmaxf(
             sigmoid(pr.carbon[0] * rel + pr.carbon[2] * occ), pr.carbon[1]);
 #pragma unroll
         for (int p = 0; p < P; ++p) a.zw[p][z] = w;
       }
     }
-    tick<P, Z, K, STOCH>(k, s, a, e, b, t, k0, k1);
+    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, b, t, k0, k1);
   }
-  s.store(out, B, b);
+  s.store(out, B, b, q.sums);
 }
 
 __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
@@ -134,15 +156,16 @@ __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
 
 template <int P, int Z, int K, bool CARBON>
 cudaError_t launch(const float* exo, float* out, const Profiles& pr, int T,
-                   int B, int rows, uint32_t k0, uint32_t k1, bool stochastic,
-                   cudaStream_t s) {
+                   int B, int rows, int fb, int wb, uint32_t k0, uint32_t k1,
+                   bool stochastic, cudaStream_t s) {
+  constexpr bool kFaults = CCKA_FAULTS != 0;
   const dim3 grid((B + kBlock - 1) / kBlock), block(kBlock);
   if (stochastic)
-    rollout_profiles_kernel<P, Z, K, true, CARBON>
-        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, k0, k1);
+    rollout_profiles_kernel<P, Z, K, true, CARBON, kFaults, CCKA_WL_D>
+        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, fb, wb, k0, k1);
   else
-    rollout_profiles_kernel<P, Z, K, false, CARBON>
-        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, k0, k1);
+    rollout_profiles_kernel<P, Z, K, false, CARBON, kFaults, CCKA_WL_D>
+        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, fb, wb, k0, k1);
   return cudaGetLastError();
 }
 
@@ -151,16 +174,22 @@ cudaError_t launch(const float* exo, float* out, const Profiles& pr, int T,
 // exo: device [T_pad >= T, rows, B] float32; out: device [24, B] float32;
 // params: host [22] float32; actions: host [2, n_act] float32 (off-peak,
 // peak); carbon: null for the rule profiles, else host {sharpness,
-// min_weight, stickiness}, which re-rank the zone weights by carbon.
-// Returns a cudaError_t; cudaErrorInvalidValue for a topology or size the
-// kernel is not built for.
+// min_weight, stickiness}, which re-rank the zone weights by carbon;
+// fault_base / wl_base: first row of the fault / workload block, -1 when
+// the stream has none; wl_depth: the batch deadline D (0 without
+// workloads). Returns a cudaError_t; cudaErrorInvalidValue for a
+// topology, size or lane layout this build is not made for.
 extern "C" int ccka_rollout_profiles(const float* exo, float* out,
                                      const float* params,
                                      const float* actions, int n_act, int P,
                                      int Z, int K, int T, int B, int rows,
                                      unsigned long long seed, int stochastic,
-                                     const float* carbon, void* stream) {
-  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1)
+                                     const float* carbon, int fault_base,
+                                     int wl_base, int wl_depth, void* stream) {
+  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1 ||
+      (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
+      (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
+      wl_base + 3 > rows)
     return (int)cudaErrorInvalidValue;
   Profiles pr;
   for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
@@ -172,14 +201,17 @@ extern "C" int ccka_rollout_profiles(const float* exo, float* out,
   const uint32_t k1 = (uint32_t)(seed >> 32);
   const cudaStream_t s = (cudaStream_t)stream;
   const bool st = stochastic != 0;
+  const int fb = fault_base, wb = wl_base;
   if (P == 2 && Z == 3 && K == 3)
-    return (int)(carbon
-                     ? launch<2, 3, 3, true>(exo, out, pr, T, B, rows, k0, k1, st, s)
-                     : launch<2, 3, 3, false>(exo, out, pr, T, B, rows, k0, k1, st, s));
+    return (int)(carbon ? launch<2, 3, 3, true>(exo, out, pr, T, B, rows, fb,
+                                                wb, k0, k1, st, s)
+                        : launch<2, 3, 3, false>(exo, out, pr, T, B, rows, fb,
+                                                 wb, k0, k1, st, s));
   if (P == 2 && Z == 4 && K == 3)
-    return (int)(carbon
-                     ? launch<2, 4, 3, true>(exo, out, pr, T, B, rows, k0, k1, st, s)
-                     : launch<2, 4, 3, false>(exo, out, pr, T, B, rows, k0, k1, st, s));
+    return (int)(carbon ? launch<2, 4, 3, true>(exo, out, pr, T, B, rows, fb,
+                                                wb, k0, k1, st, s)
+                        : launch<2, 4, 3, false>(exo, out, pr, T, B, rows, fb,
+                                                 wb, k0, k1, st, s));
   return (int)cudaErrorInvalidValue;
 }
 

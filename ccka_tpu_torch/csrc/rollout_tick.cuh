@@ -14,6 +14,24 @@
 // timers, PDB budget), and the cost, carbon, latency and SLO accounting
 // into 16 accumulators.
 //
+// Two compile-time branches widen the tick (they replace the fault and
+// workload specialisations of ccka_tpu/sim/megakernel.py::_make_kernel):
+// - FAULTS: the stream carries the fault block (hazard[Z], deny, delay,
+//   stale). A delay share of the arrivals goes back to the pipeline's
+//   head; the interruption probability is min(p * hazard_z, 1); the spot
+//   request is scaled by (1 - deny) and the denied part counted; a policy
+//   that observes signals reads the held ones during an outage
+//   (observed()).
+// - WL_D > 0: the stream carries the workload block (inference, batch,
+//   background arrivals); the queues (Queues<WL_D>) drain from the
+//   post-step fleet's headroom, inference first, then batch earliest
+//   deadline first over the D-deep age pipeline, then background, into
+//   5 more accumulators.
+// With FAULTS false and WL_D 0 the tick is the program without lanes.
+// On neutral lanes (hazard 1, deny, delay 0) and zero arrivals the
+// widened tick gives the same bits: x*0, x*(1-0) and min(p*1, 1) are
+// exact.
+//
 // Arithmetic follows the plain version op for op: sums over the pool,
 // zone and capacity-type axes are the same left-to-right chains; a
 // division by a literal is a multiply by its float reciprocal, as
@@ -42,7 +60,7 @@ constexpr float kEps = 1e-6f;
 enum {
   DT_S, PPN, BASE_OD, MAXN0, MAXN1, SA00, SA01, SA10, SA11, INTERRUPT_P,
   PDB, FRAG, UNDERUTIL, WATTS_IDLE, WATTS_FULL, RPS, SLO_FRAC, TAU_S,
-  LAT_BASE, LAT_SLO
+  LAT_BASE, LAT_SLO, WL_INF_QMAX, WL_INF_SLO
 };
 
 // Latency-proxy curve (ccka_tpu_torch/config.py).
@@ -79,7 +97,7 @@ template <int P, int Z>
 struct Consts {
   float dt_s, ppn, base_od, max_nodes[P], sa[P][2], p_int, pdb, frag,
       underutil, w_idle, rps, slo_frac, tau_s, lat_base, lat_slo, dt_hr,
-      base_z, base_cap, one_m_pdb, one_p_frag, w_span;
+      base_z, base_cap, one_m_pdb, one_p_frag, w_span, wl_qmax, wl_slo;
 
   __device__ __forceinline__ explicit Consts(const float* p) {
     static_assert(P == 2, "the packed params carry two pools");
@@ -98,6 +116,7 @@ struct Consts {
     one_m_pdb = 1.0f - pdb;
     one_p_frag = 1.0f + frag;
     w_span = p[WATTS_FULL] - w_idle;
+    wl_qmax = p[WL_INF_QMAX], wl_slo = p[WL_INF_SLO];
   }
 };
 
@@ -107,6 +126,7 @@ template <int Z>
 struct TickExo {
   float spot[Z], od[Z], carb[Z], demand[2], is_peak;
 
+  TickExo() = default;
   __device__ __forceinline__ TickExo(const float* __restrict__ x, int B) {
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
@@ -117,6 +137,65 @@ struct TickExo {
     demand[0] = x[(size_t)(3 * Z) * B];
     demand[1] = x[(size_t)(3 * Z + 1) * B];
     is_peak = x[(size_t)(3 * Z + 2) * B];
+  }
+};
+
+// One tick's lanes of one cluster: the fault block's rows from row fb
+// (FAULTS), the workload block's from row wb (WL); an absent block reads
+// as its neutral values.
+template <int Z, bool FAULTS, bool WL>
+struct TickLanes {
+  float haz[Z], deny, delay, stale, inf, bat, bg;
+
+  __device__ __forceinline__ TickLanes(const float* __restrict__ x, int B,
+                                       int fb, int wb) {
+#pragma unroll
+    for (int z = 0; z < Z; ++z) haz[z] = FAULTS ? x[(size_t)(fb + z) * B] : 1.0f;
+    deny = FAULTS ? x[(size_t)(fb + Z) * B] : 0.0f;
+    delay = FAULTS ? x[(size_t)(fb + Z + 1) * B] : 0.0f;
+    stale = FAULTS ? x[(size_t)(fb + Z + 2) * B] : 0.0f;
+    inf = WL ? x[(size_t)wb * B] : 0.0f;
+    bat = WL ? x[(size_t)(wb + 1) * B] : 0.0f;
+    bg = WL ? x[(size_t)(wb + 2) * B] : 0.0f;
+  }
+};
+
+// What a policy observes under a signal outage: while stale is set (after
+// tick 0) prices, carbon and demand are the held ones of the last tick
+// before the outage; is_peak follows the clock. Updates the held rows
+// (sim/rollout.py::observed_exo and its carry).
+template <int Z>
+__device__ __forceinline__ TickExo<Z> observed(const TickExo<Z>& e,
+                                               TickExo<Z>& held, float stale,
+                                               int t) {
+  TickExo<Z> o = e;
+  if (stale > 0.5f && t > 0) {
+#pragma unroll
+    for (int z = 0; z < Z; ++z) {
+      o.spot[z] = held.spot[z];
+      o.od[z] = held.od[z];
+      o.carb[z] = held.carb[z];
+    }
+    o.demand[0] = held.demand[0];
+    o.demand[1] = held.demand[1];
+  }
+  held = o;
+  return o;
+}
+
+// The workload families' queues of one cluster and their 5 accumulators
+// (D = the batch deadline in ticks; 0 = no workload lanes).
+template <int D>
+struct Queues {
+  float inf_q, batch[D > 0 ? D : 1], bg_q;
+  float sums[5];  // inference violations, queue, shed; batch misses, backlog
+
+  __device__ __forceinline__ Queues() {
+    inf_q = bg_q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < (D > 0 ? D : 1); ++i) batch[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) sums[i] = 0.0f;
   }
 };
 
@@ -132,7 +211,7 @@ struct Fleet {
   float nodes[P][Z][2], pipe[K][P][Z][2], running[2], timer[P];
   float acc_cost, acc_carbon, acc_req, acc_slo, acc_evict, nct_sum[2],
       served_sum, capacity_sum, waste_sum, lat_sum, lat_max, queue_sum,
-      int_sum;
+      int_sum, denied_sum, stale_sum;
 
   __device__ __forceinline__ Fleet() {
 #pragma unroll
@@ -151,7 +230,7 @@ struct Fleet {
     acc_cost = acc_carbon = acc_req = acc_slo = acc_evict = 0.0f;
     nct_sum[0] = nct_sum[1] = 0.0f;
     served_sum = capacity_sum = waste_sum = lat_sum = lat_max = 0.0f;
-    queue_sum = int_sum = 0.0f;
+    queue_sum = int_sum = denied_sum = stale_sum = 0.0f;
   }
 
   // Capacity in flight of type c: the chain over (k, p, z) that both the
@@ -164,25 +243,31 @@ struct Fleet {
     return inc;
   }
 
-  // The [24, B] output block's column b (rows 16..23 zero).
+  // The [24, B] output block's column b: 16 accumulators, the 5 of the
+  // workload queues (``wl``, zero without them), rows 21..23 zero.
   __device__ __forceinline__ void store(float* __restrict__ out, int B,
-                                        int b) const {
-    const float vals[16] = {acc_cost,     acc_carbon, acc_req,    acc_slo,
-                            acc_evict,    nct_sum[0], nct_sum[1], served_sum,
-                            capacity_sum, waste_sum,  lat_sum,    lat_max,
-                            queue_sum,    int_sum,    0.0f,       0.0f};
+                                        int b, const float (&wl)[5]) const {
+    const float vals[21] = {
+        acc_cost,  acc_carbon, acc_req,    acc_slo, acc_evict,
+        nct_sum[0], nct_sum[1], served_sum, capacity_sum, waste_sum,
+        lat_sum,   lat_max,    queue_sum,  int_sum,  denied_sum,
+        stale_sum, wl[0],      wl[1],      wl[2],    wl[3],
+        wl[4]};
 #pragma unroll
     for (int r = 0; r < kOutRows; ++r)
-      out[(size_t)r * B + b] = r < 16 ? vals[r] : 0.0f;
+      out[(size_t)r * B + b] = r < 21 ? vals[r] : 0.0f;
   }
 };
 
-// Advance cluster b by global tick t under action a.
-template <int P, int Z, int K, bool STOCH>
+// Advance cluster b by global tick t under action a, on the tick's true
+// signals e and lanes l.
+template <int P, int Z, int K, bool STOCH, bool FAULTS, int WL_D>
 __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
+                                     Queues<WL_D>& q,
                                      const TickAction<P, Z>& a,
-                                     const TickExo<Z>& e, int b, int t,
-                                     uint32_t k0, uint32_t k1) {
+                                     const TickExo<Z>& e,
+                                     const TickLanes<Z, FAULTS, (WL_D > 0)>& l,
+                                     int b, int t, uint32_t k0, uint32_t k1) {
   const float ppn = k.ppn, dt_s = k.dt_s;
   float (&nodes)[P][Z][2] = s.nodes;
   float (&pipe)[K][P][Z][2] = s.pipe;
@@ -196,17 +281,22 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   desired[0] = demand[0] * a.hpa[0];
   desired[1] = demand[1] * a.hpa[1];
 
-  // 2. pipeline arrivals and shift.
+  // 2. pipeline arrivals and shift; a fault holds a delay share of the
+  // arrivals back at the shifted pipeline's head.
 #pragma unroll
   for (int p = 0; p < P; ++p)
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        nodes[p][z][c] = nodes[p][z][c] + pipe[0][p][z][c];
+        const float arr = pipe[0][p][z][c];
+        const float held = FAULTS ? arr * l.delay : 0.0f;
+        nodes[p][z][c] = FAULTS ? nodes[p][z][c] + (arr - held)
+                                : nodes[p][z][c] + arr;
 #pragma unroll
         for (int i = 0; i + 1 < K; ++i) pipe[i][p][z][c] = pipe[i + 1][p][z][c];
         pipe[K - 1][p][z][c] = 0.0f;
+        if (FAULTS) pipe[0][p][z][c] = pipe[0][p][z][c] + held;
       }
 
   // 3. spot interruptions.
@@ -216,7 +306,8 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
       const float spot_n = nodes[p][z][0];
-      const float lam = spot_n * k.p_int;
+      const float lam =
+          spot_n * (FAULTS ? fminf(k.p_int * l.haz[z], 1.0f) : k.p_int);
       float intr = lam;
       if (STOCH) {
         const uint4 w = philox4x32_10(
@@ -318,6 +409,8 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
             wsum[c] > kEps ? newn[p][z][c] / (wsum[c] + kEps) : 0.0f;
         newn[p][z][c] = frac * need[c];
       }
+  float spot_req = 0.0f;  // the spot request before denial (FAULTS)
+  const float one_m_deny = 1.0f - l.deny;
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     float now_n = nodes[p][0][0];
@@ -348,8 +441,17 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        pipe[K - 1][p][z][c] = newn[p][z][c] * scale;
+      for (int c = 0; c < 2; ++c) {
+        const float req = newn[p][z][c] * scale;
+        if (!FAULTS) {
+          pipe[K - 1][p][z][c] = req;
+        } else if (c == 0) {  // the spot share is denied, and counted
+          spot_req = (p == 0 && z == 0) ? req : spot_req + req;
+          pipe[K - 1][p][z][c] = pipe[K - 1][p][z][c] + req * one_m_deny;
+        } else {
+          pipe[K - 1][p][z][c] = pipe[K - 1][p][z][c] + req;
+        }
+      }
   }
 
   // 6. consolidation.
@@ -455,6 +557,57 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
       k.lat_slo > 0.0f ? (lat <= k.lat_slo ? 1.0f : 0.0f) : 1.0f;
   const float slo_ok = (met ? 1.0f : 0.0f) * lat_ok;
 
+  // 7b. workload families, from the post-step fleet's headroom.
+  if constexpr (WL_D > 0) {
+    float cap_total = nzc[0][0];
+    cap_total = cap_total + nzc[0][1];
+#pragma unroll
+    for (int z = 1; z < Z; ++z) {
+      cap_total = cap_total + nzc[z][0];
+      cap_total = cap_total + nzc[z][1];
+    }
+    const float headroom =
+        fmaxf(cap_total * ppn - (running[0] + running[1]), 0.0f);
+    const float inf_in = q.inf_q + l.inf;
+    const float inf_served = fminf(inf_in, headroom);
+    const float inf_after = inf_in - inf_served;
+    const float inf_dropped = fmaxf(inf_after - k.wl_qmax, 0.0f);
+    q.inf_q = inf_after - inf_dropped;
+    float rem = headroom - inf_served;
+    const float inf_rho =
+        fminf(fmaxf(inf_in / (headroom + kEps), 0.0f), kRhoClip);
+    const float inf_lat =
+        k.lat_base *
+        (1.0f + kCurveCoef * inf_rho * inf_rho / (1.0f - inf_rho));
+    const float inf_viol =
+        fmaxf(inf_lat > k.wl_slo ? 1.0f : 0.0f, inf_dropped > 0.0f ? 1.0f : 0.0f);
+    // Batch: the pool's slot i is work that has waited i ticks (slot 0
+    // arrives now); served oldest first; what reaches slot D-1 unserved
+    // is a deadline miss.
+    float missed = 0.0f;
+#pragma unroll
+    for (int i = WL_D - 1; i >= 0; --i) {
+      const float pool = i == 0 ? l.bat : q.batch[i - 1];
+      const float take = fminf(pool, rem);
+      rem = rem - take;
+      if (i == WL_D - 1)
+        missed = pool - take;
+      else
+        q.batch[i] = pool - take;
+    }
+    q.batch[WL_D - 1] = 0.0f;
+    float backlog = q.batch[0];
+#pragma unroll
+    for (int i = 1; i < WL_D; ++i) backlog = backlog + q.batch[i];
+    const float bg_in = q.bg_q + l.bg;
+    q.bg_q = bg_in - fminf(bg_in, rem);
+    q.sums[0] = q.sums[0] + inf_viol;
+    q.sums[1] = q.sums[1] + q.inf_q;
+    q.sums[2] = q.sums[2] + inf_dropped;
+    q.sums[3] = q.sums[3] + missed;
+    q.sums[4] = q.sums[4] + backlog;
+  }
+
   // 8. accumulators: episode totals, then SummaryAcc.update.
   s.acc_cost = s.acc_cost + cost;
   s.acc_carbon = s.acc_carbon + carbon;
@@ -479,6 +632,10 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   s.lat_max = fmaxf(s.lat_max, lat);
   s.queue_sum = s.queue_sum + queue;
   s.int_sum = s.int_sum + interrupted_total;
+  if constexpr (FAULTS) {
+    s.denied_sum = s.denied_sum + spot_req * l.deny;
+    s.stale_sum = s.stale_sum + l.stale;
+  }
 }
 
 }  // namespace ccka

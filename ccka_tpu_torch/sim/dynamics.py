@@ -1,9 +1,10 @@
 """The cluster dynamics step, batch-first: one 30 s control tick.
 
-The PyTorch form of `ccka_tpu/sim/dynamics.py` on its plain path (no
-faults, no workload families): pod scheduling, provisioning with delay,
-spot interruption, consolidation, and cost/carbon/SLO accounting, for a
-batch of clusters at once (every tensor leads with B).
+The PyTorch form of `ccka_tpu/sim/dynamics.py`: pod scheduling,
+provisioning with delay, spot interruption, consolidation, and
+cost/carbon/SLO accounting, for a batch of clusters at once (every tensor
+leads with B), with the optional fault disturbances and workload-family
+queues.
 
 Arithmetic order is part of the contract. Sums over the small pool, zone
 and capacity-type axes are written as one left-to-right chain
@@ -96,11 +97,24 @@ def step(params: SimParams, state: ClusterState, action: Action,
     ``action`` leaves are either shared ([P, Z], ...) or per cluster
     ([B, P, Z], ...). ``u3`` ([3, B, P, Z] uniforms, `sim/random.py`) is
     required in stochastic mode and ignored otherwise.
+
+    ``fault``: an optional `faults.types.FaultStep` (leaves shared or per
+    cluster): the hazard scales the interruption probability (clipped at
+    1), ``delay_frac`` of the arrivals goes back to the pipeline's head,
+    ``deny_frac`` of the spot request is denied. Signal staleness is an
+    observation effect the rollout applies; this step consumes true
+    ``exo``. ``workload``/``wl_state``: optional
+    `workloads.types.WorkloadStep` arrivals and `WorkloadState` queues,
+    both or neither; the queues drain from the post-step fleet's headroom
+    (inference first, then batch earliest deadline first over the
+    D-deep age pipeline, then background), and the step returns
+    ``(state, metrics, wl_state)``. ``None`` takes the program without
+    faults or workloads, bitwise; a neutral FaultStep, or zero arrivals,
+    leave the other fields bitwise as well.
     """
-    if fault is not None or workload is not None or wl_state is not None:
-        raise NotImplementedError(
-            "step: fault and workload lanes are ported in a later slice "
-            "(ROADMAP queue A item 7)")
+    if (workload is None) != (wl_state is None):
+        raise ValueError("step: pass both workload= and wl_state=, or "
+                         "neither")
     B, P, Z = state.nodes.shape[:3]
 
     def per_cluster(x, nd):
@@ -118,14 +132,29 @@ def step(params: SimParams, state: ClusterState, action: Action,
     # ---- 1. Desired pods: demand scaled by the HPA lever.
     desired = exo.demand_pods * hpa                          # [B, C]
 
-    # ---- 2. Provisioning pipeline arrivals.
-    nodes = state.nodes + state.pipeline[:, 0]               # [B, P, Z, CT]
+    # ---- 2. Provisioning pipeline arrivals; under a fault, a share of
+    # them is held back at the head of the shifted pipeline.
+    arrivals = state.pipeline[:, 0]                          # [B, P, Z, CT]
     pipeline = torch.cat([state.pipeline[:, 1:],
                           torch.zeros_like(state.pipeline[:, :1])], dim=1)
+    if fault is not None:
+        delay = per_cluster(fault.delay_frac, 0)[:, None, None, None]
+        held = arrivals * delay
+        nodes = state.nodes + (arrivals - held)
+        pipeline = torch.cat([(pipeline[:, 0] + held)[:, None],
+                              pipeline[:, 1:]], dim=1)
+    else:
+        nodes = state.nodes + arrivals
 
-    # ---- 3. Spot interruptions.
+    # ---- 3. Spot interruptions; a fault's hazard scales the per-zone
+    # probability, clipped at 1.
     spot_nodes = nodes[..., CT_SPOT]                         # [B, P, Z]
-    mean_int = spot_nodes * params.interrupt_p_step
+    if fault is not None:
+        p_z = torch.clamp(params.interrupt_p_step
+                          * per_cluster(fault.preempt_hazard, 1), max=1.0)
+        mean_int = spot_nodes * p_z[:, None, :]
+    else:
+        mean_int = spot_nodes * params.interrupt_p_step
     if stochastic:
         if u3 is None:
             raise ValueError("step: stochastic mode needs the uniforms u3")
@@ -169,6 +198,14 @@ def step(params: SimParams, state: ClusterState, action: Action,
                         torch.clamp(headroom / (pool_new + _EPS), max=1.0),
                         1.0)
     new_nodes = new_nodes * scale[:, :, None, None]
+    # Insufficient capacity: the spot share of the request is denied and
+    # not requested; the pending pods ask again next tick.
+    if fault is not None:
+        deny = per_cluster(fault.deny_frac, 0)
+        spot_new = new_nodes[..., CT_SPOT]
+        denied = seqsum(spot_new, (1, 2)) * deny
+        new_nodes = torch.stack([spot_new * (1.0 - deny)[:, None, None],
+                                 new_nodes[..., CT_OD]], -1)
     pipeline = torch.cat([pipeline[:, :-1],
                           (pipeline[:, -1] + new_nodes)[:, None]], dim=1)
 
@@ -232,6 +269,16 @@ def step(params: SimParams, state: ClusterState, action: Action,
         1.0 + LATENCY_CURVE_COEF * rho * rho / (1.0 - rho))
     queue_depth = seqsum(pending, (1,))
 
+    zero = torch.zeros_like(cost)
+    wl_metrics = dict(
+        inf_queue_depth=zero, inf_served=zero, inf_dropped=zero,
+        inf_slo_violation=zero, batch_backlog=zero, batch_served=zero,
+        batch_deadline_miss=zero, bg_backlog=zero)
+    if workload is not None:
+        wl_state, wl_metrics = _workload_queues(
+            params, workload, wl_state,
+            seqsum(nodes_zc, (1, 2)) * ppn - seqsum(running, (1,)))
+
     # SLO per class against raw demand, and the p95 bound when set.
     met_c = running >= params.slo_served_fraction * exo.demand_pods - _EPS
     latency_ok = torch.where(
@@ -251,7 +298,6 @@ def step(params: SimParams, state: ClusterState, action: Action,
         acc_slo_ok_s=state.acc_slo_ok_s + slo_ok * params.dt_s,
         acc_evictions=state.acc_evictions + evicted,
     )
-    zero = torch.zeros_like(cost)
     metrics = StepMetrics(
         cost_usd=cost,
         carbon_g=carbon,
@@ -266,9 +312,69 @@ def step(params: SimParams, state: ClusterState, action: Action,
         evicted_pods=evicted,
         latency_p95_ms=latency_p95_ms,
         queue_depth=queue_depth,
-        denied_nodes=zero, delayed_nodes=zero, signal_stale=zero,
-        inf_queue_depth=zero, inf_served=zero, inf_dropped=zero,
-        inf_slo_violation=zero, batch_backlog=zero, batch_served=zero,
-        batch_deadline_miss=zero, bg_backlog=zero,
+        denied_nodes=zero if fault is None else denied,
+        delayed_nodes=zero if fault is None else seqsum(held, (1, 2, 3)),
+        signal_stale=(zero if fault is None
+                      else per_cluster(fault.signal_stale, 0)),
+        **wl_metrics,
     )
+    if workload is not None:
+        return new_state, metrics, wl_state
     return new_state, metrics
+
+
+def _workload_queues(params: SimParams, workload, wl_state, slack):
+    """The workload families' tick: ``slack`` [B] is the post-step
+    fleet's pod capacity (base nodegroup included) minus the primary
+    demand's running pods. Returns ``(wl_state, metrics dict)``."""
+    B = slack.shape[0]
+
+    def per_cluster(x):
+        return x if x.dim() == 1 else x.expand(B)
+
+    headroom = torch.clamp(slack, min=0.0)
+    # Inference: served first; the queue is capped, the excess shed.
+    inf_in = per_cluster(wl_state.inf_queue) + per_cluster(
+        workload.inf_arrivals)
+    inf_served = torch.minimum(inf_in, headroom)
+    inf_after = inf_in - inf_served
+    inf_dropped = torch.clamp(inf_after - params.wl_inference_queue_max,
+                              min=0.0)
+    inf_queue = inf_after - inf_dropped
+    rem = headroom - inf_served
+    inf_rho = torch.clamp(inf_in / (headroom + _EPS), 0.0, LATENCY_RHO_CLIP)
+    inf_latency = params.latency_base_ms * (
+        1.0 + LATENCY_CURVE_COEF * inf_rho * inf_rho / (1.0 - inf_rho))
+    inf_viol = torch.maximum(
+        (inf_latency > params.wl_inference_slo_ms).to(torch.float32),
+        (inf_dropped > 0.0).to(torch.float32))
+    # Batch, earliest deadline first over the age pipeline: pool[k] is
+    # work that has waited k ticks; the state's last slot is 0, so the
+    # shift drops nothing.
+    backlog = wl_state.batch_backlog
+    if backlog.dim() == 1:
+        backlog = backlog.expand(B, -1)
+    D = backlog.shape[1]
+    pool = [per_cluster(workload.batch_arrivals)] + list(
+        backlog[:, :D - 1].unbind(1))
+    leftover = [None] * D
+    batch_served = None
+    for k in range(D - 1, -1, -1):                    # oldest first
+        take = torch.minimum(pool[k], rem)
+        rem = rem - take
+        batch_served = take if batch_served is None else batch_served + take
+        leftover[k] = pool[k] - take
+    batch_missed = leftover[D - 1]
+    batch_backlog = torch.stack(leftover[:D - 1]
+                                + [torch.zeros_like(rem)], dim=1)
+    # Background: best effort, whatever headroom remains.
+    bg_in = per_cluster(wl_state.bg_backlog) + per_cluster(
+        workload.bg_arrivals)
+    bg_backlog = bg_in - torch.minimum(bg_in, rem)
+    state = type(wl_state)(inf_queue=inf_queue, batch_backlog=batch_backlog,
+                           bg_backlog=bg_backlog)
+    return state, dict(
+        inf_queue_depth=inf_queue, inf_served=inf_served,
+        inf_dropped=inf_dropped, inf_slo_violation=inf_viol,
+        batch_backlog=seqsum(batch_backlog, (1,)), batch_served=batch_served,
+        batch_deadline_miss=batch_missed, bg_backlog=bg_backlog)

@@ -25,6 +25,14 @@ plain version per cluster in both modes, up to float rounding that a
 threshold gate (or, for the learned policy, the feedback through a bf16
 net) may amplify.
 
+Widened streams: a packed stream may carry the fault block, the
+workload block or both after its exo rows (`sim/lanes.py`); each
+``*_summary_from_packed`` entry reads the layout from the row count. The
+kernels then take their ``FAULTS`` / ``WL_D`` instantiations, and the
+plain version threads the unpacked lanes through the rollout
+(`faults/process.py::unpack_fault_lanes`,
+`workloads/process.py::unpack_workload_lanes`).
+
 Device rule: a stream on a CUDA device launches the kernel (or raises); a
 stream on the CPU runs the plain version. Each ``*_summary_from_packed``
 entry counts its kernel launches in its ``launches`` attribute.
@@ -43,6 +51,7 @@ import torch
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import ClusterConfig
 from ccka_tpu_torch.signals.base import ExogenousTrace
+from ccka_tpu_torch.sim.lanes import exo_rows, resolve_layout
 from ccka_tpu_torch.sim.metrics import EpisodeSummary, SummaryAcc
 from ccka_tpu_torch.sim.types import Action, ClusterState, SimParams
 
@@ -56,19 +65,16 @@ _PARAM_NAMES = (
     "wl_inf_qmax", "wl_inf_slo",              # workload families
 )
 
-# Output block rows: 16 accumulators + 5 workload-family ones (zero on
-# this path), padded to a multiple of 8.
+# Output block rows: 16 accumulators + 5 workload-family ones (zero
+# without workload lanes), padded to a multiple of 8.
 _OUT_ROWS = 24
 
 # Topologies (P, Z, K) the kernel is instantiated for: the default and
 # multiregion presets.
 KERNEL_TOPOLOGIES = ((2, 3, 3), (2, 4, 3))
-
-
-def exo_rows(Z: int) -> int:
-    """Rows of the packed exo stream: spot[Z] + od[Z] + carbon[Z] + demand
-    [2] + is_peak, padded to a multiple of 8."""
-    return math.ceil((3 * Z + 3) / 8) * 8
+# Batch-deadline depths D the workload instantiations are built for:
+# every scenario of the library has batch_deadline_ticks = 16.
+KERNEL_WL_DEPTHS = (16,)
 
 
 def _pack_params(params: SimParams) -> torch.Tensor:
@@ -288,20 +294,60 @@ def carbon_megakernel_summary_from_packed(params: SimParams,
 carbon_megakernel_summary_from_packed.launches = 0
 
 
+class _Lanes:
+    """What a checked packed stream carries: the row offsets of its fault
+    and workload blocks (-1 when absent) and the batch-deadline depth its
+    workload queues need (0 without workloads)."""
+
+    def __init__(self, layout, params):
+        self.fault_base = (layout.block("faults")[0]
+                           if layout.has("faults") else -1)
+        self.wl_base = (layout.block("workloads")[0]
+                        if layout.has("workloads") else -1)
+        self.wl_depth = (int(params.wl_batch_deadline_ticks)
+                         if self.wl_base >= 0 else 0)
+
+
 def _check_packed(exo_packed: torch.Tensor, T: int, P: int, Z: int,
-                  K: int) -> None:
-    """Refuse a stream that does not fit the horizon and topology, a
-    device that is neither CPU nor CUDA, and on CUDA a topology the
-    kernels are not built for."""
+                  K: int, params: SimParams) -> _Lanes:
+    """The stream's lanes. Refuses a stream whose row count names no
+    layout or that does not fit the horizon, a device that is neither CPU
+    nor CUDA, and on CUDA a topology or batch-deadline depth the kernels
+    are not built for."""
     T_pad, rows, B = exo_packed.shape
-    if rows != exo_rows(Z) or T_pad < T or B < 1:
+    if T_pad < T or B < 1:
         raise ValueError(f"packed stream {tuple(exo_packed.shape)} does not "
-                         f"fit T={T}, Z={Z} (rows must be {exo_rows(Z)})")
+                         f"fit T={T}")
+    try:
+        layout = resolve_layout(rows, Z)
+    except ValueError as err:
+        raise ValueError(f"packed stream {tuple(exo_packed.shape)} does not "
+                         f"fit Z={Z}: {err}") from None
     if exo_packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {exo_packed.device}")
-    if exo_packed.device.type == "cuda" and (P, Z, K) not in KERNEL_TOPOLOGIES:
-        raise ValueError(f"the rollout kernel is built for (P, Z, K) in "
-                         f"{KERNEL_TOPOLOGIES}, not {(P, Z, K)}")
+    lanes = _Lanes(layout, params)
+    if exo_packed.device.type == "cuda":
+        if (P, Z, K) not in KERNEL_TOPOLOGIES:
+            raise ValueError(f"the rollout kernel is built for (P, Z, K) in "
+                             f"{KERNEL_TOPOLOGIES}, not {(P, Z, K)}")
+        if lanes.wl_depth and lanes.wl_depth not in KERNEL_WL_DEPTHS:
+            raise ValueError(f"the rollout kernel is built for batch "
+                             f"deadlines D in {KERNEL_WL_DEPTHS}, not "
+                             f"{lanes.wl_depth}")
+    return lanes
+
+
+def _unpack_lanes(exo_packed: torch.Tensor, T: int, Z: int,
+                  lanes: _Lanes) -> dict:
+    """The ``faults=``/``workloads=`` arguments of the plain rollout."""
+    from ccka_tpu_torch.faults.process import unpack_fault_lanes
+    from ccka_tpu_torch.workloads.process import unpack_workload_lanes
+
+    return dict(
+        faults=(unpack_fault_lanes(exo_packed, T, Z)
+                if lanes.fault_base >= 0 else None),
+        workloads=(unpack_workload_lanes(exo_packed, T, Z)
+                   if lanes.wl_base >= 0 else None))
 
 
 def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
@@ -312,12 +358,13 @@ def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
 
     P, Z = off_action.zone_weight.shape
     K = int(params.provision_pipeline_k)
-    _check_packed(exo_packed, T, P, Z, K)
+    lanes = _check_packed(exo_packed, T, P, Z, K, params)
     seed_key(seed)  # range check: the kernel keys Philox by its 64 bits
     if exo_packed.device.type == "cpu":
         return _plain_summary(params, off_action, peak_action,
                               unpack_exo(exo_packed, T, Z), seed, stochastic,
-                              carbon)
+                              carbon, **_unpack_lanes(exo_packed, T, Z,
+                                                      lanes))
     from ccka_tpu_torch.kernels import build
 
     acts = torch.stack([_pack_action(off_action), _pack_action(peak_action)])
@@ -327,23 +374,29 @@ def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
         out, exo_packed,
         _pack_params(params).cpu().numpy().ravel(),
         acts.cpu().numpy(), P=P, Z=Z, K=K, T=int(T), seed=int(seed),
-        stochastic=bool(stochastic), carbon=carbon)
+        stochastic=bool(stochastic), carbon=carbon,
+        fault_base=lanes.fault_base, wl_base=lanes.wl_base,
+        wl_depth=lanes.wl_depth)
     entry.launches += 1
     return _finalize(params, out, T)
 
 
-def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic):
-    """`sim/rollout.py`'s rollout of fresh clusters under ``action_fn``."""
+def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic,
+                   faults=None, workloads=None):
+    """`sim/rollout.py`'s rollout of fresh clusters under ``action_fn``,
+    with the stream's lanes when it has them."""
     from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
                                             fresh_state)
 
     states0 = fresh_state(P, Z, int(params.provision_pipeline_k),
                           traces.is_peak.shape[0], traces.is_peak.device)
     return batched_rollout_summary(params, states0, action_fn, traces, seed,
-                                   stochastic=stochastic)[1]
+                                   stochastic=stochastic, faults=faults,
+                                   workloads=workloads)[1]
 
 
-def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None):
+def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None,
+                   faults=None, workloads=None):
     """The profile kernel's plain version: the rule-policy rollout from
     fresh clusters, or with ``carbon`` the CarbonAwarePolicy's zone
     weights over the same two profiles."""
@@ -359,7 +412,8 @@ def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None):
 
     P, Z = off.zone_weight.shape
     return _plain_rollout(params, P, Z, rule if carbon is None
-                          else carbon_aware, traces, seed, stochastic)
+                          else carbon_aware, traces, seed, stochastic,
+                          faults, workloads)
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +573,7 @@ def neural_megakernel_summary_from_packed(params: SimParams,
 
     P, Z = cluster.n_pools, cluster.n_zones
     K = int(params.provision_pipeline_k)
-    _check_packed(exo_packed, T, P, Z, K)
+    lanes = _check_packed(exo_packed, T, P, Z, K, params)
     seed_key(seed)
     (_, H, _), was_single = _mlp_dims(net_params, P=P, Z=Z)
     dev = exo_packed.device
@@ -529,10 +583,12 @@ def neural_megakernel_summary_from_packed(params: SimParams,
             lambda x: np.asarray(x)[None], net_params)
         n_members = stacked["params"]["Dense_0"]["kernel"].shape[0]
         traces = unpack_exo(exo_packed, T, Z)
+        extra = _unpack_lanes(exo_packed, T, Z, lanes)
         members = [_plain_rollout(
             params, P, Z, kernel_numerics_action_fn(
                 _tree_map(lambda x: np.asarray(x)[i], stacked), cluster,
-                params), traces, seed, stochastic) for i in range(n_members)]
+                params), traces, seed, stochastic, **extra)
+            for i in range(n_members)]
         summary = EpisodeSummary(*(torch.stack(xs) for xs in zip(*members)))
     else:
         if H != 128:
@@ -550,7 +606,8 @@ def neural_megakernel_summary_from_packed(params: SimParams,
             np.array([AFTER_MAX_S, HPA_LO, HPA_HI - HPA_LO, HPA_BIAS],
                      np.float32),
             weights, P=P, Z=Z, K=K, T=int(T), seed=int(seed),
-            stochastic=bool(stochastic))
+            stochastic=bool(stochastic), fault_base=lanes.fault_base,
+            wl_base=lanes.wl_base, wl_depth=lanes.wl_depth)
         neural_megakernel_summary_from_packed.launches += 1
         # Finalize all members at once: [NP, 24, B] -> [24, NP * B].
         flat = _finalize(params, out.permute(1, 0, 2).reshape(_OUT_ROWS, -1),

@@ -35,9 +35,9 @@ class EpisodeSummary(NamedTuple):
     latency_p95_ms_mean: torch.Tensor  # mean p95 proxy
     latency_p95_ms_max: torch.Tensor   # worst tick p95
     queue_depth_mean: torch.Tensor    # mean pending-pod backlog
-    denials: torch.Tensor             # fault counters (0 on this path)
+    denials: torch.Tensor             # fault counters (0 without faults)
     stale_ticks: torch.Tensor
-    inf_slo_violations: torch.Tensor  # workload columns (0 on this path)
+    inf_slo_violations: torch.Tensor  # workload columns (0 without them)
     inf_queue_mean: torch.Tensor
     inf_dropped: torch.Tensor
     batch_deadline_misses: torch.Tensor

@@ -52,9 +52,9 @@ class SimParams(NamedTuple):
     consolidate_tau_s: torch.Tensor    # [] softness of consolidate-after
     latency_base_ms: torch.Tensor      # [] idle p95 of the latency proxy
     latency_slo_ms: torch.Tensor       # [] p95 SLO bound (0 = disabled)
-    wl_inference_queue_max: torch.Tensor  # [] workload families (unused
-    wl_inference_slo_ms: torch.Tensor     #    on this slice's path, kept
-    wl_batch_deadline_ticks: int          #    so the fields line up)
+    wl_inference_queue_max: torch.Tensor  # [] workload families: queue
+    wl_inference_slo_ms: torch.Tensor     #    cap, latency SLO and the
+    wl_batch_deadline_ticks: int          #    static batch deadline D
 
     @classmethod
     def from_config(cls, cfg: FrameworkConfig, device=None) -> "SimParams":
@@ -157,10 +157,10 @@ class StepMetrics(NamedTuple):
     evicted_pods: torch.Tensor       # [B]
     latency_p95_ms: torch.Tensor     # [B]
     queue_depth: torch.Tensor        # [B]
-    denied_nodes: torch.Tensor       # [B] fault counters: 0 on this path
+    denied_nodes: torch.Tensor       # [B] fault counters: 0 without faults
     delayed_nodes: torch.Tensor      # [B]
     signal_stale: torch.Tensor       # [B]
-    inf_queue_depth: torch.Tensor    # [B] workload counters: 0 on this path
+    inf_queue_depth: torch.Tensor    # [B] workload counters: 0 without
     inf_served: torch.Tensor         # [B]
     inf_dropped: torch.Tensor        # [B]
     inf_slo_violation: torch.Tensor  # [B]

@@ -2,37 +2,50 @@
 
     python3 chip_smoke.py
 
-Two main paths. The rule-profile fleet rollout: a batch of clusters gets
-one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon and
-demand signals, is stepped under the Peak/Off-Peak rule, and is folded
-into one EpisodeSummary per cluster. The three-policy scoreboard: the
-rule, the carbon teacher and the shipped learned flagship scored on one
-packed multiregion fleet-day, paired world for world. Phases, in order;
-any failure ends the run with a nonzero exit code:
+Three main paths. The rule-profile fleet rollout: a batch of clusters
+gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
+and demand signals, is stepped under the Peak/Off-Peak rule, and is
+folded into one EpisodeSummary per cluster. The three-policy scoreboard:
+the rule, the carbon teacher and the shipped learned flagship scored on
+one packed multiregion fleet-day, paired world for world. The fault and
+workload boards: the same three policies on streams widened with fault
+lanes (four intensities) and workload-family lanes (four scenarios).
+Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
-2. build every CUDA source with nvcc (all started together);
+2. build every CUDA source in each lane variant with nvcc (8 processes,
+   all started together), printing registers and spill;
 3. philox_uniform_kernel against `sim/random.uniforms`, bitwise. This
    kernel is on no rollout path (the rollout kernels inline the same
    device function); its launch count is this phase's;
-4. default preset, B = 8192 x T = 2880, deterministic and stochastic, and
-   multiregion preset, B = 1024, deterministic over T = 2880 and
-   stochastic over T = 720 (phase 7 holds that mode over the whole day):
-   the rule kernel and the carbon kernel, each against its plain version (deterministic:
-   batch means within 1e-4 relative, at least 99.9 % of clusters within
-   2e-3 on every field; stochastic: `mean_parity_violations` empty, at
-   least 99 % of clusters within 2e-3), with whether they are bitwise
-   equal; then the carbon kernel with other constants (sharpness 40,
-   min_weight 0.2, stickiness 0) against the plain version under the same
-   constants, and that they change `carbon_kg`;
+4. default preset B = 8192 and multiregion B = 1024, T = 720, both
+   modes: the rule kernel and the carbon kernel, each against its plain
+   version (deterministic: batch means within 1e-4 relative, at least
+   99.9 % of clusters within 2e-3 on every field; stochastic:
+   `mean_parity_violations` empty, at least 99 % of clusters within
+   2e-3), with whether they are bitwise equal; then the carbon kernel
+   with other constants (sharpness 40, min_weight 0.2, stickiness 0)
+   against the plain version under the same constants, and that they
+   change `carbon_kg`;
 5. the MLP kernel against `kernel_numerics_action_fn`: (a) the shipped
    multiregion flagship, B = 1024 x T = 32, deterministic, every field's
    largest per-cluster relative difference within 1e-3 (five near-zero-
    denominator fields 2e-2); (d) the same with the replay checkpoint on
-   the default preset; (b) multiregion B = 8192 x T = 2880, both modes,
+   the default preset; (b) multiregion B = 8192 x T = 720, both modes,
    `mean_parity_violations(..., NEURAL_MEAN_PARITY_TOLERANCES)` empty;
    (c) two stacked members: member 0 bitwise the single run, member 1
    (weights halved) another policy;
+5b. the zero gates: on "off" fault lanes, on zero-rate workload lanes and
+   on both, every lane instantiation of the three kernels gives bitwise
+   what the plain-stream kernel gives (both presets, B = 8192 x T = 2880,
+   both modes);
+5c. each lane instantiation against its plain version (the plain rollout
+   with the lanes threaded through): rule and carbon on the severe,
+   flash-crowd and mixed streams, multiregion B = 8192 x T = 720, both
+   modes, at phase 4's standard; the MLP on the same streams at
+   B = 1024 x T = 32 per cluster (phase 5's standard; denials, stale
+   ticks, shed load and deadline misses among the near-zero fields) and
+   at B = 8192 x T = 720 by NEURAL_MEAN_PARITY_TOLERANCES;
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
@@ -46,7 +59,17 @@ any failure ends the run with a nonzero exit code:
    each kernel's median time of 5 launches, its bound and cluster-days/s;
 8. the rule kernel's time across fleet sizes B = 8192 ... 65536, both
    modes, against its bound and the warps per SM the launch gives;
-9. one JSON line listing every kernel, the card's line, and the result.
+9. the boards: `fault_scoreboard` and `workload_scoreboard` at
+   multiregion B = 32768 x T = 2880, stochastic, rule, carbon and
+   flagship, each with the counters (by entry and by instantiation)
+   zeroed just before and read just after; the boards' fleet means; then
+   every stream once more from the same seed (its rows checked equal to
+   the board's), timed: synthesis, each entry, each kernel as the median
+   of 5; on severe and mixed each policy's result held against its plain
+   version (stochastic standard; the flagship's by
+   NEURAL_MEAN_PARITY_TOLERANCES);
+10. one JSON line listing every kernel and lane instantiation, the
+   card's line, and the result.
 
 The bound of a call is the larger of its bytes (each input row the kernel
 reads, once, its weights and its output) over HBM's rate and its
@@ -66,6 +89,7 @@ It needs no network and runs no JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -84,6 +108,7 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 T_DAY = 2880
 T_SHORT = 32
+T_PARITY = 720   # the depth of the parity phases 4, 5 and 5c
 B_PARITY = 8192
 B_MULTI = 1024
 B_MAIN = 32768
@@ -189,30 +214,37 @@ def bound(nbytes: float, op_terms: dict) -> tuple[float, str, dict]:
             "bytes" if by_bytes else "operations", terms)
 
 
-def rollout_bytes(Z: int, B: int, T: int, weight_bytes: int = 0) -> int:
-    """Bytes a rollout kernel must move: the 3Z+3 stream rows it reads
-    (spot, od, carbon per zone, two demands, is_peak; not the padding
-    rows) once per tick, its weights, and its [24, B] output."""
-    return ((3 * Z + 3) * T + OUT_ROWS) * B * 4 + weight_bytes
+def rollout_bytes(Z: int, B: int, T: int, weight_bytes: int = 0,
+                  faults: bool = False, workloads: bool = False) -> int:
+    """Bytes a rollout kernel must move: the stream rows it reads (spot,
+    od, carbon per zone, two demands, is_peak; with faults the Z+3 fault
+    rows, with workloads the 3 arrival rows; not the padding rows) once
+    per tick, its weights, and its [24, B] output."""
+    rows = 3 * Z + 3 + (Z + 3 if faults else 0) + (3 if workloads else 0)
+    return (rows * T + OUT_ROWS) * B * 4 + weight_bytes
 
 
 def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
-                               net_params=None) -> int:
+                               net_params=None, faults: bool = False,
+                               workloads: bool = False) -> int:
     """Floating-point pointwise operations of one tick of the plain step
     for one cluster under ``policy`` (with its uniforms' conversion in
-    stochastic mode), counted by dispatching it on the CPU. The MLP's
-    chained products (`addcmul`) are left out: the bound counts them from
-    the layer widths."""
+    stochastic mode; with ``faults`` the fault branch and the held
+    observation, with ``workloads`` the D = 16 queues), counted by
+    dispatching it on the CPU. The MLP's chained products (`addcmul`) are
+    left out: the bound counts them from the layer widths."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from ccka_tpu_torch.faults.types import FaultStep
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import RulePolicy
     from ccka_tpu_torch.sim import megakernel as mk
     from ccka_tpu_torch.sim.dynamics import ExoStep, step
     from ccka_tpu_torch.sim.random import uniforms
-    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.sim.rollout import initial_state, observed_exo
     from ccka_tpu_torch.sim.types import SimParams
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.workloads.types import WorkloadState, WorkloadStep
 
     class Count(TorchDispatchMode):
         n = 0
@@ -240,14 +272,445 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
         "mlp": lambda: mk.kernel_numerics_action_fn(net_params, cfg.cluster,
                                                     params),
     }[policy]()
+    one = torch.ones((1,))
+    fault = (FaultStep(torch.full((1, Z), 2.0), 0.5 * one, 0.5 * one, one)
+             if faults else None)
+    lanes = (dict(workload=WorkloadStep(one, one, one),
+                  wl_state=WorkloadState.zero(16, 1, "cpu"))
+             if workloads else {})
     Count.n = 0
     with Count():
         u3 = (uniforms(0, torch.zeros((1, 1), dtype=torch.int64), 0,
                        torch.arange(P * Z)[None, :]).reshape(3, 1, P, Z)
               if stochastic else None)
-        action = action_fn(state, exo, 0)
-        step(params, state, action, exo, u3, stochastic=stochastic)
+        obs = (observed_exo(exo, exo, fault.signal_stale)
+               if faults and policy != "rule" else exo)
+        action = action_fn(state, obs, 0)
+        step(params, state, action, exo, u3, stochastic=stochastic,
+             fault=fault, **lanes)
     return Count.n
+
+
+# ---- the fault- and workload-widened paths (phases 5b, 5c, 9)
+
+LANE_SEED = 5
+BOARD_SEED, BOARD_TRACE_SEED = 31, 97
+POLICIES = ("rule", "carbon", "mlp")
+BOARD_ROW = {"rule": "rule", "carbon": "carbon", "mlp": "flagship"}
+FAULT_LEVELS = ("off", "mild", "moderate", "severe")
+SCENARIOS = ("diurnal-inference", "flash-crowd", "batch-backfill", "mixed")
+# The TPU kernel's lines of each branch (ccka_tpu/sim/megakernel.py).
+REPLACES = {"FAULTS": "ccka_tpu/sim/megakernel.py:400",
+            "WL_D=16": "ccka_tpu/sim/megakernel.py:780"}
+
+
+def lane_source(cfg, name: str):
+    """(source, its WorkloadsConfig or None) of a fault intensity or a
+    workload scenario."""
+    from ccka_tpu_torch.config import FAULT_PRESETS
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    scenario_source)
+
+    if name in WORKLOAD_SCENARIOS:
+        sc = WORKLOAD_SCENARIOS[name]
+        return scenario_source(cfg, sc), sc.workloads
+    return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                 cfg.signals,
+                                 faults=FAULT_PRESETS[name]), None
+
+
+def lane_params(cfg, workloads, dev):
+    """SimParams of ``cfg`` under a scenario's WorkloadsConfig."""
+    import dataclasses
+
+    from ccka_tpu_torch.sim.types import SimParams
+
+    if workloads is not None:
+        cfg = dataclasses.replace(cfg, workloads=workloads)
+    return SimParams.from_config(cfg, device=dev)
+
+
+def run_entry(policy, cfg, params, net, stream, T, stochastic,
+              seed=LANE_SEED):
+    """The packed entry of ``policy`` (the kernel on a CUDA stream)."""
+    from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    dev = stream.device
+    off, peak = offpeak_action(cfg.cluster, dev), peak_action(cfg.cluster,
+                                                              dev)
+    kw = dict(seed=seed, stochastic=stochastic)
+    if policy == "rule":
+        return mk.megakernel_summary_from_packed(params, off, peak, stream,
+                                                 T, **kw)
+    if policy == "carbon":
+        return mk.carbon_megakernel_summary_from_packed(
+            params, off, peak, stream, T, **kw)
+    return mk.neural_megakernel_summary_from_packed(params, cfg.cluster, net,
+                                                    stream, T, **kw)
+
+
+def lane_plain(policy, cfg, params, net, stream, T, stochastic,
+               seed=LANE_SEED):
+    """The plain version on the card: `batched_rollout_summary` under the
+    policy's action function, the stream's lanes threaded through."""
+    from ccka_tpu_torch.faults.process import unpack_fault_lanes
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.policy.rule import RulePolicy
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.lanes import resolve_layout
+    from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
+                                            initial_state)
+    from ccka_tpu_torch.workloads.process import unpack_workload_lanes
+
+    dev = stream.device
+    Z = cfg.cluster.n_zones
+    layout = resolve_layout(stream.shape[1], Z)
+    action_fn = {
+        "rule": lambda: RulePolicy(cfg.cluster, dev).action_fn(),
+        "carbon": lambda: CarbonAwarePolicy(cfg.cluster,
+                                            device=dev).action_fn(),
+        "mlp": lambda: mk.kernel_numerics_action_fn(net, cfg.cluster,
+                                                    params)}[policy]()
+    return batched_rollout_summary(
+        params, initial_state(cfg, stream.shape[2], dev), action_fn,
+        mk.unpack_exo(stream, T, Z), seed, stochastic=stochastic,
+        faults=(unpack_fault_lanes(stream, T, Z) if layout.has("faults")
+                else None),
+        workloads=(unpack_workload_lanes(stream, T, Z)
+                   if layout.has("workloads") else None))[1]
+
+
+def instantiation_name(policy: str, name: str) -> str:
+    """The kernel instantiation a policy runs on a lane stream."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    sc = WORKLOAD_SCENARIOS.get(name)
+    faults = sc is None or bool(sc.fault_preset)
+    suffix = build.instantiation(policy == "carbon", faults,
+                                 16 if sc is not None else 0)
+    return ("rollout_mlp_kernel" if policy == "mlp"
+            else "rollout_profiles_kernel") + suffix
+
+
+def lane_phases(dev, setup, hold) -> dict:
+    """5b: the zero gates: on "off" fault lanes and on zero-rate workload
+    lanes every lane instantiation gives, bitwise, what the plain-stream
+    kernel gives (both presets, both modes). 5c: each lane instantiation
+    against its plain version: rule and carbon on severe, flash-crowd and
+    mixed (multiregion B = 8192 x T = 720, both modes); the MLP on the
+    same streams per cluster at B = 1024 x T = 32 and by
+    NEURAL_MEAN_PARITY_TOLERANCES at B = 8192 x T = 720, deterministic.
+    Returns {instantiation: parity record}."""
+    from ccka_tpu_torch.config import FAULT_PRESETS, WorkloadsConfig
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    zero = WorkloadsConfig(enabled=True, inference_rate_pods=0.0,
+                           batch_rate_pods=0.0, background_rate_pods=0.0)
+    for preset, variant in (("default", "replay"), ("multiregion", "")):
+        cfg, _, params, _, _, net = setup(preset, variant)
+
+        def stream(**kw):
+            return SyntheticSignalSource(
+                cfg.cluster, cfg.workload, cfg.sim, cfg.signals, **kw
+            ).packed_trace_device(T_DAY, 61, B_PARITY, device=dev)
+
+        base = stream()
+        widened = {"off faults": stream(faults=FAULT_PRESETS["off"]),
+                   "zero-rate workloads": stream(workloads=zero),
+                   "both": stream(faults=FAULT_PRESETS["off"],
+                                  workloads=zero)}
+        n = 0
+        for policy in POLICIES:
+            for st in (False, True):
+                want = run_entry(policy, cfg, params, net, base, T_DAY, st)
+                for name, s in widened.items():
+                    got = run_entry(policy, cfg, params, net, s, T_DAY, st)
+                    torch.cuda.synchronize()
+                    n += 1
+                    if not bitwise(got, want):
+                        fail(f"zero gate: {policy} on {name} ({preset}, "
+                             f"stochastic={st}) is not bitwise the "
+                             f"plain-stream kernel")
+        log(f"# zero gates {preset} B={B_PARITY} T={T_DAY}: {n} lane runs "
+            f"(rule, carbon, mlp x off faults, zero-rate workloads, both x "
+            f"two modes), every one bitwise the plain-stream kernel")
+        del base, widened
+        torch.cuda.empty_cache()
+
+    found: dict = {}
+    cfg, _, _, _, _, net = setup("multiregion")
+    for name in ("severe", "flash-crowd", "mixed"):
+        source, wl = lane_source(cfg, name)
+        params = lane_params(cfg, wl, dev)
+        stream = source.packed_trace_device(T_PARITY, 67, B_PARITY,
+                                            device=dev)
+        for policy in ("rule", "carbon"):
+            label = instantiation_name(policy, name)
+            for st in (False, True):
+                k = run_entry(policy, cfg, params, net, stream, T_PARITY, st)
+                t0 = time.perf_counter()
+                p = lane_plain(policy, cfg, params, net, stream, T_PARITY, st)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                same, max_abs = hold(
+                    f"{label} {name} multiregion B={B_PARITY} T={T_PARITY} "
+                    f"{'stochastic' if st else 'deterministic'}", k, p, st)
+                rec = found.setdefault(label, {"bitwise": True,
+                                               "max_abs_err": 0.0})
+                rec["bitwise"] &= same
+                rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+                rec["plain_ms"] = plain_s * 1e3
+                rec["shape"] = (f"{name} multiregion B={B_PARITY} "
+                                f"T={T_PARITY} "
+                                f"{'stochastic' if st else 'deterministic'}")
+        label = instantiation_name("mlp", name)
+        short = source.packed_trace_device(T_SHORT, 71, B_MULTI, device=dev)
+        k = run_entry("mlp", cfg, params, net, short, T_SHORT, False)
+        p = lane_plain("mlp", cfg, params, net, short, T_SHORT, False)
+        rel = field_rel(k, p)
+        loose = SHORT_LOOSE + ("denials", "stale_ticks", "inf_dropped",
+                               "batch_deadline_misses")
+        bad = {f: r for f, r in rel.items()
+               if r > (SHORT_LOOSE_TOL if f in loose else SHORT_TOL)}
+        worst = max(rel, key=rel.get)
+        log(f"# parity {label} {name} multiregion B={B_MULTI} T={T_SHORT} "
+            f"deterministic: bitwise {bitwise(k, p)}; largest per-cluster "
+            f"rel diff {worst} {rel[worst]:.3g}")
+        if bad:
+            fail(f"mlp short-horizon parity on {name}: {bad}")
+        k = run_entry("mlp", cfg, params, net, stream, T_PARITY, False)
+        t0 = time.perf_counter()
+        p = lane_plain("mlp", cfg, params, net, stream, T_PARITY, False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        share, worst, worst_rel, max_abs = per_cluster_share(k, p)
+        viol = mk.mean_parity_violations(k, p,
+                                         mk.NEURAL_MEAN_PARITY_TOLERANCES)
+        same = bitwise(k, p)
+        log(f"# parity {label} {name} multiregion B={B_PARITY} T={T_PARITY} "
+            f"deterministic: bitwise {same}; {share * 100:.4f} % of clusters "
+            f"within 2e-3; worst {worst} (rel {worst_rel:.3g}); max abs diff "
+            f"{max_abs:.4g}; mean_parity_violations {viol}")
+        if viol:
+            fail(f"mlp mean parity on {name}")
+        found[label] = {"bitwise": same, "max_abs_err": max_abs,
+                        "plain_ms": plain_s * 1e3,
+                        "shape": f"{name} multiregion B={B_PARITY} "
+                                 f"T={T_PARITY} deterministic"}
+        del stream, short, k, p
+        torch.cuda.empty_cache()
+    return found
+
+
+def lane_bound(cfg, policy: str, name: str, net=None):
+    """(bound ms, "bytes" or "operations", terms) of a lane kernel at the
+    boards' size (multiregion B = 32768 x T = 2880, stochastic)."""
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    sc = WORKLOAD_SCENARIOS.get(name)
+    faults = sc is None or bool(sc.fault_preset)
+    wl = sc is not None
+    Z = cfg.cluster.n_zones
+    ops = float_ops_per_cluster_tick(cfg, True, policy, net, faults, wl)
+    terms = {"tick": (ops * B_MAIN * T_DAY, F32_UNFUSED_OPS_PER_S,
+                      "float32")}
+    weight_bytes = 0
+    if policy == "mlp":
+        F, H, A = mk._mlp_dims(net, P=cfg.cluster.n_pools, Z=Z)[0]
+        weight_bytes = (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
+        terms["torso"] = (2 * (F * H + H * H) * B_MAIN * T_DAY,
+                          BF16_TENSOR_OPS_PER_S, "tensor cores")
+        terms["head"] = (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S,
+                         "float32")
+    return bound(rollout_bytes(Z, B_MAIN, T_DAY, weight_bytes, faults, wl),
+                 terms) + (ops,)
+
+
+def board_phase(dev, setup, zero_counters, read_counters) -> dict:
+    """9: the main path of this slice. `fault_scoreboard` (four
+    intensities) and `workload_scoreboard` (four scenarios) on the
+    multiregion preset at B = 32768 x T = 2880, stochastic, rule, carbon
+    and flagship, each with the launch counters zeroed just before and
+    read just after. Then each stream once more from the same seed
+    (bitwise the board's: its rows are checked equal), timed: synthesis,
+    each entry, each kernel as the median of 5; on severe and mixed each
+    policy's row held against its plain version."""
+    from ccka_tpu_torch.faults.scoreboard import (fault_scoreboard,
+                                                  summary_mean)
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.workloads.scoreboard import workload_scoreboard
+
+    cfg, _, _, _, _, net = setup("multiregion")
+    out: dict = {"launches": {}, "rows": {}}
+    runs = (("fault board", FAULT_LEVELS, "intensities",
+             lambda: fault_scoreboard(cfg, n_traces=B_MAIN, seed=BOARD_SEED,
+                                      trace_seed=BOARD_TRACE_SEED,
+                                      device=dev)),
+            ("workload board", SCENARIOS, "scenarios",
+             lambda: workload_scoreboard(cfg, n_traces=B_MAIN,
+                                         seed=BOARD_SEED,
+                                         trace_seed=BOARD_TRACE_SEED,
+                                         device=dev)))
+    for board_name, names, key, run in runs:
+        torch.cuda.synchronize()
+        zero_counters()
+        build.launch_rollout_profiles.launches.clear()
+        build.launch_rollout_mlp.launches.clear()
+        t0 = time.perf_counter()
+        board = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(read_counters())
+        launches.update({"rollout_profiles_kernel" + k: v for k, v in
+                         build.launch_rollout_profiles.launches.items()})
+        launches.update({"rollout_mlp_kernel" + k: v for k, v in
+                         build.launch_rollout_mlp.launches.items()})
+        out["launches"][board_name] = launches
+        log(f"# {board_name} multiregion B={B_MAIN} T={T_DAY} stochastic: "
+            f"{secs:.3f} s from a seed; launches {launches}")
+        if not (board["stochastic"] and board["eval_steps"] == T_DAY
+                and board["n_traces"] == B_MAIN):
+            fail(f"{board_name}: not the full-size stochastic board")
+        for name in names:
+            rows = board[key][name]["rows"]
+            if set(rows) != {"rule", "carbon", "flagship"}:
+                fail(f"{board_name} {name}: rows {sorted(rows)}")
+            for policy, row in rows.items():
+                if not all(math.isfinite(v) for v in row.values()):
+                    fail(f"{board_name} {name} {policy}: {row}")
+                out["rows"][(name, policy)] = row
+            log(f"#   {name}: " + "; ".join(
+                f"{p} $/SLO-hr {r['usd_per_slo_hour']} SLO "
+                f"{r['slo_attainment']}"
+                + (f" vs calm {r['vs_calm_usd_per_slo_hour']}"
+                   if "vs_calm_usd_per_slo_hour" in r else
+                   f" inf viol {r['inf_slo_violations']} batch miss "
+                   f"{r['batch_deadline_misses']}")
+                for p, r in rows.items()))
+            for policy in POLICIES:
+                label = instantiation_name(policy, name)
+                if launches.get(label, 0) < 1:
+                    fail(f"{board_name} never launched {label}")
+        for entry in ("rollout_profiles_kernel",
+                      "rollout_profiles_kernel<CARBON>",
+                      "rollout_mlp_kernel"):
+            if launches[entry] != len(names):
+                fail(f"{board_name}: {entry} entry launched "
+                     f"{launches[entry]} times, expected {len(names)}")
+
+    # Stage times and the holds, one stream resident at a time.
+    out["synth_ms"], out["kernels"], stage = {}, {}, {}
+    for name in FAULT_LEVELS + SCENARIOS:
+        source, wl = lane_source(cfg, name)
+        params = lane_params(cfg, wl, dev)
+        held = []
+        out["synth_ms"][name] = cuda_ms(lambda: held.append(
+            source.packed_trace_device(T_DAY, BOARD_TRACE_SEED, B_MAIN,
+                                       device=dev)))[0]
+        stream = held.pop()
+        log(f"# {name}: packed_trace_device {out['synth_ms'][name]:.4f} ms "
+            f"([{T_DAY}, {stream.shape[1]}, {B_MAIN}])")
+        for policy in POLICIES:
+            label = instantiation_name(policy, name)
+
+            def entry():
+                return run_entry(policy, cfg, params, net, stream, T_DAY,
+                                 True, seed=BOARD_SEED)
+
+            got = []
+            entry_ms = cuda_ms(lambda: got.append(entry()))[0]
+            k = got.pop()
+            row = out["rows"][(name, BOARD_ROW[policy])]
+            if summary_mean(k.usd_per_slo_hour) != row["usd_per_slo_hour"]:
+                fail(f"{name} {policy}: the regenerated stream does not "
+                     f"reproduce the board's row")
+            k_ms = median_ms(entry)
+            stage[(name, policy)] = k_ms
+            if name not in ("severe", "flash-crowd", "mixed"):
+                log(f"#   {label} on {name}: entry {entry_ms:.4f} ms, "
+                    f"kernel {k_ms:.4f} ms median of {N_TIMED}")
+                continue
+            b_ms, b_by, terms, ops = lane_bound(cfg, policy, name, net)
+            rec = {"ms": k_ms, "entry_ms": entry_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "bound_unit": terms["set_by"],
+                   "ops_per_cluster_tick": ops,
+                   "shape": f"{name} multiregion B={B_MAIN} T={T_DAY} "
+                            f"stochastic"}
+            log(f"#   {label} on {name}: entry {entry_ms:.4f} ms, kernel "
+                f"{k_ms:.4f} ms median of {N_TIMED}; bound {b_ms:.4f} ms "
+                f"({b_by}; terms in ms {terms}; {ops} float ops per "
+                f"cluster-tick)")
+            if name != "flash-crowd":
+                t0 = time.perf_counter()
+                p = lane_plain(policy, cfg, params, net, stream, T_DAY, True,
+                               seed=BOARD_SEED)
+                torch.cuda.synchronize()
+                rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                share, worst, worst_rel, max_abs = per_cluster_share(k, p)
+                tol = (mk.NEURAL_MEAN_PARITY_TOLERANCES if policy == "mlp"
+                       else None)
+                viol = mk.mean_parity_violations(k, p, tol)
+                rec.update(max_abs_err=max_abs, bitwise=bitwise(k, p))
+                log(f"#   {label} vs plain ({rec['plain_ms']:.4f} ms): "
+                    f"bitwise {rec['bitwise']}; {share * 100:.4f} % of "
+                    f"clusters within 2e-3; worst {worst} (rel "
+                    f"{worst_rel:.3g}); max abs diff {max_abs:.4g}; "
+                    f"mean_parity_violations {viol}")
+                if viol or (policy != "mlp" and share < 0.99):
+                    fail(f"{name} {policy}: kernel and plain version "
+                         f"disagree")
+                del p
+            out["kernels"][label] = rec
+        del stream
+        torch.cuda.empty_cache()
+    for board_name, names, _, _ in runs:
+        synth = sum(out["synth_ms"][n] for n in names)
+        kern = {p: sum(stage[(n, p)] for n in names) for p in POLICIES}
+        log(f"# {board_name} stages, timed one by one: synthesis "
+            f"{synth:.4f} ms, kernels " + ", ".join(
+                f"{p} {ms:.4f} ms" for p, ms in kern.items())
+            + f"; sum {synth + sum(kern.values()):.4f} ms")
+    return out
+
+
+def lane_kernel_rows(boards: dict, found: dict) -> list:
+    """The `kernels` line's entries of the lane instantiations."""
+    rows = []
+    for name in ("severe", "flash-crowd", "mixed"):
+        for policy in POLICIES:
+            label = instantiation_name(policy, name)
+            rec = dict(boards["kernels"][label])
+            parity = found[label]
+            if "plain_ms" not in rec:   # flash-crowd: from phase 5c
+                rec.update(plain_ms=parity["plain_ms"],
+                           max_abs_err=parity["max_abs_err"],
+                           bitwise=parity["bitwise"],
+                           parity_shape=parity["shape"])
+            else:
+                rec["bitwise_in_phase_5c"] = parity["bitwise"]
+            by_path = {b: n.get(label, 0)
+                       for b, n in boards["launches"].items()}
+            rows.append({
+                "name": label, "route": "cuda",
+                "source": ("ccka_tpu_torch/csrc/rollout_mlp.cu"
+                           if policy == "mlp" else
+                           "ccka_tpu_torch/csrc/rollout_profiles.cu"),
+                "replaces": REPLACES["FAULTS" if "FAULTS" in label
+                                     else "WL_D=16"],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": rec.pop("max_abs_err"),
+                "ms": rec.pop("ms"), "plain_ms": rec.pop("plain_ms"),
+                "bound_ms": rec.pop("bound_ms"),
+                "bound_by": rec.pop("bound_by"), "library_ms": None,
+                **rec})
+    return rows
 
 
 def main() -> None:
@@ -286,13 +749,14 @@ def main() -> None:
     # ---- 2. build
     t0 = time.perf_counter()
     built = build.build_all()
-    log(f"# build: {time.perf_counter() - t0:.2f} s wall")
-    for src, (lib, text, secs) in built.items():
-        log(f"#   {src} -> {lib.name} ({secs:.2f} s nvcc)")
+    build_s = time.perf_counter() - t0
+    log(f"# build: {build_s:.2f} s wall, {len(built)} nvcc processes")
+    for unit, (lib, text, secs) in built.items():
+        log(f"#   {unit} -> {lib.name} ({secs:.2f} s nvcc)")
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"#   ptxas: {line.strip()}")
-        build.library(src)
+        build.library(*unit)
 
     def gen(seed: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(seed)
@@ -354,12 +818,13 @@ def main() -> None:
         return CarbonAwarePolicy(cfg.cluster, device=dev,
                                  **constants).action_fn()
 
-    def hold(tag: str, k, p, stochastic: bool) -> None:
+    def hold(tag: str, k, p, stochastic: bool) -> tuple[bool, float]:
         """Phase 4's standard for a kernel result against its plain
-        version."""
+        version; returns (bitwise, largest absolute difference)."""
         torch.cuda.synchronize()
         share, worst, worst_rel, max_abs = per_cluster_share(k, p)
-        log(f"# parity {tag}: bitwise {bitwise(k, p)}; {share * 100:.4f} % "
+        same = bitwise(k, p)
+        log(f"# parity {tag}: bitwise {same}; {share * 100:.4f} % "
             f"of clusters within 2e-3 on every field; worst field {worst} "
             f"(rel {worst_rel:.3g}); max abs diff {max_abs:.4g}")
         if stochastic:
@@ -373,6 +838,7 @@ def main() -> None:
             log(f"#   largest batch-mean rel diff: {f_max} {rel[f_max]:.3g}")
             if rel[f_max] > 1e-4 or share < 0.999:
                 fail(f"deterministic parity ({tag})")
+        return same, max_abs
 
     # ---- 4. rule and carbon kernels against their plain versions
     def parity(preset: str, B: int, modes, T: int = T_DAY) -> None:
@@ -396,9 +862,8 @@ def main() -> None:
         del traces
         torch.cuda.empty_cache()
 
-    parity("default", B_PARITY, (False, True))
-    parity("multiregion", B_MULTI, (False,))
-    parity("multiregion", B_MULTI, (True,), T_DAY // 4)
+    parity("default", B_PARITY, (False, True), T_PARITY)
+    parity("multiregion", B_MULTI, (False, True), T_PARITY)
 
     # The carbon constants reach the kernel, each in its place.
     cfg, src, params, off, peak, _ = setup("multiregion")
@@ -443,7 +908,7 @@ def main() -> None:
     mlp_short("default", "replay")
 
     cfg, src, params, off, peak, net = setup("multiregion")
-    traces = src.batch_trace_device(T_DAY, gen(43), B_PARITY, device=dev)
+    traces = src.batch_trace_device(T_PARITY, gen(43), B_PARITY, device=dev)
     for stochastic in (False, True):
         k = mk.neural_megakernel_rollout_summary(
             params, cfg.cluster, net, traces, seed=9, stochastic=stochastic,
@@ -453,7 +918,7 @@ def main() -> None:
         share, worst, worst_rel, max_abs = per_cluster_share(k, p)
         viol = mk.mean_parity_violations(k, p,
                                          mk.NEURAL_MEAN_PARITY_TOLERANCES)
-        log(f"# mlp parity multiregion B={B_PARITY} T={T_DAY} "
+        log(f"# mlp parity multiregion B={B_PARITY} T={T_PARITY} "
             f"{'stochastic' if stochastic else 'deterministic'}: bitwise "
             f"{bitwise(k, p)}; {share * 100:.4f} % of clusters within 2e-3; "
             f"worst field {worst} (rel {worst_rel:.3g}); max abs diff "
@@ -484,6 +949,9 @@ def main() -> None:
         fail("population axis: member 1 equals member 0")
     del traces, single, pop
     torch.cuda.empty_cache()
+
+    # ---- 5b. the zero gates, 5c. the widened kernels: see lane_phases.
+    lanes_found = lane_phases(dev, setup, hold)
 
     counters = {
         "rollout_profiles_kernel": mk.megakernel_summary_from_packed,
@@ -703,7 +1171,10 @@ def main() -> None:
     del exo_all
     torch.cuda.empty_cache()
 
-    # ---- 9. the kernels, the card, the result
+    # ---- 9. the fault and workload boards at full size: see board_phase.
+    boards = board_phase(dev, setup, zero_counters, read_counters)
+
+    # ---- 10. the kernels, the card, the result
     kernels = [
         {"name": "rollout_profiles_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
@@ -755,8 +1226,9 @@ def main() -> None:
          "bound_by": main_ms["flagship"][2], "library_ms": None,
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, F={F} "
                   f"H={H} A={A}, one member (phase 7)"},
-    ]
-    log(f"# total {time.perf_counter() - t_start:.1f} s")
+    ] + lane_kernel_rows(boards, lanes_found)
+    log(f"# build {build_s:.2f} s; total {time.perf_counter() - t_start:.1f}"
+        f" s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

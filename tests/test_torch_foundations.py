@@ -231,7 +231,10 @@ names = [m.name for m in pkgutil.walk_packages(ccka_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
-             "train.checkpoint", "train.ppo", "train.flagship"):
+             "train.checkpoint", "train.ppo", "train.flagship", "sim.lanes",
+             "faults.types", "faults.process", "faults.scoreboard",
+             "workloads.types", "workloads.process", "workloads.scenarios",
+             "workloads.scoreboard"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -271,6 +274,17 @@ n = neural_megakernel_rollout_summary(params, cfg.cluster, backend.params,
 for x in (c, n):
     assert x.cost_usd.shape == (4,)
     assert bool(torch.isfinite(x.cost_usd).all())
+
+# The fault and workload boards on widened packed streams.
+from ccka_tpu_torch.faults.scoreboard import fault_scoreboard
+from ccka_tpu_torch.workloads.scoreboard import workload_scoreboard
+
+fb = fault_scoreboard(cfg, intensities=("off", "severe"), n_traces=4,
+                      eval_steps=8, device="cpu")
+wb = workload_scoreboard(cfg, scenarios=("mixed",), n_traces=4,
+                         eval_steps=8, device="cpu")
+assert set(fb["degradation_curves"]) == {"rule", "carbon", "flagship"}
+assert wb["scenarios"]["mixed"]["stream_rows"] == 40
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """
@@ -295,6 +309,11 @@ def test_sources_ship_with_the_package():
         for line in (build.CSRC / src).read_text().splitlines():
             if line.startswith('#include "'):
                 assert (build.CSRC / line.split('"')[1]).is_file(), line
+    # One library per (source, lane variant), each its own nvcc.
+    assert len({build._lib_path(s, f, d) for s in build.SOURCES
+                for f, d in build.VARIANTS}) == 2 * len(build.VARIANTS)
+    with pytest.raises(ValueError, match="no kernel build"):
+        build._lib_path("rollout_mlp.cu", True, 6)
     assert "-gencode" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert all("fast_math" not in f for f in build.NVCC_FLAGS)

@@ -188,3 +188,132 @@ def test_mlp_kernel_refuses_other_widths(cuda):
     with pytest.raises(ValueError, match="hidden width 128"):
         mk.neural_megakernel_summary_from_packed(params, cfg.cluster, net,
                                                  exo, 8, stochastic=False)
+
+
+def _lane_world(cuda, preset: str):
+    from ccka_tpu_torch.config import FAULT_PRESETS, WorkloadsConfig
+
+    cfg = PRESETS[preset]()
+    zero = WorkloadsConfig(enabled=True, inference_rate_pods=0.0,
+                           batch_rate_pods=0.0, background_rate_pods=0.0)
+    net = load_flagship_backend(
+        cfg, variant="" if cfg.cluster.regions else "replay",
+        device=cuda)[0].params
+    params = SimParams.from_config(cfg, device=cuda)
+    off, peak = offpeak_action(cfg.cluster, cuda), peak_action(cfg.cluster,
+                                                               cuda)
+    entries = {
+        "rule": lambda p, s, T, st: mk.megakernel_summary_from_packed(
+            p, off, peak, s, T, seed=4, stochastic=st),
+        "carbon": lambda p, s, T, st: mk.carbon_megakernel_summary_from_packed(
+            p, off, peak, s, T, seed=4, stochastic=st),
+        "mlp": lambda p, s, T, st: mk.neural_megakernel_summary_from_packed(
+            p, cfg.cluster, net, s, T, seed=4, stochastic=st),
+    }
+
+    def stream(T, B, **kw):
+        return SyntheticSignalSource(
+            cfg.cluster, cfg.workload, cfg.sim, cfg.signals, **kw
+        ).packed_trace_device(T, 6, B, device=cuda)
+
+    return cfg, params, entries, stream, FAULT_PRESETS, zero
+
+
+def _lane_plain(cuda, cfg, params, policy, packed, T, stochastic):
+    """The plain rollout on the card with the stream's lanes threaded
+    through, under ``policy``'s action function."""
+    from ccka_tpu_torch.faults.process import unpack_fault_lanes
+    from ccka_tpu_torch.sim.lanes import resolve_layout
+    from ccka_tpu_torch.workloads.process import unpack_workload_lanes
+
+    Z = cfg.cluster.n_zones
+    layout = resolve_layout(packed.shape[1], Z)
+    action_fn = {
+        "rule": lambda: RulePolicy(cfg.cluster, cuda).action_fn(),
+        "carbon": lambda: CarbonAwarePolicy(cfg.cluster,
+                                            device=cuda).action_fn(),
+        "mlp": lambda: mk.kernel_numerics_action_fn(
+            load_flagship_backend(cfg, device=cuda)[0].params, cfg.cluster,
+            params)}[policy]()
+    return batched_rollout_summary(
+        params, initial_state(cfg, packed.shape[2], cuda), action_fn,
+        mk.unpack_exo(packed, T, Z), 4, stochastic=stochastic,
+        faults=(unpack_fault_lanes(packed, T, Z) if layout.has("faults")
+                else None),
+        workloads=(unpack_workload_lanes(packed, T, Z)
+                   if layout.has("workloads") else None))[1]
+
+
+@pytest.mark.parametrize("preset", ["default", "multiregion"])
+@pytest.mark.parametrize("policy", ["rule", "carbon", "mlp"])
+def test_zero_lane_gates_are_bitwise(cuda, preset, policy):
+    """The FAULTS kernels on neutral ("off") lanes and the WL_D kernels on
+    zero arrivals give, bitwise, the plain-stream kernel's result (the
+    five family fields 0 and, on faults, denials and stale ticks 0)."""
+    cfg, params, entries, stream, presets, zero = _lane_world(cuda, preset)
+    T, B = 288, 1024
+    run = entries[policy]
+    for stochastic in (False, True):
+        plain = run(params, stream(T, B), T, stochastic)
+        for kw in ({"faults": presets["off"]}, {"workloads": zero},
+                   {"faults": presets["off"], "workloads": zero}):
+            got = run(params, stream(T, B, **kw), T, stochastic)
+            for f in plain._fields:
+                assert torch.equal(getattr(got, f), getattr(plain, f)), (
+                    kw, f)
+
+
+@pytest.mark.parametrize("scenario", ["severe", "mixed"])
+@pytest.mark.parametrize("policy", ["rule", "carbon", "mlp"])
+def test_widened_kernels_match_plain_version(cuda, scenario, policy):
+    """One widened instantiation per kernel (faults; faults + workloads,
+    D = 16) against the plain rollout with the lanes threaded through:
+    deterministic per cluster, stochastic by batch means."""
+    import dataclasses
+
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    scenario_source)
+
+    cfg, params, entries, stream, presets, _ = _lane_world(cuda,
+                                                           "multiregion")
+    T, B = 288, 512
+    if scenario == "severe":
+        packed = stream(T, B, faults=presets["severe"])
+    else:
+        sc = WORKLOAD_SCENARIOS["mixed"]
+        packed = scenario_source(cfg, sc).packed_trace_device(T, 6, B,
+                                                              device=cuda)
+        params = SimParams.from_config(
+            dataclasses.replace(cfg, workloads=sc.workloads), device=cuda)
+    run = entries[policy]
+    tol = mk.NEURAL_MEAN_PARITY_TOLERANCES if policy == "mlp" else None
+    for stochastic in (False, True):
+        k = run(params, packed, T, stochastic)
+        p = _lane_plain(cuda, cfg, params, policy, packed, T, stochastic)
+        agree = torch.ones(B, dtype=torch.bool, device=cuda)
+        for f in p._fields:
+            a, b = getattr(k, f), getattr(p, f)
+            assert torch.isfinite(a).all(), f
+            agree &= (a - b).abs() <= 2e-3 * (b.abs() + 1e-6)
+        assert agree.double().mean().item() >= (0.99 if stochastic
+                                                else 0.999)
+        assert mk.mean_parity_violations(k, p, tol) == {}
+
+
+def test_kernel_refuses_unbuilt_deadline(cuda):
+    import dataclasses
+
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    scenario_source)
+
+    cfg = PRESETS["default"]()
+    wl = dataclasses.replace(WORKLOAD_SCENARIOS["flash-crowd"].workloads,
+                             batch_deadline_ticks=6)
+    params = SimParams.from_config(dataclasses.replace(cfg, workloads=wl),
+                                   device=cuda)
+    sc = dataclasses.replace(WORKLOAD_SCENARIOS["flash-crowd"], workloads=wl)
+    exo = scenario_source(cfg, sc).packed_trace_device(8, 1, 64, device=cuda)
+    with pytest.raises(ValueError, match="batch deadlines"):
+        mk.megakernel_summary_from_packed(
+            params, offpeak_action(cfg.cluster, cuda),
+            peak_action(cfg.cluster, cuda), exo, 8, stochastic=False)

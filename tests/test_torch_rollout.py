@@ -140,14 +140,18 @@ def test_one_step_matches_jax_step(preset):
 
 
 def test_step_refuses_lanes_of_later_slices():
+    """The step refuses half of the workload pair (queues without
+    arrivals) and stochastic mode without uniforms."""
+    from ccka_tpu_torch.workloads.types import WorkloadState
+
     cfg = tcfg.default_config()
     tp = SimParams.from_config(cfg, device="cpu")
     state = initial_state(cfg, 2, device="cpu")
     exo = ExoStep(*(torch.ones(2, 3) for _ in range(3)), torch.ones(2, 2),
                   torch.ones(2))
     act = offpeak_action(cfg.cluster, "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        step(tp, state, act, exo, fault=object())
+    with pytest.raises(ValueError, match="both workload"):
+        step(tp, state, act, exo, wl_state=WorkloadState.zero(16, 2, "cpu"))
     with pytest.raises(ValueError, match="uniforms"):
         step(tp, state, act, exo, stochastic=True)
 
