@@ -1,15 +1,22 @@
-// Rule-profile fleet rollout on Hopper: one thread steps one cluster
-// through the whole horizon under the Peak/Off-Peak rule, or under the
-// carbon-aware re-rank of its zone weights.
+// Profile and plan-playback fleet rollouts on Hopper: one thread steps one
+// cluster through the whole horizon under the Peak/Off-Peak rule, under
+// the carbon-aware re-rank of its zone weights, or replaying a
+// precomputed plan.
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run (the Pallas TPU kernel of
-// _make_kernel(policy="profiles") and, with CARBON, policy="carbon"; with
-// FAULTS its faults=True specialisation, with WL_D its workloads=D one;
-// no carried state), with its in-kernel sampler _uniform +
-// _poisson_small_kernel.
+// _make_kernel(policy="profiles") and, with POLICY = kCarbon,
+// policy="carbon"; with FAULTS its faults=True specialisation, with WL_D
+// its workloads=D one; no carried state), with its in-kernel sampler
+// _uniform + _poisson_small_kernel; with POLICY = kPlan,
+// ccka_tpu/sim/megakernel.py::_run_plan (policy="plan", body :332-333,
+// :427-441).
 //
 // The action of a tick is a per-cluster select of two constant profiles
-// on is_peak. With CARBON the zone weights of that action are replaced by
+// on is_peak (kRule, kCarbon), or row t of a plan (kPlan): plan[t][j][b]
+// per cluster, b innermost so a warp's loads of coordinate j coalesce,
+// or a broadcast plan[t][j] every thread of the fleet reads (batch
+// stride 0). A plan observes nothing, so under FAULTS it keeps no held
+// observation. With kCarbon the zone weights of that action are replaced by
 // CarbonAwarePolicy.decide (ccka_tpu_torch/policy/carbon.py): per zone
 // max(sigmoid(sharpness * rel + stickiness * occupancy), min_weight) from
 // this tick's carbon row and the fleet's placement before the step, in
@@ -17,6 +24,10 @@
 // arguments. What the action then does is rollout_tick.cuh::tick, the
 // code the plain rollout (sim/dynamics.py::step, sim/metrics.py) is held
 // against; the result is an out[24, B] block of accumulators.
+//
+// Plan bound, multiregion B = 32768 x T = 2880: the plan adds its 18
+// used rows of 24 (4 bytes each) a cluster-tick to the stream's bytes, so
+// bytes and operations are about equal (chip_smoke.py prints both).
 //
 // Bound, at B = 32768 clusters x T = 2880 ticks, default preset: the
 // kernel reads 3Z+3 = 12 of the stream's 16 rows (the rest are padding)
@@ -27,7 +38,7 @@
 //
 // Lanes: the fault block (FAULTS) and the workload block (WL_D, the
 // batch deadline in ticks) are read from rows fb and wb of the same
-// stream; CARBON with FAULTS keeps the held observation (3Z+3 floats) in
+// stream; kCarbon with FAULTS keeps the held observation (3Z+3 floats) in
 // registers. One build of this file holds one (FAULTS, WL_D) pair, named
 // by the macros CCKA_FAULTS and CCKA_WL_D (kernels/build.py builds the
 // four pairs in parallel, one library each).
@@ -60,19 +71,49 @@ using namespace ccka;
 constexpr int kMaxAct = 32;
 constexpr int kBlock = 64;
 
+// The policy of a rollout_profiles_kernel instantiation.
+constexpr int kRule = 0;
+constexpr int kCarbon = 1;
+constexpr int kPlan = 2;
+
+// A plan stream: element (t, j, b) at t * ts + j * rs + b * bs; a
+// broadcast plan has bs = 0.
+struct PlanStream {
+  const float* p;
+  size_t ts, rs, bs;
+};
+
+// The action coordinates in the packed order (zone weights, capacity
+// types, aggressiveness, consolidate-after, HPA) from coordinate j's
+// value src(j).
+template <int P, int Z, typename Src>
+__device__ __forceinline__ void fill_action(TickAction<P, Z>& a, Src src) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int z = 0; z < Z; ++z) a.zw[p][z] = src(p * Z + z);
+    a.ct[p][0] = src(P * Z + p * 2);
+    a.ct[p][1] = src(P * Z + p * 2 + 1);
+    a.aggr[p] = src(P * Z + 2 * P + p);
+    a.after[p] = src(P * Z + 3 * P + p);
+  }
+  a.hpa[0] = src(P * Z + 4 * P);
+  a.hpa[1] = src(P * Z + 4 * P + 1);
+}
+
 struct Profiles {
   float p[kParams];
   float act[2][kMaxAct];  // [off-peak, peak] action coordinates
-  float carbon[3];        // sharpness, min_weight, stickiness (CARBON only)
+  float carbon[3];        // sharpness, min_weight, stickiness (kCarbon only)
 };
 
-template <int P, int Z, int K, bool STOCH, bool CARBON, bool FAULTS,
+template <int P, int Z, int K, bool STOCH, int POLICY, bool FAULTS,
           int WL_D>
 __global__ void __launch_bounds__(kBlock)
 rollout_profiles_kernel(const float* __restrict__ exo,
-                        float* __restrict__ out, const Profiles pr, int T,
-                        int B, int rows, int fb, int wb, uint32_t k0,
-                        uint32_t k1) {
+                        float* __restrict__ out, const Profiles pr,
+                        const PlanStream plan, int T, int B, int rows, int fb,
+                        int wb, uint32_t k0, uint32_t k1) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
 
@@ -85,25 +126,21 @@ rollout_profiles_kernel(const float* __restrict__ exo,
     const float* x = exo + (size_t)t * plane + b;
     const TickExo<Z> e(x, B);
     const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
-    // The rule: per-cluster select of the two profiles on is_peak. Every
-    // coordinate index below is a compile-time constant, so both loads
-    // come from the parameter bank and the select stays in registers.
-    const bool peak = e.is_peak > 0.5f;
-    auto sel = [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; };
     TickAction<P, Z> a;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-#pragma unroll
-      for (int z = 0; z < Z; ++z) a.zw[p][z] = sel(p * Z + z);
-      a.ct[p][0] = sel(P * Z + p * 2);
-      a.ct[p][1] = sel(P * Z + p * 2 + 1);
-      a.aggr[p] = sel(P * Z + 2 * P + p);
-      a.after[p] = sel(P * Z + 3 * P + p);
+    if (POLICY == kPlan) {
+      // Row t of this cluster's plan (or of the broadcast plan).
+      const float* row = plan.p + (size_t)t * plan.ts + (size_t)b * plan.bs;
+      fill_action<P, Z>(a, [&](int j) { return __ldg(row + j * plan.rs); });
+    } else {
+      // The rule: per-cluster select of the two profiles on is_peak.
+      // Every coordinate index is a compile-time constant, so both loads
+      // come from the parameter bank and the select stays in registers.
+      const bool peak = e.is_peak > 0.5f;
+      fill_action<P, Z>(
+          a, [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; });
     }
-    a.hpa[0] = sel(P * Z + 4 * P);
-    a.hpa[1] = sel(P * Z + 4 * P + 1);
 
-    if (CARBON) {
+    if (POLICY == kCarbon) {
       // Zone weight from observed carbon and the pre-step placement.
       const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, t) : e;
       float csum = o.carb[0];
@@ -154,19 +191,44 @@ __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
   }
 }
 
-template <int P, int Z, int K, bool CARBON>
-cudaError_t launch(const float* exo, float* out, const Profiles& pr, int T,
-                   int B, int rows, int fb, int wb, uint32_t k0, uint32_t k1,
-                   bool stochastic, cudaStream_t s) {
+template <int P, int Z, int K, int POLICY>
+cudaError_t launch(const float* exo, float* out, const Profiles& pr,
+                   const PlanStream& plan, int T, int B, int rows, int fb,
+                   int wb, uint32_t k0, uint32_t k1, bool stochastic,
+                   cudaStream_t s) {
   constexpr bool kFaults = CCKA_FAULTS != 0;
   const dim3 grid((B + kBlock - 1) / kBlock), block(kBlock);
   if (stochastic)
-    rollout_profiles_kernel<P, Z, K, true, CARBON, kFaults, CCKA_WL_D>
-        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, fb, wb, k0, k1);
+    rollout_profiles_kernel<P, Z, K, true, POLICY, kFaults, CCKA_WL_D>
+        <<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
+                                k1);
   else
-    rollout_profiles_kernel<P, Z, K, false, CARBON, kFaults, CCKA_WL_D>
-        <<<grid, block, 0, s>>>(exo, out, pr, T, B, rows, fb, wb, k0, k1);
+    rollout_profiles_kernel<P, Z, K, false, POLICY, kFaults, CCKA_WL_D>
+        <<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
+                                k1);
   return cudaGetLastError();
+}
+
+// The topologies this file is built for: (P, Z, K) = (2, 3, 3), (2, 4, 3).
+template <int POLICY>
+cudaError_t dispatch(const float* exo, float* out, const Profiles& pr,
+                     const PlanStream& plan, int P, int Z, int K, int T,
+                     int B, int rows, int fb, int wb, uint32_t k0,
+                     uint32_t k1, bool stochastic, cudaStream_t s) {
+  if (P == 2 && Z == 3 && K == 3)
+    return launch<2, 3, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
+                                   k0, k1, stochastic, s);
+  if (P == 2 && Z == 4 && K == 3)
+    return launch<2, 4, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
+                                   k0, k1, stochastic, s);
+  return cudaErrorInvalidValue;
+}
+
+// The lane checks shared by both entries.
+bool lanes_ok(int rows, int fault_base, int wl_base, int wl_depth) {
+  return (fault_base >= 0) == (CCKA_FAULTS != 0) && wl_depth == CCKA_WL_D &&
+         (wl_base >= 0) == (CCKA_WL_D > 0) && fault_base < rows &&
+         wl_base + 3 <= rows;
 }
 
 }  // namespace
@@ -187,9 +249,7 @@ extern "C" int ccka_rollout_profiles(const float* exo, float* out,
                                      const float* carbon, int fault_base,
                                      int wl_base, int wl_depth, void* stream) {
   if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1 ||
-      (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
-      (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
-      wl_base + 3 > rows)
+      !lanes_ok(rows, fault_base, wl_base, wl_depth))
     return (int)cudaErrorInvalidValue;
   Profiles pr;
   for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
@@ -200,19 +260,40 @@ extern "C" int ccka_rollout_profiles(const float* exo, float* out,
   const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
   const uint32_t k1 = (uint32_t)(seed >> 32);
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool st = stochastic != 0;
-  const int fb = fault_base, wb = wl_base;
-  if (P == 2 && Z == 3 && K == 3)
-    return (int)(carbon ? launch<2, 3, 3, true>(exo, out, pr, T, B, rows, fb,
-                                                wb, k0, k1, st, s)
-                        : launch<2, 3, 3, false>(exo, out, pr, T, B, rows, fb,
-                                                 wb, k0, k1, st, s));
-  if (P == 2 && Z == 4 && K == 3)
-    return (int)(carbon ? launch<2, 4, 3, true>(exo, out, pr, T, B, rows, fb,
-                                                wb, k0, k1, st, s)
-                        : launch<2, 4, 3, false>(exo, out, pr, T, B, rows, fb,
-                                                 wb, k0, k1, st, s));
-  return (int)cudaErrorInvalidValue;
+  const PlanStream none{nullptr, 0, 0, 0};
+  return (int)(carbon ? dispatch<kCarbon>(exo, out, pr, none, P, Z, K, T, B,
+                                          rows, fault_base, wl_base, k0, k1,
+                                          stochastic != 0, s)
+                      : dispatch<kRule>(exo, out, pr, none, P, Z, K, T, B,
+                                        rows, fault_base, wl_base, k0, k1,
+                                        stochastic != 0, s));
+}
+
+// plan: device float32, [T_pad >= T, plan_rows, B] per cluster
+// (plan_batched != 0) or [T_pad, plan_rows] broadcast to every cluster;
+// the first P * Z + 4 * P + 2 rows are the action coordinates in
+// _pack_action's order. The other arguments as for ccka_rollout_profiles.
+extern "C" int ccka_rollout_plan(const float* exo, float* out,
+                                 const float* params, const float* plan,
+                                 int plan_rows, int plan_batched, int P,
+                                 int Z, int K, int T, int B, int rows,
+                                 unsigned long long seed, int stochastic,
+                                 int fault_base, int wl_base, int wl_depth,
+                                 void* stream) {
+  if (plan == nullptr || plan_rows < P * Z + 4 * P + 2 || T < 1 || B < 1 ||
+      !lanes_ok(rows, fault_base, wl_base, wl_depth))
+    return (int)cudaErrorInvalidValue;
+  Profiles pr{};
+  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
+  const PlanStream ps =
+      plan_batched ? PlanStream{plan, (size_t)plan_rows * (size_t)B,
+                                (size_t)B, 1}
+                   : PlanStream{plan, (size_t)plan_rows, 1, 0};
+  return (int)dispatch<kPlan>(exo, out, pr, ps, P, Z, K, T, B, rows,
+                              fault_base, wl_base,
+                              (uint32_t)(seed & 0xFFFFFFFFull),
+                              (uint32_t)(seed >> 32), stochastic != 0,
+                              (cudaStream_t)stream);
 }
 
 // out: device [3, n_ticks, n_rows, n_clusters] float32.

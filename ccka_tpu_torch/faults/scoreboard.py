@@ -1,27 +1,30 @@
 """Paired robustness scoreboard: policies x fault intensities.
 
-The PyTorch form of `ccka_tpu/faults/scoreboard.py`. Scores the rule, the
-carbon teacher and the shipped learned flagship on the same ``n_traces``
-paired worlds at each named fault intensity (`config.FAULT_PRESETS`)
-through the rollout kernels, and reports $/SLO-hour degradation curves
-with interruption, denial and stale counts. The pairings:
+The PyTorch form of `ccka_tpu/faults/scoreboard.py`. Scores the rule,
+the carbon teacher, the shipped learned flagship and diff-MPC plan
+playback on the same ``n_traces`` paired worlds at each named fault
+intensity (`config.FAULT_PRESETS`) through the rollout kernels, and
+reports $/SLO-hour degradation curves with interruption, denial and stale
+counts. The pairings:
 
 - across policies, every row of one intensity shares one stream and seed:
   the same worlds and the same fault realization;
 - across intensities, every stream comes from one seed: the exo rows are
   bitwise shared and the fault latents are the same storms at rising
-  severity (nested windows), a dose-response.
+  severity (nested windows), a dose-response;
+- MPC plans once on the calm world (the shared exo rows: storms are not
+  forecastable) with the boards' quick planner, and the plan kernel plays
+  that plan back on every intensity.
 
 On the card it scores a full day (2880 ticks) in stochastic mode; with
-``device="cpu"`` the plain rollout, deterministic, over 96 ticks. The
-MPC-playback row waits for the plan kernel (ROADMAP queue B row 7, queue A
-item 9): asking for it raises.
+``device="cpu"`` the plain rollout, deterministic, over 96 ticks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
+import time
 
 import numpy as np
 import torch
@@ -32,18 +35,16 @@ from ccka_tpu_torch.config import FAULT_PRESETS, FrameworkConfig
 _CURVE_FIELDS = ("usd_per_slo_hour", "g_co2_per_kreq", "slo_attainment",
                  "interruptions", "denials", "stale_ticks")
 KNOWN_POLICIES = ("rule", "carbon", "flagship", "mpc")
-MPC_PENDING = ("the mpc row needs plan playback, not ported yet (ROADMAP "
-               "queue B row 7, queue A item 9)")
+# The boards' quick planner (the JAX boards' own settings).
+QUICK_PLANNER = dict(horizon=8, replan_every=8, iters=2)
 
 
 def check_policies(policies) -> None:
-    """Reject unknown policy names up front, and the mpc row."""
+    """Reject unknown policy names up front."""
     bad = [p for p in policies if p not in KNOWN_POLICIES]
     if bad:
         raise ValueError(f"unknown policies {bad}; known: "
                          f"{list(KNOWN_POLICIES)}")
-    if "mpc" in policies:
-        raise NotImplementedError(MPC_PENDING)
 
 
 def summary_mean(x: torch.Tensor) -> float:
@@ -68,11 +69,44 @@ def _vs_calm(row: dict, calm_per_trace: np.ndarray) -> None:
             float(r.std(ddof=1) / np.sqrt(r.size)), 5)
 
 
+def plan_mpc(cfg: FrameworkConfig, stream: torch.Tensor, steps: int,
+             what: str) -> tuple[torch.Tensor, dict]:
+    """The mpc row's plan: the quick receding-horizon planner on the
+    stream's exo rows (the clean world) from fresh clusters at the zero
+    latent, one plan per cluster, packed for the plan kernel. Returns
+    ``(plan_packed, the board's mpc_planner record)``."""
+    from ccka_tpu_torch.models.nets import latent_to_action
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.train.mpc import (receding_horizon_plan_batch,
+                                          zero_latent)
+
+    dev = stream.device
+    n = stream.shape[2]
+    H = QUICK_PLANNER["horizon"]
+    t0 = time.perf_counter()
+    lat0 = zero_latent(cfg.cluster, dev)
+    plans = receding_horizon_plan_batch(
+        SimParams.from_config(cfg, device=dev), cfg.cluster, cfg.train,
+        initial_state(cfg, n, dev),
+        mk.unpack_exo(stream, steps, cfg.cluster.n_zones),
+        lat0.expand(n, H, *lat0.shape), **QUICK_PLANNER)
+    plan_packed = mk.pack_plan(latent_to_action(plans, cfg.cluster),
+                               stream.shape[0])
+    del plans
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return plan_packed, dict(QUICK_PLANNER, n_traces=n, mode=what,
+                             seconds=time.perf_counter() - t0)
+
+
 def score_rows(params, cfg: FrameworkConfig, stream: torch.Tensor,
                steps: int, policies, flagship, *, seed: int,
-               stochastic: bool) -> dict:
+               stochastic: bool, plan_packed=None) -> dict:
     """Each policy's EpisodeSummary on one packed stream and seed (the
-    rows of both boards), in the order rule, carbon, flagship."""
+    rows of both boards), in the order rule, carbon, flagship, mpc (the
+    plan kernel on ``plan_packed``)."""
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
     from ccka_tpu_torch.sim import megakernel as mk
@@ -96,6 +130,9 @@ def score_rows(params, cfg: FrameworkConfig, stream: torch.Tensor,
         elif p == "flagship" and flagship is not None:
             out[p] = mk.neural_megakernel_summary_from_packed(
                 params, cfg.cluster, flagship.params, stream, steps, **kw)
+    if "mpc" in policies:
+        out["mpc"] = mk.plan_megakernel_summary_from_packed(
+            params, cfg.cluster, plan_packed, stream, steps, **kw)
     return out
 
 
@@ -119,14 +156,15 @@ def load_flagship(cfg: FrameworkConfig, policies, out: dict, device):
 
 def fault_scoreboard(cfg: FrameworkConfig, *,
                      intensities=("off", "mild", "moderate", "severe"),
-                     policies=("rule", "carbon", "flagship"),
+                     policies=("rule", "flagship", "mpc"),
                      n_traces: int = 256, eval_steps: int | None = None,
                      seed: int = 31, trace_seed: int = 97,
-                     device=None) -> dict:
+                     device=None, plan_out: dict | None = None) -> dict:
     """The robustness board (module docstring). ``intensities`` must
     include "off" (the calm denominator) and name `FAULT_PRESETS`
-    entries; ``policies`` name rule, carbon and flagship. One stream is
-    resident at a time."""
+    entries; ``policies`` name rule, carbon, flagship and mpc. One
+    stream is resident at a time. A ``plan_out`` dict receives the mpc
+    row's packed plan under "plan_packed"."""
     from ccka_tpu_torch.faults.process import unpack_fault_lanes
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
     from ccka_tpu_torch.sim.types import SimParams
@@ -157,14 +195,22 @@ def fault_scoreboard(cfg: FrameworkConfig, *,
     flagship = load_flagship(cfg, policies, out, dev)
 
     boards: dict[str, dict] = {}
+    plan_packed = None
     for name in intensities:
         stream = SyntheticSignalSource(
             cfg.cluster, cfg.workload, cfg.sim, cfg.signals,
             faults=FAULT_PRESETS[name]).packed_trace_device(
                 steps, trace_seed, n_traces, device=dev)
+        if "mpc" in policies and plan_packed is None:
+            # Every intensity's exo rows are the calm world's, bitwise.
+            plan_packed, out["mpc_planner"] = plan_mpc(
+                cfg, stream, steps,
+                "quick plan (clean world) -> plan kernel (faulted)")
+            if plan_out is not None:
+                plan_out["plan_packed"] = plan_packed
         rows = {p: _row(s) for p, s in score_rows(
             params, cfg, stream, steps, policies, flagship, seed=seed,
-            stochastic=on_card).items()}
+            stochastic=on_card, plan_packed=plan_packed).items()}
         # Stream-level exposure, the same for every row: the pairing.
         fs = unpack_fault_lanes(stream, steps, Z)
         exposure = {

@@ -52,6 +52,8 @@ _SIGNATURES = {
         "ccka_rollout_profiles": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                   _I, _ULL, _I, _VP, _I, _I, _I, _VP),
         "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
+        "ccka_rollout_plan": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _ULL, _I, _I, _I, _I, _VP),
     },
     "rollout_mlp.cu": {
         "ccka_rollout_mlp": (_VP,) * 11 + (_I,) * 10 + (_ULL, _I, _I, _I,
@@ -205,18 +207,58 @@ def launch_rollout_profiles(out: torch.Tensor, exo: torch.Tensor,
                 f"carbon={carbon is not None}, fault_base={fault_base}, "
                 f"wl_base={wl_base}, D={wl_depth})")
     launch_rollout_profiles.launches[
-        instantiation(carbon is not None, fault_base >= 0, wl_depth)] += 1
+        instantiation("carbon" if carbon is not None else "rule",
+                      fault_base >= 0, wl_depth)] += 1
 
 
-def instantiation(carbon: bool, faults: bool, wl_depth: int) -> str:
+def instantiation(policy: str, faults: bool, wl_depth: int) -> str:
     """The template flags of a rollout kernel instantiation, as a name
-    suffix: "" for the plain stream, else e.g. "<CARBON,FAULTS,WL_D=16>"."""
-    flags = [f for f, on in (("CARBON", carbon), ("FAULTS", faults),
+    suffix: "" for the rule (or the MLP) on the plain stream, else e.g.
+    "<CARBON,FAULTS,WL_D=16>" or "<PLAN>"."""
+    flags = [f for f, on in (("CARBON", policy == "carbon"),
+                             ("PLAN", policy == "plan"), ("FAULTS", faults),
                              (f"WL_D={wl_depth}", wl_depth)) if on]
     return f"<{','.join(flags)}>" if flags else ""
 
 
 launch_rollout_profiles.launches = Counter()
+
+
+def launch_rollout_plan(out: torch.Tensor, exo: torch.Tensor,
+                        params: np.ndarray, plan: torch.Tensor, *, P: int,
+                        Z: int, K: int, T: int, seed: int, stochastic: bool,
+                        fault_base: int = -1, wl_base: int = -1,
+                        wl_depth: int = 0) -> None:
+    """Launch the plan-playback instantiation of the profile kernel:
+    ``plan`` [T_pad, plan_rows, B] (one plan per cluster) or
+    [T_pad, plan_rows] (one plan for every cluster), contiguous float32 on
+    the stream's device with T_pad the stream's; the rest as for
+    :func:`launch_rollout_profiles`."""
+    T_pad, rows, B = exo.shape
+    _check_stream(exo, out, (24, B), T)
+    _require_cuda_f32(plan, "plan")
+    batched = plan.dim() == 3
+    if (plan.device != exo.device or plan.dim() not in (2, 3)
+            or plan.shape[0] != T_pad or (batched and plan.shape[2] != B)):
+        raise ValueError(f"plan {list(plan.shape)} on {plan.device} does not "
+                         f"fit the stream {list(exo.shape)} on {exo.device}")
+    params = np.ascontiguousarray(params, np.float32)
+    if params.shape != (22,):
+        raise ValueError("params must be [22]")
+    lib = library("rollout_profiles.cu", fault_base >= 0, wl_depth)
+    err = lib.ccka_rollout_plan(
+        exo.data_ptr(), out.data_ptr(), params.ctypes.data, plan.data_ptr(),
+        plan.shape[1], int(batched), P, Z, K, T, B, rows, int(seed),
+        int(stochastic), int(fault_base), int(wl_base), int(wl_depth),
+        _stream(exo))
+    _check(err, f"rollout_plan (P={P}, Z={Z}, K={K}, plan "
+                f"{list(plan.shape)}, fault_base={fault_base}, "
+                f"wl_base={wl_base}, D={wl_depth})")
+    launch_rollout_plan.launches[
+        instantiation("plan", fault_base >= 0, wl_depth)] += 1
+
+
+launch_rollout_plan.launches = Counter()
 
 
 def launch_rollout_mlp(out: torch.Tensor, exo: torch.Tensor,
@@ -262,7 +304,7 @@ def launch_rollout_mlp(out: torch.Tensor, exo: torch.Tensor,
     _check(err, f"rollout_mlp (P={P}, Z={Z}, K={K}, F={F}, H={H}, A={A}, "
                 f"fault_base={fault_base}, wl_base={wl_base}, D={wl_depth})")
     launch_rollout_mlp.launches[
-        instantiation(False, fault_base >= 0, wl_depth)] += 1
+        instantiation("mlp", fault_base >= 0, wl_depth)] += 1
 
 
 launch_rollout_mlp.launches = Counter()

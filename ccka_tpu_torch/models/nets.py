@@ -28,6 +28,7 @@ from torch.nn import functional as F
 from ccka_tpu_torch.config import ClusterConfig
 from ccka_tpu_torch.policy.constraints import (CONSOLIDATE_AFTER_MAX_S,
                                                project_feasible)
+from ccka_tpu_torch.sim.dynamics import clip
 from ccka_tpu_torch.sim.types import N_CT, Action
 
 # Codec squash ceiling == projection clip ceiling (one constant), so the
@@ -65,7 +66,7 @@ def action_to_latent(action: Action, cluster: ClusterConfig) -> torch.Tensor:
     """Inverse codec (clipped logit): warm-starts plans and policies at a
     rule profile instead of random actions."""
     def logit(x, lo=0.0, hi=1.0):
-        y = torch.clamp((x - lo) / (hi - lo), 1e-4, 1.0 - 1e-4)
+        y = clip((x - lo) / (hi - lo), 1e-4, 1.0 - 1e-4)
         return torch.log(y) - torch.log1p(-y)
 
     return torch.cat([

@@ -22,7 +22,7 @@ from ccka_tpu_torch.config import ClusterConfig
 from ccka_tpu_torch.policy.base import PolicyBackend
 from ccka_tpu_torch.policy.rule import (offpeak_action, peak_action,
                                         select_profile)
-from ccka_tpu_torch.sim.dynamics import ExoStep, seqsum
+from ccka_tpu_torch.sim.dynamics import ExoStep, clip, seqsum
 from ccka_tpu_torch.sim.types import Action, ClusterState
 
 
@@ -54,9 +54,9 @@ def carbon_aware_action(off: Action, peak: Action, state: ClusterState,
     total = (seqsum(nodes_z, (1,)) + 1e-6)[:, None]
     # 0 when uniform; clipped so a concentrated fleet cannot out-shout a
     # large carbon divergence.
-    occupancy = torch.clamp(nodes_z / total * n_zones - 1.0, -1.0, 1.0)
+    occupancy = clip(nodes_z / total * n_zones - 1.0, -1.0, 1.0)
     w = torch.sigmoid(sharpness * rel + stickiness * occupancy)
-    w = torch.clamp(w, min=min_weight)                     # [B, Z]
+    w = clip(w, min_weight)                     # [B, Z]
     zone_w = w[:, None, :].expand(base.zone_weight.shape)  # [B, P, Z]
     return base._replace(zone_weight=zone_w)
 

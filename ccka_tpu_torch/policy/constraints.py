@@ -3,16 +3,19 @@
 The PyTorch form of `ccka_tpu/policy/constraints.py`: box-clamp every
 field; intersect capacity types with each pool's intrinsic set; SLO pools
 always allow on-demand; a collapsed zone mask resets to all zones;
-hpa_scale bounded to [0.1, 4]. Differentiable clamps and selects; leaves
-may carry a leading batch axis.
+hpa_scale bounded to [0.1, 4]. Differentiable clips (JAX's gradient at a
+tie) and selects; leaves may carry a leading batch axis.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import ClusterConfig
+from ccka_tpu_torch.sim.dynamics import clip
 from ccka_tpu_torch.sim.types import CT_OD, N_CT, Action
 
 _MIN_ZONE_MASS = 1e-3
@@ -38,18 +41,24 @@ def slo_pool_mask(cluster: ClusterConfig, device=None) -> torch.Tensor:
         dtype=torch.float32, device=resolve_device(device))
 
 
+@functools.lru_cache(maxsize=None)
+def _masks(cluster: ClusterConfig, device: torch.device):
+    """(static_ct_allow, slo_pool_mask) of a topology on a device, made
+    once: the projection then copies nothing from the host, so a CUDA
+    graph can capture it."""
+    return static_ct_allow(cluster, device), slo_pool_mask(cluster, device)
+
+
 def project_feasible(action: Action, cluster: ClusterConfig) -> Action:
     """Project an arbitrary action into the Kyverno-feasible set."""
-    dev = action.zone_weight.device
-    static = static_ct_allow(cluster, dev)
-    slo_mask = slo_pool_mask(cluster, dev)
+    static, slo_mask = _masks(cluster, action.zone_weight.device)
 
-    zone_w = torch.clamp(action.zone_weight, 0.0, 1.0)
+    zone_w = clip(action.zone_weight, 0.0, 1.0)
     mass = zone_w.sum(dim=-1, keepdim=True)
     zone_w = torch.where(mass < _MIN_ZONE_MASS, torch.ones_like(zone_w),
                          zone_w)
 
-    ct = torch.clamp(action.ct_allow, 0.0, 1.0) * static
+    ct = clip(action.ct_allow, 0.0, 1.0) * static
     ct_od = torch.maximum(ct[..., CT_OD], slo_mask)
     ct = torch.cat([ct[..., :CT_OD], ct_od[..., None], ct[..., CT_OD + 1:]],
                    dim=-1)
@@ -57,8 +66,8 @@ def project_feasible(action: Action, cluster: ClusterConfig) -> Action:
     return Action(
         zone_weight=zone_w,
         ct_allow=ct,
-        consolidation_aggr=torch.clamp(action.consolidation_aggr, 0.0, 1.0),
-        consolidate_after_s=torch.clamp(action.consolidate_after_s, 0.0,
-                                        CONSOLIDATE_AFTER_MAX_S),
-        hpa_scale=torch.clamp(action.hpa_scale, 0.1, 4.0),
+        consolidation_aggr=clip(action.consolidation_aggr, 0.0, 1.0),
+        consolidate_after_s=clip(action.consolidate_after_s, 0.0,
+                                 CONSOLIDATE_AFTER_MAX_S),
+        hpa_scale=clip(action.hpa_scale, 0.1, 4.0),
     )

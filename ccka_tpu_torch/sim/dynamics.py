@@ -28,6 +28,32 @@ from ccka_tpu_torch.sim.types import (CT_OD, CT_SPOT, Action, ClusterState,
 _EPS = 1e-6
 
 
+_BOUNDS: dict = {}
+
+
+def _bound(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """``value`` as a 0-dim CPU tensor of ``dtype``, made once. Beside a
+    CUDA tensor a binary operation reads it as a scalar, so a bound costs
+    no fill kernel (and a CUDA graph bakes it in)."""
+    key = (float(value).hex(), dtype)   # hex keeps -0.0 apart from 0.0
+    b = _BOUNDS.get(key)
+    if b is None:
+        b = _BOUNDS[key] = torch.tensor(value, dtype=dtype)
+    return b
+
+
+def clip(x: torch.Tensor, lo: float | None = None,
+         hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip``'s form: ``maximum(x, lo)``, then ``minimum(., hi)``.
+    The values of ``torch.clamp``, but at a tie each side takes half the
+    gradient, as in JAX; ``torch.clamp`` passes all of it to ``x``."""
+    if lo is not None:
+        x = torch.maximum(x, _bound(lo, x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, _bound(hi, x.dtype))
+    return x
+
+
 def seqsum(x: torch.Tensor, dims) -> torch.Tensor:
     """Sum over ``dims`` as one left-to-right chain of adds, in row-major
     order of the summed axes: a fixed association on every device."""
@@ -59,11 +85,11 @@ def _poisson_small(u3: torch.Tensor, lam: torch.Tensor,
         count = count + (u > cdf).to(lam.dtype)
         t = t * lam / k
         cdf = cdf + t
-    u1 = torch.clamp(u3[1], min=1e-7)
+    u1 = clip(u3[1], 1e-7)
     normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
         2.0 * math.pi * u3[2])
     gauss = torch.round(lam + torch.sqrt(lam) * normal)
-    sample = torch.where(lam < 0.5, count, torch.clamp(gauss, min=0.0))
+    sample = torch.where(lam < 0.5, count, clip(gauss, 0.0))
     return torch.minimum(sample, cap)
 
 
@@ -150,8 +176,8 @@ def step(params: SimParams, state: ClusterState, action: Action,
     # probability, clipped at 1.
     spot_nodes = nodes[..., CT_SPOT]                         # [B, P, Z]
     if fault is not None:
-        p_z = torch.clamp(params.interrupt_p_step
-                          * per_cluster(fault.preempt_hazard, 1), max=1.0)
+        p_z = clip(params.interrupt_p_step
+                   * per_cluster(fault.preempt_hazard, 1), hi=1.0)
         mean_int = spot_nodes * p_z[:, None, :]
     else:
         mean_int = spot_nodes * params.interrupt_p_step
@@ -177,7 +203,7 @@ def step(params: SimParams, state: ClusterState, action: Action,
     # flight, split over (pool, zone, ct) by the action x cheapest-fit.
     incoming_ct = seqsum(pipeline, (1, 2, 3))                # [B, CT]
     shortage_ct = pending @ params.class_ct                  # [B, CT]
-    need_nodes_ct = torch.clamp(shortage_ct / ppn - incoming_ct, min=0.0)
+    need_nodes_ct = clip(shortage_ct / ppn - incoming_ct, 0.0)
 
     price_zc = torch.stack([exo.spot_price_hr, exo.od_price_hr], -1)
     price_mean = seqsum(price_zc, (1, 2)) / (2 * Z)          # [B]
@@ -193,9 +219,9 @@ def step(params: SimParams, state: ClusterState, action: Action,
     # Per-pool cap: scale a pool's share down to its headroom.
     pool_now = seqsum(nodes, (2, 3)) + seqsum(pipeline, (1, 3, 4))  # [B, P]
     pool_new = seqsum(new_nodes, (2, 3))
-    headroom = torch.clamp(params.max_nodes - pool_now, min=0.0)
+    headroom = clip(params.max_nodes - pool_now, 0.0)
     scale = torch.where(pool_new > _EPS,
-                        torch.clamp(headroom / (pool_new + _EPS), max=1.0),
+                        clip(headroom / (pool_new + _EPS), hi=1.0),
                         1.0)
     new_nodes = new_nodes * scale[:, :, None, None]
     # Insufficient capacity: the spot share of the request is denied and
@@ -211,14 +237,14 @@ def step(params: SimParams, state: ClusterState, action: Action,
 
     # ---- 6. Consolidation per disruption policy.
     used_ct = running @ params.class_ct                      # [B, CT]
-    used_karp_od = torch.clamp(
-        used_ct[:, CT_OD] - params.base_od_nodes * ppn, min=0.0)
+    used_karp_od = clip(
+        used_ct[:, CT_OD] - params.base_od_nodes * ppn, 0.0)
     used_karp = torch.stack([used_ct[:, CT_SPOT], used_karp_od], -1)
     repack = used_karp / ppn
     nodes_ct = seqsum(nodes, (1, 2))
-    slack_ct = torch.clamp(nodes_ct - repack, min=0.0)
-    empty_ct = torch.clamp(
-        nodes_ct - repack * (1.0 + params.fragmentation), min=0.0)
+    slack_ct = clip(nodes_ct - repack, 0.0)
+    empty_ct = clip(
+        nodes_ct - repack * (1.0 + params.fragmentation), 0.0)
     util_karp_ct = used_karp / (nodes_ct * ppn + _EPS)
     under_gate = torch.sigmoid(
         (params.underutil_threshold - util_karp_ct) / 0.05)
@@ -235,9 +261,9 @@ def step(params: SimParams, state: ClusterState, action: Action,
     timer = torch.where(has_slack, state.consol_timer_s + params.dt_s, 0.0)
     gate = torch.sigmoid((timer - after) / params.consolidate_tau_s)
     removed = removable * gate[:, :, None, None]
-    nodes = torch.clamp(nodes - removed, min=0.0)
+    nodes = clip(nodes - removed, 0.0)
     removed_ct = seqsum(removed, (1, 2))
-    evicted = seqsum(torch.clamp(removed_ct - empty_ct, min=0.0),
+    evicted = seqsum(clip(removed_ct - empty_ct, 0.0),
                      (1,)) * ppn * 0.5
     timer = torch.where(gate > 0.5, 0.0, timer)
 
@@ -252,7 +278,7 @@ def step(params: SimParams, state: ClusterState, action: Action,
     total_ct = seqsum(nodes_zc, (1,))                        # [B, CT]
     util_ct = torch.where(
         total_ct > _EPS,
-        torch.clamp(used_ct / (total_ct * ppn + _EPS), max=1.0), 0.0)
+        clip(used_ct / (total_ct * ppn + _EPS), hi=1.0), 0.0)
     watts_ct = params.watts_idle + (
         params.watts_full - params.watts_idle) * util_ct
     kwh_zc = nodes_zc * watts_ct[:, None, :] / 1000.0 * dt_hr
@@ -264,7 +290,7 @@ def step(params: SimParams, state: ClusterState, action: Action,
 
     # Latency proxy: M/M/1-shaped curve over the fleet load factor.
     load = seqsum(exo.demand_pods, (1,)) / (seqsum(cap_ct, (1,)) + _EPS)
-    rho = torch.clamp(load, 0.0, LATENCY_RHO_CLIP)
+    rho = clip(load, 0.0, LATENCY_RHO_CLIP)
     latency_p95_ms = params.latency_base_ms * (
         1.0 + LATENCY_CURVE_COEF * rho * rho / (1.0 - rho))
     queue_depth = seqsum(pending, (1,))
@@ -332,17 +358,17 @@ def _workload_queues(params: SimParams, workload, wl_state, slack):
     def per_cluster(x):
         return x if x.dim() == 1 else x.expand(B)
 
-    headroom = torch.clamp(slack, min=0.0)
+    headroom = clip(slack, 0.0)
     # Inference: served first; the queue is capped, the excess shed.
     inf_in = per_cluster(wl_state.inf_queue) + per_cluster(
         workload.inf_arrivals)
     inf_served = torch.minimum(inf_in, headroom)
     inf_after = inf_in - inf_served
-    inf_dropped = torch.clamp(inf_after - params.wl_inference_queue_max,
-                              min=0.0)
+    inf_dropped = clip(inf_after - params.wl_inference_queue_max,
+                       0.0)
     inf_queue = inf_after - inf_dropped
     rem = headroom - inf_served
-    inf_rho = torch.clamp(inf_in / (headroom + _EPS), 0.0, LATENCY_RHO_CLIP)
+    inf_rho = clip(inf_in / (headroom + _EPS), 0.0, LATENCY_RHO_CLIP)
     inf_latency = params.latency_base_ms * (
         1.0 + LATENCY_CURVE_COEF * inf_rho * inf_rho / (1.0 - inf_rho))
     inf_viol = torch.maximum(

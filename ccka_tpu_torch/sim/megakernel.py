@@ -12,12 +12,15 @@ each (from [B, T, ...] traces, or from an already packed stream):
 - the carbon-aware re-rank of the rule's zone weights (the same kernel's
   carbon instantiation): :func:`carbon_megakernel_rollout_summary`;
 - a learned ActorCritic policy, or a population of them
-  (`csrc/rollout_mlp.cu`): :func:`neural_megakernel_rollout_summary`.
+  (`csrc/rollout_mlp.cu`): :func:`neural_megakernel_rollout_summary`;
+- plan playback, a precomputed action per cluster and tick (the profile
+  kernel's plan instantiation): :func:`plan_megakernel_rollout_summary`.
 
 Contract: each is the same function as ``batched_rollout_summary(params,
 initial_state(...), action_fn, traces, seed, stochastic=...)``
 (`sim/rollout.py`) under ``RulePolicy``, ``CarbonAwarePolicy`` or
-:func:`kernel_numerics_action_fn`. All draw their spot interruptions from
+:func:`kernel_numerics_action_fn`, or ``rollout_actions`` under the plan
+(:func:`plan_action_fn`). All draw their spot interruptions from
 the one Philox stream of `sim/random.py`, addressed by (seed, cluster,
 tick, spot row) and never by the policy: runs of different policies on one
 seed and stream are paired world for world, and a kernel agrees with its
@@ -626,3 +629,160 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Plan playback: a precomputed action per (cluster, tick), no policy.
+
+
+def _plan_rows(P: int, Z: int) -> int:
+    """Rows of a packed plan stream: the action coordinates padded to a
+    multiple of 8 (16 on the default preset, 24 on multiregion)."""
+    return math.ceil(_act_rows(P, Z) / 8) * 8
+
+
+def pack_plan(actions: Action, T_pad: int) -> torch.Tensor:
+    """An Action with leading [T] axes (one plan for every cluster) ->
+    [T_pad, plan_rows]; with leading [B, T] axes (one plan per cluster,
+    diff-MPC's receding-horizon output) -> [T_pad, plan_rows, B], the exo
+    stream's feature-first layout. Coordinates in `_pack_action`'s order;
+    padding rows and ticks beyond T are zero."""
+    per_cluster = actions.zone_weight.dim() == 4
+    P, Z = actions.zone_weight.shape[-2:]
+    lead = tuple(actions.zone_weight.shape[:-2])
+    flat = torch.cat([actions.zone_weight.reshape(*lead, -1),
+                      actions.ct_allow.reshape(*lead, -1),
+                      actions.consolidation_aggr, actions.consolidate_after_s,
+                      actions.hpa_scale], dim=-1).to(torch.float32)
+    rows, pr = _act_rows(P, Z), _plan_rows(P, Z)
+    if per_cluster:
+        B, T = lead
+        out = torch.zeros((T_pad, pr, B), dtype=torch.float32,
+                          device=flat.device)
+        out[:T, :rows] = flat.permute(1, 2, 0)
+    else:
+        out = torch.zeros((T_pad, pr), dtype=torch.float32,
+                          device=flat.device)
+        out[:lead[0], :rows] = flat
+    return out
+
+
+def unpack_plan(plan_packed: torch.Tensor, T: int, P: int,
+                Z: int) -> Action:
+    """Inverse of :func:`pack_plan` as views: leaves [B, T, ...] for a
+    per-cluster plan, [T, ...] for a broadcast one."""
+    x = plan_packed[:T]
+    if x.dim() == 3:
+        x = x.permute(2, 0, 1)                              # [B, T, rows]
+    lead = tuple(x.shape[:-1])
+    cuts = np.cumsum([0, P * Z, 2 * P, P, P, 2])
+    part = [x[..., a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    return Action(zone_weight=part[0].reshape(*lead, P, Z),
+                  ct_allow=part[1].reshape(*lead, P, 2),
+                  consolidation_aggr=part[2], consolidate_after_s=part[3],
+                  hpa_scale=part[4])
+
+
+def _check_plan(plan_packed: torch.Tensor, exo_packed: torch.Tensor, P: int,
+                Z: int) -> bool:
+    """Shape contract of a packed plan against its stream; returns whether
+    the plan is per cluster."""
+    T_pad, _rows, B = exo_packed.shape
+    pr = _plan_rows(P, Z)
+    if (plan_packed.dim() not in (2, 3) or plan_packed.shape[0] != T_pad
+            or plan_packed.shape[1] != pr):
+        raise ValueError(
+            f"plan stream shape {tuple(plan_packed.shape)} does not match "
+            f"the exo stream's T_pad={T_pad} / plan_rows={pr} for this "
+            f"topology: pack with pack_plan(actions, T_pad)")
+    if plan_packed.dim() == 3 and plan_packed.shape[2] != B:
+        raise ValueError(f"per-cluster plan batch {plan_packed.shape[2]} != "
+                         f"stream batch {B}")
+    if plan_packed.device != exo_packed.device:
+        raise ValueError(f"plan on {plan_packed.device}, stream on "
+                         f"{exo_packed.device}")
+    return plan_packed.dim() == 3
+
+
+def plan_megakernel_rollout_summary(params: SimParams, plan_actions: Action,
+                                    traces: ExogenousTrace, seed: int = 0,
+                                    *, stochastic: bool = True,
+                                    device=None) -> EpisodeSummary:
+    """EpisodeSummary batch for fresh-state plan-playback rollouts: the
+    action of every tick is read from ``plan_actions`` (leaves [T, ...],
+    one plan for every cluster, or [B, T, ...], one per cluster), not
+    chosen by a policy. The same function as `sim/rollout.py::
+    rollout_actions` from fresh clusters, folded into its summary; the
+    same ``seed`` pairs it with the rule, carbon and MLP kernels (one
+    Philox stream, addressed by cluster and tick)."""
+    dev = resolve_device(device)
+    traces = traces.to(dev)
+    B, T = traces.is_peak.shape
+    per_cluster = plan_actions.zone_weight.dim() == 4
+    t_axis = plan_actions.zone_weight.shape[1 if per_cluster else 0]
+    if t_axis != T:
+        raise ValueError(f"plan covers {t_axis} ticks, traces cover {T}: "
+                         f"plan playback needs one action per tick")
+    if per_cluster and plan_actions.zone_weight.shape[0] != B:
+        raise ValueError(f"per-cluster plan batch "
+                         f"{plan_actions.zone_weight.shape[0]} != trace "
+                         f"batch {B}")
+    P, Z = plan_actions.zone_weight.shape[-2:]
+    return _plan_summary(_to(params, dev), P, Z,
+                         pack_plan(_to(plan_actions, dev), T),
+                         _pack_exo(traces, T), T, seed, stochastic)
+
+
+def plan_megakernel_summary_from_packed(params: SimParams,
+                                        cluster: ClusterConfig,
+                                        plan_packed: torch.Tensor,
+                                        exo_packed: torch.Tensor, T: int,
+                                        seed: int = 0, *,
+                                        stochastic: bool = True
+                                        ) -> EpisodeSummary:
+    """Plan-playback EpisodeSummary from already packed plan and exo
+    streams (:func:`pack_plan`, `packed_trace_device`); ``cluster`` gives
+    the topology. The stream may carry fault and workload lanes; a plan
+    observes nothing, so only their dynamics apply."""
+    return _plan_summary(params, cluster.n_pools, cluster.n_zones,
+                         plan_packed, exo_packed, T, seed, stochastic)
+
+
+plan_megakernel_summary_from_packed.launches = 0
+
+
+def _plan_summary(params, P, Z, plan_packed, exo_packed, T, seed,
+                  stochastic) -> EpisodeSummary:
+    """The plan-playback rollout on packed streams: the kernel on a CUDA
+    stream (a launch counted on `plan_megakernel_summary_from_packed`),
+    the plain rollout on a CPU one."""
+    from ccka_tpu_torch.sim.random import seed_key
+
+    K = int(params.provision_pipeline_k)
+    lanes = _check_packed(exo_packed, T, P, Z, K, params)
+    batched = _check_plan(plan_packed, exo_packed, P, Z)
+    seed_key(seed)
+    if exo_packed.device.type == "cpu":
+        return _plain_rollout(params, P, Z, plan_action_fn(
+            unpack_plan(plan_packed, T, P, Z), batched),
+            unpack_exo(exo_packed, T, Z), seed, stochastic,
+            **_unpack_lanes(exo_packed, T, Z, lanes))
+    from ccka_tpu_torch.kernels import build
+
+    out = torch.empty((_OUT_ROWS, exo_packed.shape[2]), dtype=torch.float32,
+                      device=exo_packed.device)
+    build.launch_rollout_plan(
+        out, exo_packed, _pack_params(params).cpu().numpy().ravel(),
+        plan_packed.contiguous(), P=P, Z=Z, K=K, T=int(T), seed=int(seed),
+        stochastic=bool(stochastic), fault_base=lanes.fault_base,
+        wl_base=lanes.wl_base, wl_depth=lanes.wl_depth)
+    plan_megakernel_summary_from_packed.launches += 1
+    return _finalize(params, out, T)
+
+
+def plan_action_fn(plan: Action, per_cluster: bool):
+    """The plan kernel's plain version as an ``action_fn``: tick t's row of
+    ``plan`` (leaves [B, T, ...] per cluster, or [T, ...])."""
+    if per_cluster:
+        return lambda s, e, t: Action(*(x[:, t] for x in plan))
+    return lambda s, e, t: Action(*(x[t] for x in plan))

@@ -10,7 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from ccka_tpu_torch.sim.dynamics import seqsum
+from ccka_tpu_torch.sim.dynamics import clip, seqsum
 from ccka_tpu_torch.sim.types import (CT_SPOT, N_CT, ClusterState, SimParams,
                                       StepMetrics)
 
@@ -81,8 +81,7 @@ class SummaryAcc(NamedTuple):
             nodes_ct_sum=self.nodes_ct_sum + metrics.nodes_by_ct,
             served_sum=self.served_sum + served,
             capacity_sum=self.capacity_sum + capacity,
-            waste_sum=self.waste_sum + torch.clamp(capacity - served,
-                                                   min=0.0),
+            waste_sum=self.waste_sum + clip(capacity - served, 0.0),
             latency_sum=self.latency_sum + metrics.latency_p95_ms,
             latency_max=torch.maximum(self.latency_max,
                                       metrics.latency_p95_ms),
@@ -163,7 +162,7 @@ def summarize(params: SimParams, metrics: StepMetrics) -> EpisodeSummary:
     served_total = metrics.served_pods.sum(dim=-1)           # [B, T]
     capacity_proxy = ((nodes_total + params.base_od_nodes)
                       * params.pods_per_node)
-    waste = torch.clamp(capacity_proxy - served_total, min=0.0).sum(dim=1)
+    waste = clip(capacity_proxy - served_total, 0.0).sum(dim=1)
     waste_frac = waste / (capacity_proxy.sum(dim=1) + _EPS)
 
     return EpisodeSummary(

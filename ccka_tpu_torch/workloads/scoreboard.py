@@ -1,7 +1,8 @@
 """Per-family scenario scoreboard: policies x named workload scenarios.
 
 The PyTorch form of `ccka_tpu/workloads/scoreboard.py`. Scores the rule,
-the carbon teacher and the shipped learned flagship on the same
+the carbon teacher, the shipped learned flagship and diff-MPC plan
+playback on the same
 ``n_traces`` paired worlds for each named scenario
 (`workloads/scenarios.WORKLOAD_SCENARIOS`) through the rollout kernels,
 and reports the aggregate $/SLO-hour next to the per-family columns that
@@ -11,12 +12,14 @@ of one scenario shares one stream and seed; every scenario's stream comes
 from one seed, so their exo rows are bitwise shared and they differ only
 by the family mix (and, for ``mixed``, its mild fault lanes). Each
 scenario is scored under its own WorkloadsConfig (queue cap, SLO,
-deadline), and one stream is resident at a time.
+deadline), and one stream is resident at a time. MPC plans once, blind to
+the families (on the shared exo rows, with the caller's WorkloadsConfig
+and the boards' quick planner), and the plan kernel plays that plan back
+on every scenario: an open-loop plan pays for the headroom it did not
+reserve.
 
 On the card it scores a full day (2880 ticks) in stochastic mode; with
-``device="cpu"`` the plain rollout, deterministic, over 96 ticks. The
-MPC-playback row waits for the plan kernel (ROADMAP queue B row 7, queue A
-item 9): asking for it raises.
+``device="cpu"`` the plain rollout, deterministic, over 96 ticks.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import torch
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import FrameworkConfig
 from ccka_tpu_torch.faults.scoreboard import (check_policies, load_flagship,
-                                              score_rows, summary_mean)
+                                              plan_mpc, score_rows,
+                                              summary_mean)
 from ccka_tpu_torch.workloads.scenarios import (resolve_scenarios,
                                                 scenario_source)
 
@@ -46,13 +50,14 @@ def _row(summary) -> dict:
 def workload_scoreboard(cfg: FrameworkConfig, *,
                         scenarios=("diurnal-inference", "flash-crowd",
                                    "batch-backfill", "mixed"),
-                        policies=("rule", "carbon", "flagship"),
+                        policies=("rule", "flagship", "mpc"),
                         n_traces: int = 256, eval_steps: int | None = None,
                         seed: int = 31, trace_seed: int = 97,
-                        device=None) -> dict:
+                        device=None, plan_out: dict | None = None) -> dict:
     """The scenario board (module docstring). ``scenarios`` name
-    `WORKLOAD_SCENARIOS` entries and ``policies`` rule, carbon and
-    flagship, both checked before any stream is made."""
+    `WORKLOAD_SCENARIOS` entries and ``policies`` rule, carbon, flagship
+    and mpc, both checked before any stream is made. A ``plan_out`` dict
+    receives the mpc row's packed plan under "plan_packed"."""
     from ccka_tpu_torch.sim.types import SimParams
     from ccka_tpu_torch.workloads.process import unpack_workload_lanes
 
@@ -74,14 +79,24 @@ def workload_scoreboard(cfg: FrameworkConfig, *,
     }
     flagship = load_flagship(cfg, policies, out, dev)
 
+    plan_packed = None
     for name, sc in library.items():
         params = SimParams.from_config(
             dataclasses.replace(cfg, workloads=sc.workloads), device=dev)
         stream = scenario_source(cfg, sc).packed_trace_device(
             steps, trace_seed, n_traces, device=dev)
+        if "mpc" in policies and plan_packed is None:
+            # Every scenario's exo rows are the same world, bitwise.
+            plan_packed, out["mpc_planner"] = plan_mpc(
+                cfg, stream, steps,
+                "quick plan (clean exo) -> plan kernel (scenario)")
+            # The playback row streams these rows beside the scenario's.
+            out["mpc_planner"]["plan_rows"] = int(plan_packed.shape[1])
+            if plan_out is not None:
+                plan_out["plan_packed"] = plan_packed
         rows = {p: _row(s) for p, s in score_rows(
             params, cfg, stream, steps, policies, flagship, seed=seed,
-            stochastic=on_card).items()}
+            stochastic=on_card, plan_packed=plan_packed).items()}
         wl = unpack_workload_lanes(stream, steps, Z)
         exposure = {
             "inference_arrivals_mean": summary_mean(wl.inf_arrivals),

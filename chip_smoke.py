@@ -8,8 +8,10 @@ and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
 the rule, the carbon teacher and the shipped learned flagship scored on
 one packed multiregion fleet-day, paired world for world. The fault and
-workload boards: the same three policies on streams widened with fault
-lanes (four intensities) and workload-family lanes (four scenarios).
+workload boards: the same three policies and diff-MPC (the quick
+receding-horizon planner on the calm world, its plan played back by the
+plan kernel) on streams widened with fault lanes (four intensities) and
+workload-family lanes (four scenarios).
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -27,6 +29,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    with other constants (sharpness 40, min_weight 0.2, stickiness 0)
    against the plain version under the same constants, and that they
    change `carbon_kg`;
+4b. the plan kernel (the profile kernel's PLAN instantiation) against its
+   plain version (`rollout_actions`' loop under the plan): default
+   B = 8192 and multiregion B = 1024, T = 720, both modes, a random
+   decoded plan per cluster and one broadcast to every cluster, at phase
+   4's standard; a rule-equivalent plan bitwise the rule kernel; its time
+   at multiregion B = 32768 x T = 2880 on a random plan;
 5. the MLP kernel against `kernel_numerics_action_fn`: (a) the shipped
    multiregion flagship, B = 1024 x T = 32, deterministic, every field's
    largest per-cluster relative difference within 1e-3 (five near-zero-
@@ -40,12 +48,13 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    what the plain-stream kernel gives (both presets, B = 8192 x T = 2880,
    both modes);
 5c. each lane instantiation against its plain version (the plain rollout
-   with the lanes threaded through): rule and carbon on the severe,
-   flash-crowd and mixed streams, multiregion B = 8192 x T = 720, both
-   modes, at phase 4's standard; the MLP on the same streams at
-   B = 1024 x T = 32 per cluster (phase 5's standard; denials, stale
-   ticks, shed load and deadline misses among the near-zero fields) and
-   at B = 8192 x T = 720 by NEURAL_MEAN_PARITY_TOLERANCES;
+   with the lanes threaded through): rule, carbon and the plan (a random
+   decoded plan per cluster) on the severe, flash-crowd and mixed streams,
+   multiregion B = 8192 x T = 720, both modes, at phase 4's standard; the
+   MLP on the same streams at B = 1024 x T = 32 per cluster (phase 5's
+   standard; denials, stale ticks, shed load and deadline misses among
+   the near-zero fields) and at B = 8192 x T = 720 by
+   NEURAL_MEAN_PARITY_TOLERANCES;
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
@@ -56,23 +65,34 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    launch counters zeroed just before and read just after, before any
    plain version runs; then all three results held against their plain
    versions on the same stream; the three policies' fleet means;
-   each kernel's median time of 5 launches, its bound and cluster-days/s;
+   each kernel's median time of 5 launches, its bound and cluster-days/s
+   (the plain versions at T = 720 on the stream's first ticks, the kernels
+   re-run there);
 8. the rule kernel's time across fleet sizes B = 8192 ... 65536, both
    modes, against its bound and the warps per SM the launch gives;
-9. the boards: `fault_scoreboard` and `workload_scoreboard` at
-   multiregion B = 32768 x T = 2880, stochastic, rule, carbon and
-   flagship, each with the counters (by entry and by instantiation)
-   zeroed just before and read just after; the boards' fleet means; then
-   every stream once more from the same seed (its rows checked equal to
-   the board's), timed: synthesis, each entry, each kernel as the median
-   of 5; on severe and mixed each policy's result held against its plain
-   version (stochastic standard; the flagship's by
+9. the boards: first the graphed planner against the eager one, bitwise
+   (multiregion N = 1024 x T = 96); then `fault_scoreboard` and
+   `workload_scoreboard` at multiregion B = 32768 x T = 2880, stochastic,
+   rule, carbon, flagship and mpc, each with the counters (by entry and
+   by instantiation) zeroed just before and read just after; the
+   planner's time; the boards' fleet means; then every stream once more
+   from the same seed (its rows checked equal to the board's), timed:
+   synthesis, each entry, each kernel as the median of 5 (the plan kernel
+   on the board's plan, made again from the same calm rows); on severe
+   and mixed each policy's result
+   held against its plain version at T = 720 on the stream's first ticks
+   (stochastic standard; the flagship's by
    NEURAL_MEAN_PARITY_TOLERANCES);
 10. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
+Cut for time (the planner of the mpc rows takes about a minute a board):
+phases 7 and 9 hold their kernels against the plain versions at T = 720
+on the full-size streams' first ticks (they held all 2880 ticks before).
+
 The bound of a call is the larger of its bytes (each input row the kernel
-reads, once, its weights and its output) over HBM's rate and its
+reads, once, its weights, the plan rows it reads and its output) over
+HBM's rate and its
 operations over the card's peak rate for their type: the float operations
 of the plain version's tick, counted by dispatch, at the float32 rate for
 multiplies and adds that are not fused; for the MLP kernel also the
@@ -215,12 +235,15 @@ def bound(nbytes: float, op_terms: dict) -> tuple[float, str, dict]:
 
 
 def rollout_bytes(Z: int, B: int, T: int, weight_bytes: int = 0,
-                  faults: bool = False, workloads: bool = False) -> int:
+                  faults: bool = False, workloads: bool = False,
+                  plan_rows: int = 0) -> int:
     """Bytes a rollout kernel must move: the stream rows it reads (spot,
     od, carbon per zone, two demands, is_peak; with faults the Z+3 fault
     rows, with workloads the 3 arrival rows; not the padding rows) once
-    per tick, its weights, and its [24, B] output."""
-    rows = 3 * Z + 3 + (Z + 3 if faults else 0) + (3 if workloads else 0)
+    per tick, a per-cluster plan's used rows, its weights, and its
+    [24, B] output."""
+    rows = (3 * Z + 3 + (Z + 3 if faults else 0) + (3 if workloads else 0)
+            + plan_rows)
     return (rows * T + OUT_ROWS) * B * 4 + weight_bytes
 
 
@@ -271,6 +294,9 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
                                             device="cpu").action_fn(),
         "mlp": lambda: mk.kernel_numerics_action_fn(net_params, cfg.cluster,
                                                     params),
+        # A plan's action is loaded, not computed.
+        "plan": lambda: (lambda s, e, t, a=RulePolicy(
+            cfg.cluster, device="cpu").off: a),
     }[policy]()
     one = torch.ones((1,))
     fault = (FaultStep(torch.full((1, Z), 2.0), 0.5 * one, 0.5 * one, one)
@@ -284,7 +310,7 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
                        torch.arange(P * Z)[None, :]).reshape(3, 1, P, Z)
               if stochastic else None)
         obs = (observed_exo(exo, exo, fault.signal_stale)
-               if faults and policy != "rule" else exo)
+               if faults and policy in ("carbon", "mlp") else exo)
         action = action_fn(state, obs, 0)
         step(params, state, action, exo, u3, stochastic=stochastic,
              fault=fault, **lanes)
@@ -296,7 +322,12 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
 LANE_SEED = 5
 BOARD_SEED, BOARD_TRACE_SEED = 31, 97
 POLICIES = ("rule", "carbon", "mlp")
-BOARD_ROW = {"rule": "rule", "carbon": "carbon", "mlp": "flagship"}
+# The boards' rows and their kernels: "plan" is the mpc row's.
+BOARD_POLICIES = POLICIES + ("plan",)
+BOARD_ROW = {"rule": "rule", "carbon": "carbon", "mlp": "flagship",
+             "plan": "mpc"}
+PLAN_REPLACES = "ccka_tpu/sim/megakernel.py:1657"
+PLAN_SEED = 79
 FAULT_LEVELS = ("off", "mild", "moderate", "severe")
 SCENARIOS = ("diurnal-inference", "flash-crowd", "batch-backfill", "mixed")
 # The TPU kernel's lines of each branch (ccka_tpu/sim/megakernel.py).
@@ -331,9 +362,22 @@ def lane_params(cfg, workloads, dev):
     return SimParams.from_config(cfg, device=dev)
 
 
+def random_plan(cfg, B: int, T: int, T_pad: int, dev, seed=PLAN_SEED):
+    """A per-cluster plan [T_pad, plan_rows, B]: latents 0.3 * N(0, 1),
+    decoded by the codec, packed."""
+    from ccka_tpu_torch.models.nets import latent_dim, latent_to_action
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    lat = 0.3 * torch.randn((B, T, latent_dim(cfg.cluster)), device=dev,
+                            generator=torch.Generator(
+                                device=dev).manual_seed(seed))
+    return mk.pack_plan(latent_to_action(lat, cfg.cluster), T_pad)
+
+
 def run_entry(policy, cfg, params, net, stream, T, stochastic,
-              seed=LANE_SEED):
-    """The packed entry of ``policy`` (the kernel on a CUDA stream)."""
+              seed=LANE_SEED, plan=None):
+    """The packed entry of ``policy`` (the kernel on a CUDA stream);
+    "plan" plays ``plan`` back."""
     from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
     from ccka_tpu_torch.sim import megakernel as mk
 
@@ -341,6 +385,9 @@ def run_entry(policy, cfg, params, net, stream, T, stochastic,
     off, peak = offpeak_action(cfg.cluster, dev), peak_action(cfg.cluster,
                                                               dev)
     kw = dict(seed=seed, stochastic=stochastic)
+    if policy == "plan":
+        return mk.plan_megakernel_summary_from_packed(
+            params, cfg.cluster, plan, stream, T, **kw)
     if policy == "rule":
         return mk.megakernel_summary_from_packed(params, off, peak, stream,
                                                  T, **kw)
@@ -352,9 +399,10 @@ def run_entry(policy, cfg, params, net, stream, T, stochastic,
 
 
 def lane_plain(policy, cfg, params, net, stream, T, stochastic,
-               seed=LANE_SEED):
+               seed=LANE_SEED, plan=None):
     """The plain version on the card: `batched_rollout_summary` under the
-    policy's action function, the stream's lanes threaded through."""
+    policy's action function (for "plan", tick t's row of ``plan``), the
+    stream's lanes threaded through."""
     from ccka_tpu_torch.faults.process import unpack_fault_lanes
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import RulePolicy
@@ -372,7 +420,10 @@ def lane_plain(policy, cfg, params, net, stream, T, stochastic,
         "carbon": lambda: CarbonAwarePolicy(cfg.cluster,
                                             device=dev).action_fn(),
         "mlp": lambda: mk.kernel_numerics_action_fn(net, cfg.cluster,
-                                                    params)}[policy]()
+                                                    params),
+        "plan": lambda: mk.plan_action_fn(
+            mk.unpack_plan(plan, T, cfg.cluster.n_pools, Z),
+            plan.dim() == 3)}[policy]()
     return batched_rollout_summary(
         params, initial_state(cfg, stream.shape[2], dev), action_fn,
         mk.unpack_exo(stream, T, Z), seed, stochastic=stochastic,
@@ -389,7 +440,7 @@ def instantiation_name(policy: str, name: str) -> str:
 
     sc = WORKLOAD_SCENARIOS.get(name)
     faults = sc is None or bool(sc.fault_preset)
-    suffix = build.instantiation(policy == "carbon", faults,
+    suffix = build.instantiation(policy, faults,
                                  16 if sc is not None else 0)
     return ("rollout_mlp_kernel" if policy == "mlp"
             else "rollout_profiles_kernel") + suffix
@@ -399,8 +450,9 @@ def lane_phases(dev, setup, hold) -> dict:
     """5b: the zero gates: on "off" fault lanes and on zero-rate workload
     lanes every lane instantiation gives, bitwise, what the plain-stream
     kernel gives (both presets, both modes). 5c: each lane instantiation
-    against its plain version: rule and carbon on severe, flash-crowd and
-    mixed (multiregion B = 8192 x T = 720, both modes); the MLP on the
+    against its plain version: rule, carbon and a random per-cluster plan
+    on severe, flash-crowd and mixed (multiregion B = 8192 x T = 720, both
+    modes); the MLP on the
     same streams per cluster at B = 1024 x T = 32 and by
     NEURAL_MEAN_PARITY_TOLERANCES at B = 8192 x T = 720, deterministic.
     Returns {instantiation: parity record}."""
@@ -443,17 +495,20 @@ def lane_phases(dev, setup, hold) -> dict:
 
     found: dict = {}
     cfg, _, _, _, _, net = setup("multiregion")
+    plan = random_plan(cfg, B_PARITY, T_PARITY, T_PARITY, dev)
     for name in ("severe", "flash-crowd", "mixed"):
         source, wl = lane_source(cfg, name)
         params = lane_params(cfg, wl, dev)
         stream = source.packed_trace_device(T_PARITY, 67, B_PARITY,
                                             device=dev)
-        for policy in ("rule", "carbon"):
+        for policy in ("rule", "carbon", "plan"):
             label = instantiation_name(policy, name)
             for st in (False, True):
-                k = run_entry(policy, cfg, params, net, stream, T_PARITY, st)
+                k = run_entry(policy, cfg, params, net, stream, T_PARITY, st,
+                              plan=plan)
                 t0 = time.perf_counter()
-                p = lane_plain(policy, cfg, params, net, stream, T_PARITY, st)
+                p = lane_plain(policy, cfg, params, net, stream, T_PARITY, st,
+                               plan=plan)
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
                 same, max_abs = hold(
@@ -506,20 +561,158 @@ def lane_phases(dev, setup, hold) -> dict:
     return found
 
 
+def plan_phase(dev, setup, hold) -> dict:
+    """4b: the plan kernel against its plain version: default B = 8192 and
+    multiregion B = 1024 at T = 720, both modes, a random decoded plan per
+    cluster and the same plan's first cluster broadcast to every cluster;
+    a rule-equivalent per-cluster plan bitwise the rule kernel. Then the
+    plain-stream PLAN instantiation's time at multiregion B = 32768 x
+    T = 2880, stochastic, on a random plan. Returns its `kernels` row."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    before = sum(build.launch_rollout_plan.launches.values())
+    rec = {"bitwise": True, "max_abs_err": 0.0, "plain_ms": 0.0}
+    for preset, B in (("default", B_PARITY), ("multiregion", B_MULTI)):
+        cfg, src, params, off, peak, _ = setup(preset)
+        P, Z = cfg.cluster.n_pools, cfg.cluster.n_zones
+        stream = src.packed_trace_device(T_PARITY, 73, B, device=dev)
+        per = random_plan(cfg, B, T_PARITY, T_PARITY, dev)
+        broadcast = per[..., 0].contiguous()
+        is_peak = mk.unpack_exo(stream, T_PARITY, Z).is_peak > 0.5
+        rule_eq = mk.pack_plan(type(off)(*(
+            torch.where(is_peak.reshape(B, T_PARITY, *([1] * o.dim())), q,
+                        o) for o, q in zip(off, peak))), T_PARITY)
+        for st in (False, True):
+            mode = "stochastic" if st else "deterministic"
+            for form, plan in (("per-cluster", per),
+                               ("broadcast", broadcast)):
+                k = run_entry("plan", cfg, params, None, stream, T_PARITY,
+                              st, plan=plan)
+                t0 = time.perf_counter()
+                p = lane_plain("plan", cfg, params, None, stream, T_PARITY,
+                               st, plan=plan)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                same, max_abs = hold(f"plan {form} {preset} B={B} "
+                                     f"T={T_PARITY} {mode}", k, p, st)
+                rec["bitwise"] &= same
+                rec["max_abs_err"] = max(rec["max_abs_err"], max_abs)
+                if preset == "multiregion" and form == "per-cluster":
+                    rec["plain_ms"] = plain_ms
+            k = run_entry("plan", cfg, params, None, stream, T_PARITY, st,
+                          plan=rule_eq)
+            want = run_entry("rule", cfg, params, None, stream, T_PARITY, st)
+            torch.cuda.synchronize()
+            log(f"# plan rule-equivalent {preset} B={B} T={T_PARITY} {mode}: "
+                f"bitwise the rule kernel {bitwise(k, want)}")
+            if not bitwise(k, want):
+                fail(f"the rule-equivalent plan is not bitwise the rule "
+                     f"kernel ({preset}, {mode})")
+        del stream, per, broadcast, rule_eq
+        torch.cuda.empty_cache()
+    rec["launches"] = sum(build.launch_rollout_plan.launches.values()) - before
+
+    cfg, src, params, _, _, _ = setup("multiregion")
+    stream = src.packed_trace_device(T_DAY, 83, B_MAIN, device=dev)
+    plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
+    torch.cuda.empty_cache()
+    rec["ms"] = median_ms(lambda: run_entry("plan", cfg, params, None, stream,
+                                            T_DAY, True, plan=plan))
+    b_ms, b_by, terms, ops = lane_bound(cfg, "plan", "plain")
+    rec.update(bound_ms=b_ms, bound_by=b_by, bound_unit=terms["set_by"],
+               ops_per_cluster_tick=ops)
+    log(f"# plan kernel (plain stream) multiregion B={B_MAIN} T={T_DAY} "
+        f"stochastic, random plan: {rec['ms']:.4f} ms median of {N_TIMED}; "
+        f"bound {b_ms:.4f} ms ({b_by}; terms in ms {terms}; {ops} float ops "
+        f"per cluster-tick)")
+    del stream, plan
+    torch.cuda.empty_cache()
+    return rec
+
+
+def planner_check(dev, setup) -> None:
+    """The graphed receding-horizon planner against the eager one, bitwise
+    (multiregion N = 1024 x T = 96, the boards' quick planner)."""
+    from ccka_tpu_torch.faults.scoreboard import QUICK_PLANNER
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.train import mpc
+
+    cfg, src, params, _, _, _ = setup("multiregion")
+    N, T = B_MULTI, 96
+    traces = mk.unpack_exo(src.packed_trace_device(T, 89, N, device=dev), T,
+                           cfg.cluster.n_zones)
+    lat0 = mpc.zero_latent(cfg.cluster, dev)
+    lat0 = lat0.expand(N, QUICK_PLANNER["horizon"], *lat0.shape)
+    got, secs = {}, {}
+    for graph in (False, True):
+        t0 = time.perf_counter()
+        got[graph] = mpc.receding_horizon_plan_batch(
+            params, cfg.cluster, cfg.train, initial_state(cfg, N, dev),
+            traces, lat0, graph=graph, **QUICK_PLANNER)
+        torch.cuda.synchronize()
+        secs[graph] = time.perf_counter() - t0
+    same = torch.equal(got[True], got[False])
+    log(f"# planner N={N} T={T}: graphed {secs[True]:.3f} s (capture "
+        f"included), eager {secs[False]:.3f} s; bitwise {same}; largest "
+        f"|latent| {float(got[True].abs().max()):.4g}; "
+        f"{planner_ops(cfg)} operations dispatched a segment (counted on "
+        f"the CPU, views included)")
+    if not same:
+        fail("the graphed planner differs from the eager one")
+
+
+def planner_ops(cfg) -> int:
+    """Operations one segment of the quick planner dispatches (its two
+    Adam iterations, forward and backward, and its executed ticks),
+    counted on the CPU at N = 4."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ccka_tpu_torch.faults.scoreboard import QUICK_PLANNER
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.train import mpc
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    H, R = QUICK_PLANNER["horizon"], QUICK_PLANNER["replan_every"]
+    traces = SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).batch_trace(
+        H, [1, 2, 3, 4], device="cpu")
+    window, seg = next(mpc._segment_windows(traces, H, R))
+    lat0 = mpc.zero_latent(cfg.cluster, "cpu")
+    with Count():
+        mpc._segment(SimParams.from_config(cfg, device="cpu"), cfg.cluster,
+                     cfg.train, initial_state(cfg, 4, "cpu"),
+                     lat0.expand(4, H, *lat0.shape).contiguous(), window,
+                     seg, QUICK_PLANNER["iters"], R)
+    return Count.n
+
+
 def lane_bound(cfg, policy: str, name: str, net=None):
     """(bound ms, "bytes" or "operations", terms) of a lane kernel at the
-    boards' size (multiregion B = 32768 x T = 2880, stochastic)."""
+    boards' size (multiregion B = 32768 x T = 2880, stochastic); ``name``
+    a fault intensity, a workload scenario or "plain"."""
     from ccka_tpu_torch.sim import megakernel as mk
     from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
 
     sc = WORKLOAD_SCENARIOS.get(name)
-    faults = sc is None or bool(sc.fault_preset)
+    faults = (sc is None and name != "plain") or bool(sc and sc.fault_preset)
     wl = sc is not None
     Z = cfg.cluster.n_zones
     ops = float_ops_per_cluster_tick(cfg, True, policy, net, faults, wl)
     terms = {"tick": (ops * B_MAIN * T_DAY, F32_UNFUSED_OPS_PER_S,
                       "float32")}
     weight_bytes = 0
+    plan_rows = mk._act_rows(cfg.cluster.n_pools, Z) if policy == "plan" \
+        else 0
     if policy == "mlp":
         F, H, A = mk._mlp_dims(net, P=cfg.cluster.n_pools, Z=Z)[0]
         weight_bytes = (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
@@ -527,86 +720,109 @@ def lane_bound(cfg, policy: str, name: str, net=None):
                           BF16_TENSOR_OPS_PER_S, "tensor cores")
         terms["head"] = (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S,
                          "float32")
-    return bound(rollout_bytes(Z, B_MAIN, T_DAY, weight_bytes, faults, wl),
-                 terms) + (ops,)
+    return bound(rollout_bytes(Z, B_MAIN, T_DAY, weight_bytes, faults, wl,
+                               plan_rows), terms) + (ops,)
 
 
 def board_phase(dev, setup, zero_counters, read_counters) -> dict:
-    """9: the main path of this slice. `fault_scoreboard` (four
-    intensities) and `workload_scoreboard` (four scenarios) on the
-    multiregion preset at B = 32768 x T = 2880, stochastic, rule, carbon
-    and flagship, each with the launch counters zeroed just before and
-    read just after. Then each stream once more from the same seed
-    (bitwise the board's: its rows are checked equal), timed: synthesis,
-    each entry, each kernel as the median of 5; on severe and mixed each
-    policy's row held against its plain version."""
-    from ccka_tpu_torch.faults.scoreboard import (fault_scoreboard,
-                                                  summary_mean)
+    """9: the main path of this slice. The graphed planner against the
+    eager one; then `fault_scoreboard` (four intensities) and
+    `workload_scoreboard` (four scenarios) on the multiregion preset at
+    B = 32768 x T = 2880, stochastic, rule, carbon, flagship and mpc,
+    each with the launch counters zeroed just before and read just after,
+    and then its :func:`stage_times` on the plan it made."""
+    from ccka_tpu_torch.faults.scoreboard import fault_scoreboard
     from ccka_tpu_torch.kernels import build
     from ccka_tpu_torch.sim import megakernel as mk
     from ccka_tpu_torch.workloads.scoreboard import workload_scoreboard
 
+    planner_check(dev, setup)
     cfg, _, _, _, _, net = setup("multiregion")
-    out: dict = {"launches": {}, "rows": {}}
-    runs = (("fault board", FAULT_LEVELS, "intensities",
-             lambda: fault_scoreboard(cfg, n_traces=B_MAIN, seed=BOARD_SEED,
-                                      trace_seed=BOARD_TRACE_SEED,
-                                      device=dev)),
-            ("workload board", SCENARIOS, "scenarios",
-             lambda: workload_scoreboard(cfg, n_traces=B_MAIN,
-                                         seed=BOARD_SEED,
-                                         trace_seed=BOARD_TRACE_SEED,
-                                         device=dev)))
-    for board_name, names, key, run in runs:
+    policies = ("rule", "carbon", "flagship", "mpc")
+    out: dict = {"launches": {}, "rows": {}, "planner_s": {}}
+    out["synth_ms"], out["kernels"] = {}, {}
+    runs = (("fault board", FAULT_LEVELS, "intensities", fault_scoreboard),
+            ("workload board", SCENARIOS, "scenarios", workload_scoreboard))
+    for board_name, names, key, scoreboard in runs:
+        kept: dict = {}
         torch.cuda.synchronize()
         zero_counters()
-        build.launch_rollout_profiles.launches.clear()
-        build.launch_rollout_mlp.launches.clear()
+        for counter in (build.launch_rollout_profiles,
+                        build.launch_rollout_mlp, build.launch_rollout_plan):
+            counter.launches.clear()
         t0 = time.perf_counter()
-        board = run()
+        board = scoreboard(cfg, policies=policies, n_traces=B_MAIN,
+                           seed=BOARD_SEED, trace_seed=BOARD_TRACE_SEED,
+                           device=dev, plan_out=kept)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(read_counters())
-        launches.update({"rollout_profiles_kernel" + k: v for k, v in
-                         build.launch_rollout_profiles.launches.items()})
-        launches.update({"rollout_mlp_kernel" + k: v for k, v in
-                         build.launch_rollout_mlp.launches.items()})
+        for kernel, counter in (
+                ("rollout_profiles_kernel", build.launch_rollout_profiles),
+                ("rollout_profiles_kernel", build.launch_rollout_plan),
+                ("rollout_mlp_kernel", build.launch_rollout_mlp)):
+            launches.update({kernel + k: v
+                             for k, v in counter.launches.items()})
         out["launches"][board_name] = launches
+        out["planner_s"][board_name] = board["mpc_planner"]["seconds"]
         log(f"# {board_name} multiregion B={B_MAIN} T={T_DAY} stochastic: "
-            f"{secs:.3f} s from a seed; launches {launches}")
+            f"{secs:.3f} s from a seed, of which the planner "
+            f"{board['mpc_planner']['seconds']:.3f} s "
+            f"({board['mpc_planner']}); launches {launches}")
         if not (board["stochastic"] and board["eval_steps"] == T_DAY
                 and board["n_traces"] == B_MAIN):
             fail(f"{board_name}: not the full-size stochastic board")
-        for name in names:
-            rows = board[key][name]["rows"]
-            if set(rows) != {"rule", "carbon", "flagship"}:
-                fail(f"{board_name} {name}: rows {sorted(rows)}")
-            for policy, row in rows.items():
-                if not all(math.isfinite(v) for v in row.values()):
-                    fail(f"{board_name} {name} {policy}: {row}")
-                out["rows"][(name, policy)] = row
-            log(f"#   {name}: " + "; ".join(
-                f"{p} $/SLO-hr {r['usd_per_slo_hour']} SLO "
-                f"{r['slo_attainment']}"
-                + (f" vs calm {r['vs_calm_usd_per_slo_hour']}"
-                   if "vs_calm_usd_per_slo_hour" in r else
-                   f" inf viol {r['inf_slo_violations']} batch miss "
-                   f"{r['batch_deadline_misses']}")
-                for p, r in rows.items()))
-            for policy in POLICIES:
-                label = instantiation_name(policy, name)
-                if launches.get(label, 0) < 1:
-                    fail(f"{board_name} never launched {label}")
-        for entry in ("rollout_profiles_kernel",
-                      "rollout_profiles_kernel<CARBON>",
-                      "rollout_mlp_kernel"):
-            if launches[entry] != len(names):
-                fail(f"{board_name}: {entry} entry launched "
-                     f"{launches[entry]} times, expected {len(names)}")
+        check_board(board_name, board[key], names, launches, out)
+        del board
+        stage_times(dev, cfg, net, out, board_name, names,
+                    kept.pop("plan_packed"))
+    return out
 
-    # Stage times and the holds, one stream resident at a time.
-    out["synth_ms"], out["kernels"], stage = {}, {}, {}
-    for name in FAULT_LEVELS + SCENARIOS:
+
+def check_board(board_name: str, boards: dict, names, launches: dict,
+                out: dict) -> None:
+    """Every row of a board finite and logged; every instantiation of its
+    streams launched, each entry once per intensity or scenario."""
+    for name in names:
+        rows = boards[name]["rows"]
+        if set(rows) != {"rule", "carbon", "flagship", "mpc"}:
+            fail(f"{board_name} {name}: rows {sorted(rows)}")
+        for policy, row in rows.items():
+            if not all(math.isfinite(v) for v in row.values()):
+                fail(f"{board_name} {name} {policy}: {row}")
+            out["rows"][(name, policy)] = row
+        log(f"#   {name}: " + "; ".join(
+            f"{p} $/SLO-hr {r['usd_per_slo_hour']} SLO "
+            f"{r['slo_attainment']}"
+            + (f" vs calm {r['vs_calm_usd_per_slo_hour']}"
+               if "vs_calm_usd_per_slo_hour" in r else
+               f" inf viol {r['inf_slo_violations']} batch miss "
+               f"{r['batch_deadline_misses']}")
+            for p, r in rows.items()))
+        for policy in BOARD_POLICIES:
+            label = instantiation_name(policy, name)
+            if launches.get(label, 0) < 1:
+                fail(f"{board_name} never launched {label}")
+    for entry in ("rollout_profiles_kernel",
+                  "rollout_profiles_kernel<CARBON>",
+                  "rollout_mlp_kernel", "plan entry"):
+        if launches[entry] != len(names):
+            fail(f"{board_name}: {entry} launched {launches[entry]} "
+                 f"times, expected {len(names)}")
+
+
+def stage_times(dev, cfg, net, out: dict, board_name: str, names,
+                plan: torch.Tensor) -> None:
+    """Each of a board's streams once more from the same seed, timed:
+    synthesis, each entry, each kernel as the median of 5 (the plan
+    kernel on the packed plan the board made; each row, the mpc row
+    included, is checked to reproduce the board's); on severe and mixed
+    each row held against its plain version at T = 720."""
+    from ccka_tpu_torch.faults.scoreboard import summary_mean
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    stage = {}
+    for name in names:
         source, wl = lane_source(cfg, name)
         params = lane_params(cfg, wl, dev)
         held = []
@@ -616,12 +832,12 @@ def board_phase(dev, setup, zero_counters, read_counters) -> dict:
         stream = held.pop()
         log(f"# {name}: packed_trace_device {out['synth_ms'][name]:.4f} ms "
             f"([{T_DAY}, {stream.shape[1]}, {B_MAIN}])")
-        for policy in POLICIES:
+        for policy in BOARD_POLICIES:
             label = instantiation_name(policy, name)
 
-            def entry():
-                return run_entry(policy, cfg, params, net, stream, T_DAY,
-                                 True, seed=BOARD_SEED)
+            def entry(T=T_DAY):
+                return run_entry(policy, cfg, params, net, stream, T, True,
+                                 seed=BOARD_SEED, plan=plan)
 
             got = []
             entry_ms = cuda_ms(lambda: got.append(entry()))[0]
@@ -647,17 +863,21 @@ def board_phase(dev, setup, zero_counters, read_counters) -> dict:
                 f"({b_by}; terms in ms {terms}; {ops} float ops per "
                 f"cluster-tick)")
             if name != "flash-crowd":
+                k = entry(T_PARITY)
                 t0 = time.perf_counter()
-                p = lane_plain(policy, cfg, params, net, stream, T_DAY, True,
-                               seed=BOARD_SEED)
+                p = lane_plain(policy, cfg, params, net, stream, T_PARITY,
+                               True, seed=BOARD_SEED, plan=plan)
                 torch.cuda.synchronize()
                 rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["plain_shape"] = (f"{name} multiregion B={B_MAIN} "
+                                      f"T={T_PARITY} stochastic")
                 share, worst, worst_rel, max_abs = per_cluster_share(k, p)
                 tol = (mk.NEURAL_MEAN_PARITY_TOLERANCES if policy == "mlp"
                        else None)
                 viol = mk.mean_parity_violations(k, p, tol)
                 rec.update(max_abs_err=max_abs, bitwise=bitwise(k, p))
-                log(f"#   {label} vs plain ({rec['plain_ms']:.4f} ms): "
+                log(f"#   {label} vs plain at T={T_PARITY} "
+                    f"({rec['plain_ms']:.4f} ms): "
                     f"bitwise {rec['bitwise']}; {share * 100:.4f} % of "
                     f"clusters within 2e-3; worst {worst} (rel "
                     f"{worst_rel:.3g}); max abs diff {max_abs:.4g}; "
@@ -669,21 +889,22 @@ def board_phase(dev, setup, zero_counters, read_counters) -> dict:
             out["kernels"][label] = rec
         del stream
         torch.cuda.empty_cache()
-    for board_name, names, _, _ in runs:
-        synth = sum(out["synth_ms"][n] for n in names)
-        kern = {p: sum(stage[(n, p)] for n in names) for p in POLICIES}
-        log(f"# {board_name} stages, timed one by one: synthesis "
-            f"{synth:.4f} ms, kernels " + ", ".join(
-                f"{p} {ms:.4f} ms" for p, ms in kern.items())
-            + f"; sum {synth + sum(kern.values()):.4f} ms")
-    return out
+    del plan
+    torch.cuda.empty_cache()
+    synth = sum(out["synth_ms"][n] for n in names)
+    kern = {p: sum(stage[(n, p)] for n in names) for p in BOARD_POLICIES}
+    planner_ms = out["planner_s"][board_name] * 1e3
+    log(f"# {board_name} stages, timed one by one: synthesis "
+        f"{synth:.4f} ms, planner {planner_ms:.4f} ms, kernels "
+        + ", ".join(f"{p} {ms:.4f} ms" for p, ms in kern.items())
+        + f"; sum {synth + planner_ms + sum(kern.values()):.4f} ms")
 
 
 def lane_kernel_rows(boards: dict, found: dict) -> list:
     """The `kernels` line's entries of the lane instantiations."""
     rows = []
     for name in ("severe", "flash-crowd", "mixed"):
-        for policy in POLICIES:
+        for policy in BOARD_POLICIES:
             label = instantiation_name(policy, name)
             rec = dict(boards["kernels"][label])
             parity = found[label]
@@ -701,8 +922,9 @@ def lane_kernel_rows(boards: dict, found: dict) -> list:
                 "source": ("ccka_tpu_torch/csrc/rollout_mlp.cu"
                            if policy == "mlp" else
                            "ccka_tpu_torch/csrc/rollout_profiles.cu"),
-                "replaces": REPLACES["FAULTS" if "FAULTS" in label
-                                     else "WL_D=16"],
+                "replaces": (PLAN_REPLACES if policy == "plan" else
+                             REPLACES["FAULTS" if "FAULTS" in label
+                                      else "WL_D=16"]),
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": rec.pop("max_abs_err"),
@@ -865,6 +1087,9 @@ def main() -> None:
     parity("default", B_PARITY, (False, True), T_PARITY)
     parity("multiregion", B_MULTI, (False, True), T_PARITY)
 
+    # ---- 4b. the plan kernel: see plan_phase.
+    plan_rec = plan_phase(dev, setup, hold)
+
     # The carbon constants reach the kernel, each in its place.
     cfg, src, params, off, peak, _ = setup("multiregion")
     traces = src.batch_trace_device(T_DAY // 10, gen(29), B_MULTI,
@@ -958,6 +1183,7 @@ def main() -> None:
         "rollout_profiles_kernel<CARBON>":
             mk.carbon_megakernel_summary_from_packed,
         "rollout_mlp_kernel": mk.neural_megakernel_summary_from_packed,
+        "plan entry": mk.plan_megakernel_summary_from_packed,
         "philox_uniform_kernel": prandom.uniform_grid,
     }
 
@@ -1086,7 +1312,17 @@ def main() -> None:
             f"gCO2/kreq {s.g_co2_per_kreq.mean().item():.6f}, SLO "
             f"attainment {s.slo_attainment.mean().item():.6f}")
 
-    views = mk.unpack_exo(exo, T_DAY, Zm)
+    # The plain versions on the stream's first T_PARITY ticks, against the
+    # kernels re-run there.
+    views = mk.unpack_exo(exo, T_PARITY, Zm)
+    short = {
+        "rule": mk.megakernel_summary_from_packed(
+            params, off, peak, exo, T_PARITY, seed=5, stochastic=True),
+        "carbon": mk.carbon_megakernel_summary_from_packed(
+            params, off, peak, exo, T_PARITY, seed=5, stochastic=True),
+        "flagship": mk.neural_megakernel_summary_from_packed(
+            params, cfg.cluster, net, exo, T_PARITY, seed=5,
+            stochastic=True)}
     checks7 = {}
     for name, action_fn, tol in (
             ("rule", rule_fn(cfg), None),
@@ -1100,18 +1336,19 @@ def main() -> None:
         p = plain(cfg, params, views, 5, True, action_fn)
         t1.record()
         t1.synchronize()
-        share, worst, worst_rel, max_abs = per_cluster_share(board[name], p)
-        viol = mk.mean_parity_violations(board[name], p, tol)
+        share, worst, worst_rel, max_abs = per_cluster_share(short[name], p)
+        viol = mk.mean_parity_violations(short[name], p, tol)
         checks7[name] = (t0.elapsed_time(t1), max_abs)
-        log(f"#   {name} kernel vs plain ({checks7[name][0]:.4f} ms): "
-            f"bitwise {bitwise(board[name], p)}; {share * 100:.4f} % of "
+        log(f"#   {name} kernel vs plain at T={T_PARITY} "
+            f"({checks7[name][0]:.4f} ms): "
+            f"bitwise {bitwise(short[name], p)}; {share * 100:.4f} % of "
             f"clusters within 2e-3; worst {worst} (rel {worst_rel:.3g}); "
             f"max abs diff {max_abs:.4g}; mean_parity_violations {viol}")
         if viol:
             fail(f"three-policy path: {name} kernel and plain version "
                  f"disagree")
         del p
-    del views
+    del views, short
 
     weight_bytes = (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
     timed = {
@@ -1194,7 +1431,9 @@ def main() -> None:
                       f"(phase 7)",
              "launches": launches["rollout_profiles_kernel"],
              "max_abs_err": checks7["rule"][1], "ms": main_ms["rule"][0],
-             "plain_ms": checks7["rule"][0], "bound_ms": main_ms["rule"][1],
+                 "plain_ms": checks7["rule"][0],
+             "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}",
+             "bound_ms": main_ms["rule"][1],
              "bound_by": main_ms["rule"][2]}},
         {"name": "philox_uniform_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
@@ -1215,7 +1454,8 @@ def main() -> None:
          "max_abs_err": checks7["carbon"][1], "ms": main_ms["carbon"][0],
          "plain_ms": checks7["carbon"][0], "bound_ms": main_ms["carbon"][1],
          "bound_by": main_ms["carbon"][2], "library_ms": None,
-         "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic (phase 7)"},
+         "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic (phase 7)",
+         "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}"},
         {"name": "rollout_mlp_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_mlp.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:1144",
@@ -1225,7 +1465,22 @@ def main() -> None:
          "bound_ms": main_ms["flagship"][1],
          "bound_by": main_ms["flagship"][2], "library_ms": None,
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, F={F} "
-                  f"H={H} A={A}, one member (phase 7)"},
+                  f"H={H} A={A}, one member (phase 7)",
+         "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}"},
+        {"name": "rollout_profiles_kernel<PLAN>", "route": "cuda",
+         "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
+         "replaces": PLAN_REPLACES,
+         "launches": plan_rec["launches"],
+         "launches_from": "phase 4b, its checks: the boards' streams carry "
+                          "lanes, so their mpc rows run the lane "
+                          "instantiations below",
+         "max_abs_err": plan_rec["max_abs_err"], "ms": plan_rec["ms"],
+         "plain_ms": plan_rec["plain_ms"], "bound_ms": plan_rec["bound_ms"],
+         "bound_by": plan_rec["bound_by"], "library_ms": None,
+         "bitwise": plan_rec["bitwise"],
+         "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, a random "
+                  f"per-cluster plan (phase 4b)",
+         "plain_shape": f"multiregion B={B_MULTI} T={T_PARITY} stochastic"},
     ] + lane_kernel_rows(boards, lanes_found)
     log(f"# build {build_s:.2f} s; total {time.perf_counter() - t_start:.1f}"
         f" s")

@@ -234,7 +234,9 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "train.checkpoint", "train.ppo", "train.flagship", "sim.lanes",
              "faults.types", "faults.process", "faults.scoreboard",
              "workloads.types", "workloads.process", "workloads.scenarios",
-             "workloads.scoreboard"):
+             "workloads.scoreboard", "train.objective", "train.mpc",
+             "train.evaluate", "forecast.base", "forecast.backends",
+             "forecast.metrics"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -283,8 +285,23 @@ fb = fault_scoreboard(cfg, intensities=("off", "severe"), n_traces=4,
                       eval_steps=8, device="cpu")
 wb = workload_scoreboard(cfg, scenarios=("mixed",), n_traces=4,
                          eval_steps=8, device="cpu")
-assert set(fb["degradation_curves"]) == {"rule", "carbon", "flagship"}
+assert set(fb["degradation_curves"]) == {"rule", "flagship", "mpc"}
 assert wb["scenarios"]["mixed"]["stream_rows"] == 40
+assert wb["mpc_planner"]["plan_rows"] == 24
+
+# Diff-MPC through the evaluation harness, with a forecaster.
+from ccka_tpu_torch.forecast.base import make_forecaster
+from ccka_tpu_torch.policy.rule import RulePolicy
+from ccka_tpu_torch.train.evaluate import compare_backends, heldout_traces
+from ccka_tpu_torch.train.mpc import MPCBackend
+
+board = compare_backends(
+    cfg, {"rule": RulePolicy(cfg.cluster, "cpu"),
+          "mpc": MPCBackend(cfg, horizon=4, iters=1, replan_every=4,
+                            forecaster=make_forecaster("ridge"),
+                            device="cpu")},
+    heldout_traces(src, steps=8, n=2, device="cpu"))
+assert board["mpc"]["vs_rule_objective"] > 0
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

@@ -317,3 +317,147 @@ def test_kernel_refuses_unbuilt_deadline(cuda):
         mk.megakernel_summary_from_packed(
             params, offpeak_action(cfg.cluster, cuda),
             peak_action(cfg.cluster, cuda), exo, 8, stochastic=False)
+
+
+def _random_plan(cfg, B, T, T_pad, device, seed=3):
+    from ccka_tpu_torch.models.nets import latent_dim, latent_to_action
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    lat = 0.3 * torch.randn((B, T, latent_dim(cfg.cluster)), generator=g,
+                            device=device)
+    return mk.pack_plan(latent_to_action(lat, cfg.cluster), T_pad)
+
+
+def _plan_plain(cfg, params, plan, packed, T, stochastic, **lanes):
+    Z = cfg.cluster.n_zones
+    return batched_rollout_summary(
+        params, initial_state(cfg, packed.shape[2], packed.device),
+        mk.plan_action_fn(mk.unpack_plan(plan, T, cfg.cluster.n_pools, Z),
+                          plan.dim() == 3),
+        mk.unpack_exo(packed, T, Z), 4, stochastic=stochastic, **lanes)[1]
+
+
+@pytest.mark.parametrize("preset", ["default", "multiregion"])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("form", ["per-cluster", "broadcast"])
+def test_plan_kernel_is_bitwise_its_plain_version(cuda, preset, stochastic,
+                                                  form):
+    """The PLAN instantiation on a plain stream, B = 512 x T = 288: every
+    field bitwise the plain rollout under the same plan, one launch."""
+    cfg = PRESETS[preset]()
+    params = SimParams.from_config(cfg, device=cuda)
+    T, B = 288, 512
+    packed = SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).packed_trace_device(
+        T, 6, B, device=cuda)
+    plan = _random_plan(cfg, B, T, T, cuda)
+    if form == "broadcast":
+        plan = plan[..., 0].contiguous()
+    before = mk.plan_megakernel_summary_from_packed.launches
+    k = mk.plan_megakernel_summary_from_packed(params, cfg.cluster, plan,
+                                               packed, T, seed=4,
+                                               stochastic=stochastic)
+    assert mk.plan_megakernel_summary_from_packed.launches == before + 1
+    p = _plan_plain(cfg, params, plan, packed, T, stochastic)
+    for f in p._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+
+
+@pytest.mark.parametrize("preset", ["default", "multiregion"])
+def test_rule_equivalent_plan_is_bitwise_the_rule_kernel(cuda, preset):
+    cfg = PRESETS[preset]()
+    params = SimParams.from_config(cfg, device=cuda)
+    off, peak = offpeak_action(cfg.cluster, cuda), peak_action(cfg.cluster,
+                                                               cuda)
+    T, B = 288, 512
+    packed = SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).packed_trace_device(
+        T, 8, B, device=cuda)
+    is_peak = mk.unpack_exo(packed, T, cfg.cluster.n_zones).is_peak > 0.5
+    plan = mk.pack_plan(type(off)(*(
+        torch.where(is_peak.reshape(B, T, *([1] * o.dim())), q, o)
+        for o, q in zip(off, peak))), T)
+    for stochastic in (False, True):
+        k = mk.plan_megakernel_summary_from_packed(
+            params, cfg.cluster, plan, packed, T, seed=4,
+            stochastic=stochastic)
+        want = mk.megakernel_summary_from_packed(
+            params, off, peak, packed, T, seed=4, stochastic=stochastic)
+        for f in want._fields:
+            assert torch.equal(getattr(k, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("scenario", ["severe", "flash-crowd", "mixed"])
+def test_plan_kernel_on_lane_streams(cuda, scenario):
+    """The PLAN instantiations with fault lanes, workload lanes and both
+    (multiregion, B = 512 x T = 288) bitwise the plain rollout with the
+    lanes threaded through."""
+    import dataclasses
+
+    from ccka_tpu_torch.config import FAULT_PRESETS
+    from ccka_tpu_torch.faults.process import unpack_fault_lanes
+    from ccka_tpu_torch.workloads.process import unpack_workload_lanes
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    scenario_source)
+
+    cfg = PRESETS["multiregion"]()
+    T, B, Z = 288, 512, cfg.cluster.n_zones
+    if scenario == "severe":
+        src, c2 = SyntheticSignalSource(
+            cfg.cluster, cfg.workload, cfg.sim, cfg.signals,
+            faults=FAULT_PRESETS["severe"]), cfg
+    else:
+        sc = WORKLOAD_SCENARIOS[scenario]
+        src = scenario_source(cfg, sc)
+        c2 = dataclasses.replace(cfg, workloads=sc.workloads)
+    params = SimParams.from_config(c2, device=cuda)
+    packed = src.packed_trace_device(T, 6, B, device=cuda)
+    plan = _random_plan(cfg, B, T, T, cuda)
+    faults = scenario != "flash-crowd"
+    workloads = scenario != "severe"
+    lanes = dict(
+        faults=unpack_fault_lanes(packed, T, Z) if faults else None,
+        workloads=unpack_workload_lanes(packed, T, Z) if workloads else None)
+    from ccka_tpu_torch.kernels import build
+
+    name = build.instantiation("plan", faults, 16 if workloads else 0)
+    before = build.launch_rollout_plan.launches[name]
+    for stochastic in (False, True):
+        k = mk.plan_megakernel_summary_from_packed(
+            params, cfg.cluster, plan, packed, T, seed=4,
+            stochastic=stochastic)
+        p = _plan_plain(cfg, params, plan, packed, T, stochastic, **lanes)
+        for f in p._fields:
+            assert torch.equal(getattr(k, f), getattr(p, f)), f
+    assert build.launch_rollout_plan.launches[name] == before + 2
+
+
+def test_graphed_planner_is_bitwise_the_eager_one(cuda):
+    from ccka_tpu_torch.train import mpc
+
+    cfg = PRESETS["multiregion"]()
+    params = SimParams.from_config(cfg, device=cuda)
+    N, T = 256, 48
+    traces = mk.unpack_exo(SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).packed_trace_device(
+        T, 2, N, device=cuda), T, cfg.cluster.n_zones)
+    lat0 = mpc.zero_latent(cfg.cluster, cuda)
+    lat0 = lat0.expand(N, 8, *lat0.shape)
+    got = [mpc.receding_horizon_plan_batch(
+        params, cfg.cluster, cfg.train, initial_state(cfg, N, cuda), traces,
+        lat0, horizon=8, replan_every=8, iters=2, graph=graph)
+        for graph in (False, True)]
+    assert torch.equal(got[0], got[1])
+    assert float(got[0].abs().max()) > 1e-3
+
+
+def test_plan_kernel_refuses_mismatched_plans(cuda):
+    cfg = PRESETS["default"]()
+    params = SimParams.from_config(cfg, device=cuda)
+    exo = torch.zeros((64, mk.exo_rows(3), 128), device=cuda)
+    plan = _random_plan(cfg, 128, 64, 64, cuda)
+    for bad in (plan[:32], plan[:, :8], plan[..., :64],
+                plan.cpu()):
+        with pytest.raises(ValueError, match="plan"):
+            mk.plan_megakernel_summary_from_packed(params, cfg.cluster, bad,
+                                                   exo, 64, stochastic=False)

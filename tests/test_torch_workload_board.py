@@ -15,7 +15,8 @@ from ccka_tpu.workloads.scoreboard import \
     workload_scoreboard as jworkload_scoreboard
 from ccka_tpu_torch.workloads.scoreboard import workload_scoreboard
 from test_torch_fault_board import (N_TRACES, POLICIES, STEPS, TRACE_SEED,
-                                    assert_close, use_jax_streams)
+                                    assert_close, mpc_close,
+                                    use_jax_streams)
 
 SCENARIOS = ("flash-crowd", "mixed")
 
@@ -60,10 +61,38 @@ def test_board_matches_jax_on_the_same_streams(monkeypatch):
     print(f"\n# workload board: worst {worst:.3g} of the standard")
 
 
+def test_mpc_row_matches_jax_on_the_same_streams(monkeypatch):
+    """The mpc row on flash-crowd and mixed (multiregion, B = 8 x T = 32,
+    deterministic), planned once on the shared exo rows and played back on
+    each scenario, against JAX's board on its own streams: the rule rows
+    at the kernel standard, the mpc rows at the fault board's
+    ``MPC_RTOL``; the planner's record and its plan rows."""
+    jc, tc = jcfg.PRESETS["multiregion"](), tcfg.PRESETS["multiregion"]()
+    want = jworkload_scoreboard(jc, scenarios=SCENARIOS,
+                                policies=("rule", "mpc"), n_traces=N_TRACES,
+                                eval_steps=STEPS, trace_seed=TRACE_SEED)
+    use_jax_streams(monkeypatch, jc)
+    got = workload_scoreboard(tc, scenarios=SCENARIOS,
+                              policies=("rule", "mpc"), n_traces=N_TRACES,
+                              eval_steps=STEPS, trace_seed=TRACE_SEED,
+                              device="cpu")
+    for k in ("horizon", "replan_every", "iters", "n_traces", "plan_rows"):
+        assert got["mpc_planner"][k] == want["mpc_planner"][k], k
+    assert got["mpc_planner"]["plan_rows"] == 24
+    worst = 0.0
+    for name in SCENARIOS:
+        rows, wrows = (got["scenarios"][name]["rows"],
+                       want["scenarios"][name]["rows"])
+        assert list(rows) == list(wrows) == ["rule", "mpc"]
+        for k, v in wrows["rule"].items():
+            assert_close(rows["rule"][k], v, f"{name} rule {k}")
+        worst = max(worst, mpc_close(rows["mpc"], wrows["mpc"],
+                                     f"{name} mpc"))
+    print(f"\n# workload board mpc rows: worst {worst:.3g} of MPC_RTOL")
+
+
 def test_board_refuses_before_any_stream():
     tc = tcfg.PRESETS["multiregion"]()
-    with pytest.raises(NotImplementedError, match="queue B row 7"):
-        workload_scoreboard(tc, policies=("mpc",), device="cpu")
     with pytest.raises(ValueError, match="unknown scenarios"):
         workload_scoreboard(tc, scenarios=("mixed", "typo"), device="cpu")
     with pytest.raises(ValueError, match="unknown policies"):
