@@ -3,7 +3,8 @@
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run_mlp (the Pallas TPU kernel of
 // _make_kernel(policy="mlp"), with FAULTS its faults=True specialisation,
-// with WL_D its workloads=D one; no carried state), the deterministic
+// with WL_D its workloads=D one, with CARRY its carry=True one,
+// _run_mlp(state_in=...)), the deterministic
 // policy latent_to_action(actor_mean(observe(state, exo))) fused into the
 // rollout, over a population of nets. Under a signal outage (FAULTS) the
 // observation reads the held signals (rollout_tick.cuh::observed). One
@@ -29,6 +30,11 @@
 // The plain version is sim/megakernel.py::kernel_numerics_action_fn under
 // sim/rollout.py::batched_rollout_summary, which chains the same sums in
 // the same order in PyTorch.
+//
+// CARRY: one time block of a longer rollout, as in rollout_profiles.cu;
+// the held observation is carried under FAULTS, and member m's state is
+// the m-th [rows, B] plane of the state [NP, rows, B]. The observation's
+// time of day is the global tick's.
 //
 // Design: the rule-profile kernel's layout: one thread per cluster, the
 // fleet in registers, the horizon a loop in the thread. The block's
@@ -156,14 +162,15 @@ __device__ __forceinline__ bf16 normalize_obs(float o) {
   return __float2bfloat16_rn(sign * log1pf(fabsf(o)));
 }
 
-template <int P, int Z, int K, int H, bool STOCH, bool FAULTS, int WL_D>
+template <int P, int Z, int K, int H, bool STOCH, bool FAULTS, int WL_D,
+          bool CARRY>
 __global__ void __launch_bounds__(kBlock)
 rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
                    const MlpParams pr, const bf16* __restrict__ w1g,
                    const bf16* __restrict__ b1g, const bf16* __restrict__ w2g,
                    const bf16* __restrict__ b2g, const float* __restrict__ w3g,
                    const float* __restrict__ b3g, int T, int B, int rows,
-                   int fb, int wb, uint32_t k0, uint32_t k1) {
+                   int fb, int wb, uint32_t k0, uint32_t k1, const Carry cs) {
   constexpr int F = 2 * P * Z + 3 * Z + 8;
   constexpr int A = P * Z + 4 * P + 2;
   static_assert(H % kJ == 0, "torso width must be a multiple of kJ");
@@ -198,12 +205,19 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
   Fleet<P, Z, K> s;
   Queues<WL_D> q;
   TickExo<Z> held{};
+  const size_t cplane = (size_t)cs.rows * (size_t)B;  // a member's state
+  if constexpr (CARRY)
+    load_carry<P, Z, K, FAULTS, WL_D>(cs.in + m * cplane, B, b, s, q, held);
+  // The global cluster of the Philox counter.
+  const int gb = CARRY ? cs.b0 + b : b;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
+    // The global tick: Philox, the clock, the held observation.
+    const int tg = CARRY ? cs.t0 + t : t;
     const float* x = exo + (size_t)t * plane + b;
     const TickExo<Z> e(x, B);
     const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
-    const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, t) : e;
+    const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, tg) : e;
 
     // Observation of the pre-step state, normalized, as bf16 in col1.
     {
@@ -229,7 +243,7 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
 #pragma unroll
       for (int z = 0; z < Z; ++z) put(o.carb[z]);
       put(e.is_peak);
-      put(fmodf((float)t * k.dt_s, 86400.0f) * (1.0f / 86400.0f));
+      put(fmodf((float)tg * k.dt_s, 86400.0f) * (1.0f / 86400.0f));
     }
 
     dense_gelu<F, H>(w1, b1, col1, col0);
@@ -273,9 +287,12 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
       a.hpa[c] = pr.codec[1] +
                  pr.codec[2] * sigmoid(u[P * Z + 4 * P + c] + pr.codec[3]);
 
-    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, b, t, k0, k1);
+    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, gb, tg, k0, k1);
   }
-  s.store(out + m * (size_t)kOutRows * B, B, b, q.sums);
+  if constexpr (CARRY)
+    store_carry<P, Z, K, FAULTS, WL_D>(cs.out + m * cplane, B, b, s, q, held);
+  else
+    s.store(out + m * (size_t)kOutRows * B, B, b, q.sums);
 }
 
 template <int P, int Z, int K, int H>
@@ -283,23 +300,69 @@ cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const float* w3, const float* b3, int NP,
                    int T, int B, int rows, int fb, int wb, uint32_t k0,
-                   uint32_t k1, bool stochastic, cudaStream_t s) {
+                   uint32_t k1, bool stochastic, const Carry* cs,
+                   cudaStream_t s) {
   constexpr int F = 2 * P * Z + 3 * Z + 8;
   constexpr int A = P * Z + 4 * P + 2;
   constexpr size_t bytes = Smem<F, H, A>::bytes;
   const dim3 grid((B + kBlock - 1) / kBlock, NP), block(kBlock);
-  auto go = [&](auto kernel) {
+  auto go = [&](auto kernel, const Carry& c) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     kernel<<<grid, block, bytes, s>>>(
         exo, out, pr, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2,
-        (const bf16*)b2, w3, b3, T, B, rows, fb, wb, k0, k1);
+        (const bf16*)b2, w3, b3, T, B, rows, fb, wb, k0, k1, c);
     return cudaGetLastError();
   };
   constexpr bool kFaults = CCKA_FAULTS != 0;
-  return stochastic ? go(rollout_mlp_kernel<P, Z, K, H, true, kFaults, CCKA_WL_D>)
-                    : go(rollout_mlp_kernel<P, Z, K, H, false, kFaults, CCKA_WL_D>);
+  if (cs != nullptr)
+    return stochastic
+        ? go(rollout_mlp_kernel<P, Z, K, H, true, kFaults, CCKA_WL_D, true>,
+             *cs)
+        : go(rollout_mlp_kernel<P, Z, K, H, false, kFaults, CCKA_WL_D, true>,
+             *cs);
+  const Carry none{nullptr, nullptr, 0, 0, 0};
+  return stochastic
+      ? go(rollout_mlp_kernel<P, Z, K, H, true, kFaults, CCKA_WL_D, false>,
+           none)
+      : go(rollout_mlp_kernel<P, Z, K, H, false, kFaults, CCKA_WL_D, false>,
+           none);
+}
+
+int mlp_entry(const float* exo, float* out, const float* params,
+              const float* slo, const float* codec, const void* w1,
+              const void* b1, const void* w2, const void* b2, const float* w3,
+              const float* b3, int NP, int F, int H, int A, int P, int Z,
+              int K, int T, int B, int rows, unsigned long long seed,
+              int stochastic, int fault_base, int wl_base, int wl_depth,
+              const Carry* cs, void* stream) {
+  if (P != 2 || F != 2 * P * Z + 3 * Z + 8 || A != P * Z + 4 * P + 2 ||
+      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1 ||
+      (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
+      (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
+      wl_base + 3 > rows ||
+      (cs != nullptr &&
+       (cs->in == nullptr || cs->out == nullptr || cs->in == cs->out ||
+        cs->t0 < 0 || cs->b0 < 0 ||
+        cs->rows < carry_rows_used(P, Z, K, fault_base >= 0, wl_depth))))
+    return (int)cudaErrorInvalidValue;
+  MlpParams pr;
+  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
+  for (int i = 0; i < 2; ++i) pr.slo[i] = slo[i];
+  for (int i = 0; i < 4; ++i) pr.codec[i] = codec[i];
+  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
+  const uint32_t k1 = (uint32_t)(seed >> 32);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (Z == 3 && K == 3)
+    return (int)launch<2, 3, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
+                                     T, B, rows, fault_base, wl_base, k0, k1,
+                                     stochastic != 0, cs, s);
+  if (Z == 4 && K == 3)
+    return (int)launch<2, 4, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
+                                     T, B, rows, fault_base, wl_base, k0, k1,
+                                     stochastic != 0, cs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -322,26 +385,27 @@ extern "C" int ccka_rollout_mlp(const float* exo, float* out,
                                 unsigned long long seed, int stochastic,
                                 int fault_base, int wl_base, int wl_depth,
                                 void* stream) {
-  if (P != 2 || F != 2 * P * Z + 3 * Z + 8 || A != P * Z + 4 * P + 2 ||
-      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1 ||
-      (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
-      (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
-      wl_base + 3 > rows)
-    return (int)cudaErrorInvalidValue;
-  MlpParams pr;
-  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
-  for (int i = 0; i < 2; ++i) pr.slo[i] = slo[i];
-  for (int i = 0; i < 4; ++i) pr.codec[i] = codec[i];
-  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
-  const uint32_t k1 = (uint32_t)(seed >> 32);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (Z == 3 && K == 3)
-    return (int)launch<2, 3, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
-                                     T, B, rows, fault_base, wl_base, k0, k1,
-                                     stochastic != 0, s);
-  if (Z == 4 && K == 3)
-    return (int)launch<2, 4, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
-                                     T, B, rows, fault_base, wl_base, k0, k1,
-                                     stochastic != 0, s);
-  return (int)cudaErrorInvalidValue;
+  return mlp_entry(exo, out, params, slo, codec, w1, b1, w2, b2, w3, b3, NP,
+                   F, H, A, P, Z, K, T, B, rows, seed, stochastic, fault_base,
+                   wl_base, wl_depth, nullptr, stream);
+}
+
+// The CARRY instantiation: ticks [t0, t0 + T) of a longer rollout, exo the
+// block [>= T, rows, B] whose row 0 is global tick t0, from the carried
+// state state_in [NP, state_rows, B] into state_out (another buffer of
+// the same shape); b0 the global index of cluster 0. The accumulators are
+// rows 0..20 of each member's state; out is not written. The other
+// arguments as for ccka_rollout_mlp.
+extern "C" int ccka_rollout_mlp_carry(
+    const float* exo, const float* state_in, float* state_out,
+    int state_rows, const float* params, const float* slo,
+    const float* codec, const void* w1, const void* b1, const void* w2,
+    const void* b2, const float* w3, const float* b3, int NP, int F, int H,
+    int A, int P, int Z, int K, int T, int B, int rows,
+    unsigned long long seed, int stochastic, int fault_base, int wl_base,
+    int wl_depth, int t0, int b0, void* stream) {
+  const Carry cs{state_in, state_out, state_rows, t0, b0};
+  return mlp_entry(exo, nullptr, params, slo, codec, w1, b1, w2, b2, w3, b3,
+                   NP, F, H, A, P, Z, K, T, B, rows, seed, stochastic,
+                   fault_base, wl_base, wl_depth, &cs, stream);
 }

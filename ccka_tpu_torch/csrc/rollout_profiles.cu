@@ -6,10 +6,25 @@
 // Replaces: ccka_tpu/sim/megakernel.py::_run (the Pallas TPU kernel of
 // _make_kernel(policy="profiles") and, with POLICY = kCarbon,
 // policy="carbon"; with FAULTS its faults=True specialisation, with WL_D
-// its workloads=D one; no carried state), with its in-kernel sampler
-// _uniform + _poisson_small_kernel; with POLICY = kPlan,
+// its workloads=D one), with its in-kernel sampler _uniform +
+// _poisson_small_kernel; with POLICY = kPlan,
 // ccka_tpu/sim/megakernel.py::_run_plan (policy="plan", body :332-333,
-// :427-441).
+// :427-441); with CARRY, the carry=True specialisation of both
+// (_run(state_in=...) :1010 and _run_plan(state_in=...) :1657, body
+// :340-353 and :896-903).
+//
+// CARRY: one time block of a longer rollout. The thread loads its
+// registers (Fleet, the workload Queues, the carbon re-rank's held
+// observation under FAULTS) from the carried state at the block's first
+// tick and stores them after its last (rollout_tick.cuh::CarryRows, batch
+// innermost, so the loads and stores coalesce). The loop runs the block's
+// local ticks over the block's stream; Philox, the held observation's
+// first tick and a plan's row (the host passes the plan from the block's
+// first row on) take the global tick t0 + t and the global cluster b0 + b.
+// The accumulators are part of the state, so only the last block's are
+// read. At most 122 floats a cluster cross a boundary (carbon on a fault
+// and workload stream, Z = 4), 16 MB at B = 32768: a read and a write
+// per block, about 1 % of the block's stream bytes.
 //
 // The action of a tick is a per-cluster select of two constant profiles
 // on is_peak (kRule, kCarbon), or row t of a plan (kPlan): plan[t][j][b]
@@ -108,21 +123,29 @@ struct Profiles {
 };
 
 template <int P, int Z, int K, bool STOCH, int POLICY, bool FAULTS,
-          int WL_D>
+          int WL_D, bool CARRY>
 __global__ void __launch_bounds__(kBlock)
 rollout_profiles_kernel(const float* __restrict__ exo,
                         float* __restrict__ out, const Profiles pr,
                         const PlanStream plan, int T, int B, int rows, int fb,
-                        int wb, uint32_t k0, uint32_t k1) {
+                        int wb, uint32_t k0, uint32_t k1, const Carry cs) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
+  // The carbon re-rank observes held signals under an outage.
+  constexpr bool kHeld = FAULTS && POLICY == kCarbon;
 
   const Consts<P, Z> k(pr.p);
   Fleet<P, Z, K> s;
   Queues<WL_D> q;
   TickExo<Z> held{};
+  if constexpr (CARRY)
+    load_carry<P, Z, K, kHeld, WL_D>(cs.in, B, b, s, q, held);
+  // The global cluster of the Philox counter.
+  const int gb = CARRY ? cs.b0 + b : b;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
+    // The global tick: Philox, the held observation's first tick.
+    const int tg = CARRY ? cs.t0 + t : t;
     const float* x = exo + (size_t)t * plane + b;
     const TickExo<Z> e(x, B);
     const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
@@ -142,7 +165,7 @@ rollout_profiles_kernel(const float* __restrict__ exo,
 
     if (POLICY == kCarbon) {
       // Zone weight from observed carbon and the pre-step placement.
-      const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, t) : e;
+      const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, tg) : e;
       float csum = o.carb[0];
 #pragma unroll
       for (int z = 1; z < Z; ++z) csum = csum + o.carb[z];
@@ -170,9 +193,12 @@ rollout_profiles_kernel(const float* __restrict__ exo,
         for (int p = 0; p < P; ++p) a.zw[p][z] = w;
       }
     }
-    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, b, t, k0, k1);
+    tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, gb, tg, k0, k1);
   }
-  s.store(out, B, b, q.sums);
+  if constexpr (CARRY)
+    store_carry<P, Z, K, kHeld, WL_D>(cs.out, B, b, s, q, held);
+  else
+    s.store(out, B, b, q.sums);
 }
 
 __global__ void philox_uniform_kernel(float* __restrict__ out, uint32_t k0,
@@ -195,18 +221,26 @@ template <int P, int Z, int K, int POLICY>
 cudaError_t launch(const float* exo, float* out, const Profiles& pr,
                    const PlanStream& plan, int T, int B, int rows, int fb,
                    int wb, uint32_t k0, uint32_t k1, bool stochastic,
-                   cudaStream_t s) {
+                   const Carry* cs, cudaStream_t s) {
   constexpr bool kFaults = CCKA_FAULTS != 0;
   const dim3 grid((B + kBlock - 1) / kBlock), block(kBlock);
-  if (stochastic)
-    rollout_profiles_kernel<P, Z, K, true, POLICY, kFaults, CCKA_WL_D>
-        <<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
-                                k1);
-  else
-    rollout_profiles_kernel<P, Z, K, false, POLICY, kFaults, CCKA_WL_D>
-        <<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
-                                k1);
-  return cudaGetLastError();
+  auto go = [&](auto kernel, const Carry& c) {
+    kernel<<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
+                                  k1, c);
+    return cudaGetLastError();
+  };
+  if (cs != nullptr)
+    return stochastic
+        ? go(rollout_profiles_kernel<P, Z, K, true, POLICY, kFaults,
+                                     CCKA_WL_D, true>, *cs)
+        : go(rollout_profiles_kernel<P, Z, K, false, POLICY, kFaults,
+                                     CCKA_WL_D, true>, *cs);
+  const Carry none{nullptr, nullptr, 0, 0, 0};
+  return stochastic
+      ? go(rollout_profiles_kernel<P, Z, K, true, POLICY, kFaults, CCKA_WL_D,
+                                   false>, none)
+      : go(rollout_profiles_kernel<P, Z, K, false, POLICY, kFaults, CCKA_WL_D,
+                                   false>, none);
 }
 
 // The topologies this file is built for: (P, Z, K) = (2, 3, 3), (2, 4, 3).
@@ -214,13 +248,14 @@ template <int POLICY>
 cudaError_t dispatch(const float* exo, float* out, const Profiles& pr,
                      const PlanStream& plan, int P, int Z, int K, int T,
                      int B, int rows, int fb, int wb, uint32_t k0,
-                     uint32_t k1, bool stochastic, cudaStream_t s) {
+                     uint32_t k1, bool stochastic, const Carry* cs,
+                     cudaStream_t s) {
   if (P == 2 && Z == 3 && K == 3)
     return launch<2, 3, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
-                                   k0, k1, stochastic, s);
+                                   k0, k1, stochastic, cs, s);
   if (P == 2 && Z == 4 && K == 3)
     return launch<2, 4, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
-                                   k0, k1, stochastic, s);
+                                   k0, k1, stochastic, cs, s);
   return cudaErrorInvalidValue;
 }
 
@@ -229,6 +264,70 @@ bool lanes_ok(int rows, int fault_base, int wl_base, int wl_depth) {
   return (fault_base >= 0) == (CCKA_FAULTS != 0) && wl_depth == CCKA_WL_D &&
          (wl_base >= 0) == (CCKA_WL_D > 0) && fault_base < rows &&
          wl_base + 3 <= rows;
+}
+
+}  // namespace
+
+namespace {
+
+// A carried state of the rows the instantiation uses, at non-negative
+// offsets (the state's own checks; the rest as for the entries).
+bool carry_ok(const Carry& c, int P, int Z, int K, bool held, int wl_depth) {
+  return c.in != nullptr && c.out != nullptr && c.in != c.out &&
+         c.t0 >= 0 && c.b0 >= 0 &&
+         c.rows >= carry_rows_used(P, Z, K, held, wl_depth);
+}
+
+int profiles_entry(const float* exo, float* out, const float* params,
+                   const float* actions, int n_act, int P, int Z, int K,
+                   int T, int B, int rows, unsigned long long seed,
+                   int stochastic, const float* carbon, int fault_base,
+                   int wl_base, int wl_depth, const Carry* cs,
+                   void* stream) {
+  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1 ||
+      !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
+      (cs != nullptr &&
+       !carry_ok(*cs, P, Z, K, carbon != nullptr && fault_base >= 0,
+                 wl_depth)))
+    return (int)cudaErrorInvalidValue;
+  Profiles pr;
+  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
+  for (int j = 0; j < 2; ++j)
+    for (int i = 0; i < kMaxAct; ++i)
+      pr.act[j][i] = i < n_act ? actions[j * n_act + i] : 0.0f;
+  for (int i = 0; i < 3; ++i) pr.carbon[i] = carbon ? carbon[i] : 0.0f;
+  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
+  const uint32_t k1 = (uint32_t)(seed >> 32);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const PlanStream none{nullptr, 0, 0, 0};
+  return (int)(carbon ? dispatch<kCarbon>(exo, out, pr, none, P, Z, K, T, B,
+                                          rows, fault_base, wl_base, k0, k1,
+                                          stochastic != 0, cs, s)
+                      : dispatch<kRule>(exo, out, pr, none, P, Z, K, T, B,
+                                        rows, fault_base, wl_base, k0, k1,
+                                        stochastic != 0, cs, s));
+}
+
+int plan_entry(const float* exo, float* out, const float* params,
+               const float* plan, int plan_rows, int plan_batched, int P,
+               int Z, int K, int T, int B, int rows, unsigned long long seed,
+               int stochastic, int fault_base, int wl_base, int wl_depth,
+               const Carry* cs, void* stream) {
+  if (plan == nullptr || plan_rows < P * Z + 4 * P + 2 || T < 1 || B < 1 ||
+      !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
+      (cs != nullptr && !carry_ok(*cs, P, Z, K, false, wl_depth)))
+    return (int)cudaErrorInvalidValue;
+  Profiles pr{};
+  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
+  const PlanStream ps =
+      plan_batched ? PlanStream{plan, (size_t)plan_rows * (size_t)B,
+                                (size_t)B, 1}
+                   : PlanStream{plan, (size_t)plan_rows, 1, 0};
+  return (int)dispatch<kPlan>(exo, out, pr, ps, P, Z, K, T, B, rows,
+                              fault_base, wl_base,
+                              (uint32_t)(seed & 0xFFFFFFFFull),
+                              (uint32_t)(seed >> 32), stochastic != 0, cs,
+                              (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -248,25 +347,27 @@ extern "C" int ccka_rollout_profiles(const float* exo, float* out,
                                      unsigned long long seed, int stochastic,
                                      const float* carbon, int fault_base,
                                      int wl_base, int wl_depth, void* stream) {
-  if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1 ||
-      !lanes_ok(rows, fault_base, wl_base, wl_depth))
-    return (int)cudaErrorInvalidValue;
-  Profiles pr;
-  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
-  for (int j = 0; j < 2; ++j)
-    for (int i = 0; i < kMaxAct; ++i)
-      pr.act[j][i] = i < n_act ? actions[j * n_act + i] : 0.0f;
-  for (int i = 0; i < 3; ++i) pr.carbon[i] = carbon ? carbon[i] : 0.0f;
-  const uint32_t k0 = (uint32_t)(seed & 0xFFFFFFFFull);
-  const uint32_t k1 = (uint32_t)(seed >> 32);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const PlanStream none{nullptr, 0, 0, 0};
-  return (int)(carbon ? dispatch<kCarbon>(exo, out, pr, none, P, Z, K, T, B,
-                                          rows, fault_base, wl_base, k0, k1,
-                                          stochastic != 0, s)
-                      : dispatch<kRule>(exo, out, pr, none, P, Z, K, T, B,
-                                        rows, fault_base, wl_base, k0, k1,
-                                        stochastic != 0, s));
+  return profiles_entry(exo, out, params, actions, n_act, P, Z, K, T, B, rows,
+                        seed, stochastic, carbon, fault_base, wl_base,
+                        wl_depth, nullptr, stream);
+}
+
+// The CARRY instantiation: ticks [t0, t0 + T) of a longer rollout, exo the
+// block [>= T, rows, B] whose row 0 is global tick t0, from the carried
+// state state_in [state_rows, B] into state_out (another buffer of the
+// same shape); b0 the global index of cluster 0. The accumulators are
+// rows 0..20 of state_out; out is not written. The other arguments as for
+// ccka_rollout_profiles.
+extern "C" int ccka_rollout_profiles_carry(
+    const float* exo, const float* state_in, float* state_out,
+    int state_rows, const float* params, const float* actions, int n_act,
+    int P, int Z, int K, int T, int B, int rows, unsigned long long seed,
+    int stochastic, const float* carbon, int fault_base, int wl_base,
+    int wl_depth, int t0, int b0, void* stream) {
+  const Carry cs{state_in, state_out, state_rows, t0, b0};
+  return profiles_entry(exo, nullptr, params, actions, n_act, P, Z, K, T, B,
+                        rows, seed, stochastic, carbon, fault_base, wl_base,
+                        wl_depth, &cs, stream);
 }
 
 // plan: device float32, [T_pad >= T, plan_rows, B] per cluster
@@ -280,20 +381,24 @@ extern "C" int ccka_rollout_plan(const float* exo, float* out,
                                  unsigned long long seed, int stochastic,
                                  int fault_base, int wl_base, int wl_depth,
                                  void* stream) {
-  if (plan == nullptr || plan_rows < P * Z + 4 * P + 2 || T < 1 || B < 1 ||
-      !lanes_ok(rows, fault_base, wl_base, wl_depth))
-    return (int)cudaErrorInvalidValue;
-  Profiles pr{};
-  for (int i = 0; i < kParams; ++i) pr.p[i] = params[i];
-  const PlanStream ps =
-      plan_batched ? PlanStream{plan, (size_t)plan_rows * (size_t)B,
-                                (size_t)B, 1}
-                   : PlanStream{plan, (size_t)plan_rows, 1, 0};
-  return (int)dispatch<kPlan>(exo, out, pr, ps, P, Z, K, T, B, rows,
-                              fault_base, wl_base,
-                              (uint32_t)(seed & 0xFFFFFFFFull),
-                              (uint32_t)(seed >> 32), stochastic != 0,
-                              (cudaStream_t)stream);
+  return plan_entry(exo, out, params, plan, plan_rows, plan_batched, P, Z, K,
+                    T, B, rows, seed, stochastic, fault_base, wl_base,
+                    wl_depth, nullptr, stream);
+}
+
+// The plan's CARRY instantiation: plan row 0 is global tick t0 (the host
+// passes the plan from that row on); the rest as for
+// ccka_rollout_profiles_carry and ccka_rollout_plan.
+extern "C" int ccka_rollout_plan_carry(
+    const float* exo, const float* state_in, float* state_out,
+    int state_rows, const float* params, const float* plan, int plan_rows,
+    int plan_batched, int P, int Z, int K, int T, int B, int rows,
+    unsigned long long seed, int stochastic, int fault_base, int wl_base,
+    int wl_depth, int t0, int b0, void* stream) {
+  const Carry cs{state_in, state_out, state_rows, t0, b0};
+  return plan_entry(exo, nullptr, params, plan, plan_rows, plan_batched, P,
+                    Z, K, T, B, rows, seed, stochastic, fault_base, wl_base,
+                    wl_depth, &cs, stream);
 }
 
 // out: device [3, n_ticks, n_rows, n_clusters] float32.

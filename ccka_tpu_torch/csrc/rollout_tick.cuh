@@ -161,8 +161,8 @@ struct TickLanes {
 };
 
 // What a policy observes under a signal outage: while stale is set (after
-// tick 0) prices, carbon and demand are the held ones of the last tick
-// before the outage; is_peak follows the clock. Updates the held rows
+// global tick 0) prices, carbon and demand are the held ones of the last
+// tick before the outage; is_peak follows the clock. Updates the held rows
 // (sim/rollout.py::observed_exo and its carry).
 template <int Z>
 __device__ __forceinline__ TickExo<Z> observed(const TickExo<Z>& e,
@@ -258,6 +258,119 @@ struct Fleet {
       out[(size_t)r * B + b] = r < 21 ? vals[r] : 0.0f;
   }
 };
+
+// A CARRY launch: one time block of a longer rollout. The thread loads its
+// state from in[row][b] at the block's first tick and stores it to
+// out[row][b] after its last (rows: CarryRows; a population member m's
+// state starts m * rows rows further). t0 is the global tick of the
+// block's first row, b0 the global index of the launch's cluster 0: the
+// Philox counter and the clocks take (b0 + b, t0 + t).
+struct Carry {
+  const float* in;
+  float* out;
+  int rows, t0, b0;
+};
+
+// Rows of the carried state [rows][B], batch innermost
+// (ccka_tpu_torch/sim/rollout.py::CarryLayout): the 16 accumulators and
+// the 5 workload sums in the output block's order, nodes[P][Z][2],
+// pipe[K][P][Z][2], running[2], timer[P], then the held observation
+// (spot[Z], od[Z], carbon[Z], demand[2], is_peak) when HELD (a policy
+// that observes signals, under fault lanes) and the workload queues
+// (inference, batch[D], background) when WL_D > 0.
+template <int P, int Z, int K, bool HELD, int WL_D>
+struct CarryRows {
+  static constexpr int nodes = 21;
+  static constexpr int pipe = nodes + 2 * P * Z;
+  static constexpr int running = pipe + 2 * K * P * Z;
+  static constexpr int timer = running + 2;
+  static constexpr int held = timer + P;
+  static constexpr int queues = held + (HELD ? 3 * Z + 3 : 0);
+  static constexpr int used = queues + (WL_D > 0 ? WL_D + 2 : 0);
+};
+
+// f(row, value) on every register of the carried state, in CarryRows'
+// order: loads with f = read, stores with f = write.
+template <int P, int Z, int K, bool HELD, int WL_D, typename F>
+__device__ __forceinline__ void carry_fields(Fleet<P, Z, K>& s,
+                                             Queues<WL_D>& q,
+                                             TickExo<Z>& held, F f) {
+  using R = CarryRows<P, Z, K, HELD, WL_D>;
+  f(0, s.acc_cost);
+  f(1, s.acc_carbon);
+  f(2, s.acc_req);
+  f(3, s.acc_slo);
+  f(4, s.acc_evict);
+  f(5, s.nct_sum[0]);
+  f(6, s.nct_sum[1]);
+  f(7, s.served_sum);
+  f(8, s.capacity_sum);
+  f(9, s.waste_sum);
+  f(10, s.lat_sum);
+  f(11, s.lat_max);
+  f(12, s.queue_sum);
+  f(13, s.int_sum);
+  f(14, s.denied_sum);
+  f(15, s.stale_sum);
+#pragma unroll
+  for (int i = 0; i < 5; ++i) f(16 + i, q.sums[i]);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int z = 0; z < Z; ++z)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        f(R::nodes + (p * Z + z) * 2 + c, s.nodes[p][z][c]);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          f(R::pipe + ((k * P + p) * Z + z) * 2 + c, s.pipe[k][p][z][c]);
+      }
+  f(R::running, s.running[0]);
+  f(R::running + 1, s.running[1]);
+#pragma unroll
+  for (int p = 0; p < P; ++p) f(R::timer + p, s.timer[p]);
+  if constexpr (HELD) {
+#pragma unroll
+    for (int z = 0; z < Z; ++z) {
+      f(R::held + z, held.spot[z]);
+      f(R::held + Z + z, held.od[z]);
+      f(R::held + 2 * Z + z, held.carb[z]);
+    }
+    f(R::held + 3 * Z, held.demand[0]);
+    f(R::held + 3 * Z + 1, held.demand[1]);
+    f(R::held + 3 * Z + 2, held.is_peak);
+  }
+  if constexpr (WL_D > 0) {
+    f(R::queues, q.inf_q);
+#pragma unroll
+    for (int i = 0; i < WL_D; ++i) f(R::queues + 1 + i, q.batch[i]);
+    f(R::queues + WL_D + 1, q.bg_q);
+  }
+}
+
+template <int P, int Z, int K, bool HELD, int WL_D>
+__device__ __forceinline__ void load_carry(const float* __restrict__ in,
+                                           int B, int b, Fleet<P, Z, K>& s,
+                                           Queues<WL_D>& q,
+                                           TickExo<Z>& held) {
+  carry_fields<P, Z, K, HELD, WL_D>(
+      s, q, held, [&](int r, float& v) { v = in[(size_t)r * B + b]; });
+}
+
+template <int P, int Z, int K, bool HELD, int WL_D>
+__device__ __forceinline__ void store_carry(float* __restrict__ out, int B,
+                                            int b, Fleet<P, Z, K>& s,
+                                            Queues<WL_D>& q,
+                                            TickExo<Z>& held) {
+  carry_fields<P, Z, K, HELD, WL_D>(
+      s, q, held, [&](int r, float& v) { out[(size_t)r * B + b] = v; });
+}
+
+// Rows a CARRY instantiation uses, for the host's checks.
+inline int carry_rows_used(int P, int Z, int K, bool held, int wl_depth) {
+  return 21 + 2 * P * Z + 2 * K * P * Z + 2 + P + (held ? 3 * Z + 3 : 0) +
+         (wl_depth > 0 ? wl_depth + 2 : 0);
+}
 
 // Advance cluster b by global tick t under action a, on the tick's true
 // signals e and lanes l.

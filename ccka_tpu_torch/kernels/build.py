@@ -12,8 +12,10 @@ every module of the package without nvcc.
 
 The launch wrappers check device, dtype, shape and contiguity, launch on
 PyTorch's current stream, and raise if the C function returns a CUDA
-error. They allocate nothing: the caller passes the output tensor. Each
-counts its launches by instantiation in its ``launches`` Counter.
+error. They allocate nothing: the caller passes the output tensor (or,
+for a CARRY instantiation, the two state buffers of a :class:`BlockCarry`).
+Each counts its launches by instantiation in its ``launches`` Counter
+("<FAULTS,CARRY>" and the like: :func:`instantiation`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import tempfile
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,10 +57,19 @@ _SIGNATURES = {
         "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
         "ccka_rollout_plan": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                               _I, _I, _ULL, _I, _I, _I, _I, _VP),
+        "ccka_rollout_profiles_carry": (_VP, _VP, _VP, _I, _VP, _VP, _I, _I,
+                                        _I, _I, _I, _I, _I, _ULL, _I, _VP,
+                                        _I, _I, _I, _I, _I, _VP),
+        "ccka_rollout_plan_carry": (_VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _ULL, _I, _I, _I, _I,
+                                    _I, _I, _VP),
     },
     "rollout_mlp.cu": {
         "ccka_rollout_mlp": (_VP,) * 11 + (_I,) * 10 + (_ULL, _I, _I, _I,
                                                          _I, _VP),
+        "ccka_rollout_mlp_carry": (_VP, _VP, _VP, _I) + (_VP,) * 9
+                                  + (_I,) * 10 + (_ULL,) + (_I,) * 6
+                                  + (_VP,),
     },
 }
 
@@ -162,31 +174,77 @@ def _require_cuda_f32(t: torch.Tensor, name: str) -> None:
                          f"(contiguous={t.is_contiguous()})")
 
 
-def _check_stream(exo: torch.Tensor, out: torch.Tensor, out_shape: tuple,
-                  T: int) -> None:
+class BlockCarry(NamedTuple):
+    """The carried state of a CARRY launch: ``state_in`` at the block's
+    first tick, ``state_out`` (another buffer of the same shape) after its
+    last, both [rows, B] (the MLP's [NP, rows, B]) float32 on the
+    stream's device; ``t0`` the global tick of the stream block's first
+    row, ``b0`` the global index of the launch's first cluster."""
+
+    state_in: torch.Tensor
+    state_out: torch.Tensor
+    t0: int
+    b0: int = 0
+
+
+def _check_stream(exo: torch.Tensor, out: torch.Tensor | None,
+                  out_shape: tuple, T: int,
+                  carry: BlockCarry | None = None) -> None:
+    """The stream, and the output block (or with ``carry`` the carried
+    state, whose row count the C entry checks against the
+    instantiation's)."""
     _require_cuda_f32(exo, "exo")
-    _require_cuda_f32(out, "out")
-    if tuple(out.shape) != out_shape or out.device != exo.device:
-        raise ValueError(f"out must be {list(out_shape)} on {exo.device}")
+    if carry is None:
+        _require_cuda_f32(out, "out")
+        if tuple(out.shape) != out_shape or out.device != exo.device:
+            raise ValueError(f"out must be {list(out_shape)} on "
+                             f"{exo.device}")
+    else:
+        si, so = carry.state_in, carry.state_out
+        _require_cuda_f32(si, "state_in")
+        _require_cuda_f32(so, "state_out")
+        want = out_shape[:-2] + (si.shape[-2], out_shape[-1])
+        if (tuple(si.shape) != want or tuple(so.shape) != want
+                or si.device != exo.device or so.device != exo.device):
+            raise ValueError(f"state_in and state_out must both be "
+                             f"[{', '.join(map(str, out_shape[:-2]))}"
+                             f"{', ' if out_shape[:-2] else ''}rows, "
+                             f"{out_shape[-1]}] on {exo.device}, got "
+                             f"{list(si.shape)} and {list(so.shape)}")
+        if si.data_ptr() == so.data_ptr():
+            raise ValueError("state_out must be another buffer than "
+                             "state_in")
+        if carry.t0 < 0 or carry.b0 < 0:
+            raise ValueError(f"t0={carry.t0} and b0={carry.b0} must be "
+                             "non-negative")
     if T > exo.shape[0]:
         raise ValueError(f"T={T} exceeds the stream's {exo.shape[0]} ticks")
 
 
-def launch_rollout_profiles(out: torch.Tensor, exo: torch.Tensor,
+def _carry_args(carry: BlockCarry) -> tuple:
+    """The C entries' (state_in, state_out, state_rows) arguments."""
+    return (carry.state_in.data_ptr(), carry.state_out.data_ptr(),
+            carry.state_in.shape[-2])
+
+
+def launch_rollout_profiles(out: torch.Tensor | None, exo: torch.Tensor,
                             params: np.ndarray, actions: np.ndarray, *,
                             P: int, Z: int, K: int, T: int, seed: int,
                             stochastic: bool,
                             carbon: tuple | None = None,
                             fault_base: int = -1, wl_base: int = -1,
-                            wl_depth: int = 0) -> None:
+                            wl_depth: int = 0,
+                            carry: BlockCarry | None = None) -> None:
     """Launch the rule-profile rollout kernel: ``exo`` [T_pad, rows, B],
     ``out`` [24, B] on one CUDA device; ``params`` [22] and ``actions``
     [2, n_act] host float32. ``carbon`` = (sharpness, min_weight,
     stickiness) launches its carbon-aware instantiation; ``fault_base``
     and ``wl_base`` (first rows of the stream's fault and workload blocks,
-    -1 when absent) and ``wl_depth`` pick the lane variant."""
+    -1 when absent) and ``wl_depth`` pick the lane variant. ``carry``
+    launches the CARRY instantiation: ``T`` ticks of a longer rollout
+    from ``carry.state_in`` into ``carry.state_out`` (``out`` unused)."""
     _, rows, B = exo.shape
-    _check_stream(exo, out, (24, B), T)
+    _check_stream(exo, out, (24, B), T, carry)
     params = np.ascontiguousarray(params, np.float32)
     actions = np.ascontiguousarray(actions, np.float32)
     if params.shape != (22,) or actions.ndim != 2 or actions.shape[0] != 2:
@@ -197,45 +255,57 @@ def launch_rollout_profiles(out: torch.Tensor, exo: torch.Tensor,
             raise ValueError("carbon must be (sharpness, min_weight, "
                              "stickiness)")
     lib = library("rollout_profiles.cu", fault_base >= 0, wl_depth)
-    err = lib.ccka_rollout_profiles(
-        exo.data_ptr(), out.data_ptr(), params.ctypes.data,
-        actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
-        int(seed), int(stochastic),
-        None if carbon is None else carbon.ctypes.data, int(fault_base),
-        int(wl_base), int(wl_depth), _stream(exo))
+    tail = (None if carbon is None else carbon.ctypes.data, int(fault_base),
+            int(wl_base), int(wl_depth))
+    if carry is None:
+        err = lib.ccka_rollout_profiles(
+            exo.data_ptr(), out.data_ptr(), params.ctypes.data,
+            actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
+            int(seed), int(stochastic), *tail, _stream(exo))
+    else:
+        err = lib.ccka_rollout_profiles_carry(
+            exo.data_ptr(), *_carry_args(carry), params.ctypes.data,
+            actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
+            int(seed), int(stochastic), *tail, int(carry.t0),
+            int(carry.b0), _stream(exo))
     _check(err, f"rollout_profiles (P={P}, Z={Z}, K={K}, "
                 f"carbon={carbon is not None}, fault_base={fault_base}, "
-                f"wl_base={wl_base}, D={wl_depth})")
+                f"wl_base={wl_base}, D={wl_depth}, "
+                f"carry={carry is not None})")
     launch_rollout_profiles.launches[
         instantiation("carbon" if carbon is not None else "rule",
-                      fault_base >= 0, wl_depth)] += 1
+                      fault_base >= 0, wl_depth, carry is not None)] += 1
 
 
-def instantiation(policy: str, faults: bool, wl_depth: int) -> str:
+def instantiation(policy: str, faults: bool, wl_depth: int,
+                  carry: bool = False) -> str:
     """The template flags of a rollout kernel instantiation, as a name
     suffix: "" for the rule (or the MLP) on the plain stream, else e.g.
-    "<CARBON,FAULTS,WL_D=16>" or "<PLAN>"."""
+    "<CARBON,FAULTS,WL_D=16>", "<PLAN>" or "<FAULTS,CARRY>"."""
     flags = [f for f, on in (("CARBON", policy == "carbon"),
                              ("PLAN", policy == "plan"), ("FAULTS", faults),
-                             (f"WL_D={wl_depth}", wl_depth)) if on]
+                             (f"WL_D={wl_depth}", wl_depth),
+                             ("CARRY", carry)) if on]
     return f"<{','.join(flags)}>" if flags else ""
 
 
 launch_rollout_profiles.launches = Counter()
 
 
-def launch_rollout_plan(out: torch.Tensor, exo: torch.Tensor,
+def launch_rollout_plan(out: torch.Tensor | None, exo: torch.Tensor,
                         params: np.ndarray, plan: torch.Tensor, *, P: int,
                         Z: int, K: int, T: int, seed: int, stochastic: bool,
                         fault_base: int = -1, wl_base: int = -1,
-                        wl_depth: int = 0) -> None:
+                        wl_depth: int = 0,
+                        carry: BlockCarry | None = None) -> None:
     """Launch the plan-playback instantiation of the profile kernel:
     ``plan`` [T_pad, plan_rows, B] (one plan per cluster) or
     [T_pad, plan_rows] (one plan for every cluster), contiguous float32 on
-    the stream's device with T_pad the stream's; the rest as for
+    the stream's device with T_pad the stream's (with ``carry``: the plan
+    from the block's first tick on, the block's ticks); the rest as for
     :func:`launch_rollout_profiles`."""
     T_pad, rows, B = exo.shape
-    _check_stream(exo, out, (24, B), T)
+    _check_stream(exo, out, (24, B), T, carry)
     _require_cuda_f32(plan, "plan")
     batched = plan.dim() == 3
     if (plan.device != exo.device or plan.dim() not in (2, 3)
@@ -246,38 +316,46 @@ def launch_rollout_plan(out: torch.Tensor, exo: torch.Tensor,
     if params.shape != (22,):
         raise ValueError("params must be [22]")
     lib = library("rollout_profiles.cu", fault_base >= 0, wl_depth)
-    err = lib.ccka_rollout_plan(
-        exo.data_ptr(), out.data_ptr(), params.ctypes.data, plan.data_ptr(),
-        plan.shape[1], int(batched), P, Z, K, T, B, rows, int(seed),
-        int(stochastic), int(fault_base), int(wl_base), int(wl_depth),
-        _stream(exo))
+    args = (params.ctypes.data, plan.data_ptr(), plan.shape[1],
+            int(batched), P, Z, K, T, B, rows, int(seed), int(stochastic),
+            int(fault_base), int(wl_base), int(wl_depth))
+    if carry is None:
+        err = lib.ccka_rollout_plan(exo.data_ptr(), out.data_ptr(), *args,
+                                    _stream(exo))
+    else:
+        err = lib.ccka_rollout_plan_carry(
+            exo.data_ptr(), *_carry_args(carry), *args, int(carry.t0),
+            int(carry.b0), _stream(exo))
     _check(err, f"rollout_plan (P={P}, Z={Z}, K={K}, plan "
                 f"{list(plan.shape)}, fault_base={fault_base}, "
-                f"wl_base={wl_base}, D={wl_depth})")
+                f"wl_base={wl_base}, D={wl_depth}, "
+                f"carry={carry is not None})")
     launch_rollout_plan.launches[
-        instantiation("plan", fault_base >= 0, wl_depth)] += 1
+        instantiation("plan", fault_base >= 0, wl_depth,
+                      carry is not None)] += 1
 
 
 launch_rollout_plan.launches = Counter()
 
 
-def launch_rollout_mlp(out: torch.Tensor, exo: torch.Tensor,
+def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
                        params: np.ndarray, slo: np.ndarray,
                        codec: np.ndarray, weights: tuple, *, P: int, Z: int,
                        K: int, T: int, seed: int, stochastic: bool,
                        fault_base: int = -1, wl_base: int = -1,
-                       wl_depth: int = 0) -> None:
+                       wl_depth: int = 0,
+                       carry: BlockCarry | None = None) -> None:
     """Launch the learned-policy rollout kernel: ``exo`` [T_pad, rows, B],
     ``out`` [NP, 24, B]; ``weights`` = (w1 [NP, F, H], b1 [NP, H],
     w2 [NP, H, H], b2 [NP, H]) bfloat16 and (w3 [NP, H, A], b3 [NP, A])
     float32, contiguous on the stream's device; ``params`` [22], ``slo``
-    [P] and ``codec`` [4] host float32; the lanes as for
-    :func:`launch_rollout_profiles`."""
+    [P] and ``codec`` [4] host float32; the lanes and ``carry`` (states
+    [NP, rows, B]) as for :func:`launch_rollout_profiles`."""
     _, rows, B = exo.shape
     w1, b1, w2, b2, w3, b3 = weights
     NP, F, H = w1.shape
     A = w3.shape[-1]
-    _check_stream(exo, out, (NP, 24, B), T)
+    _check_stream(exo, out, (NP, 24, B), T, carry)
     want = {"w1": (w1, (NP, F, H), torch.bfloat16),
             "b1": (b1, (NP, H), torch.bfloat16),
             "w2": (w2, (NP, H, H), torch.bfloat16),
@@ -296,15 +374,23 @@ def launch_rollout_mlp(out: torch.Tensor, exo: torch.Tensor,
     if params.shape != (22,) or slo.shape != (P,) or codec.shape != (4,):
         raise ValueError("params must be [22], slo [P] and codec [4]")
     lib = library("rollout_mlp.cu", fault_base >= 0, wl_depth)
-    err = lib.ccka_rollout_mlp(
-        exo.data_ptr(), out.data_ptr(), params.ctypes.data, slo.ctypes.data,
-        codec.ctypes.data, *(t.data_ptr() for t in weights), NP, F, H, A,
-        P, Z, K, T, B, rows, int(seed), int(stochastic), int(fault_base),
-        int(wl_base), int(wl_depth), _stream(exo))
+    args = (params.ctypes.data, slo.ctypes.data, codec.ctypes.data,
+            *(t.data_ptr() for t in weights), NP, F, H, A, P, Z, K, T, B,
+            rows, int(seed), int(stochastic), int(fault_base), int(wl_base),
+            int(wl_depth))
+    if carry is None:
+        err = lib.ccka_rollout_mlp(exo.data_ptr(), out.data_ptr(), *args,
+                                   _stream(exo))
+    else:
+        err = lib.ccka_rollout_mlp_carry(
+            exo.data_ptr(), *_carry_args(carry), *args, int(carry.t0),
+            int(carry.b0), _stream(exo))
     _check(err, f"rollout_mlp (P={P}, Z={Z}, K={K}, F={F}, H={H}, A={A}, "
-                f"fault_base={fault_base}, wl_base={wl_base}, D={wl_depth})")
+                f"fault_base={fault_base}, wl_base={wl_base}, D={wl_depth}, "
+                f"carry={carry is not None})")
     launch_rollout_mlp.launches[
-        instantiation("mlp", fault_base >= 0, wl_depth)] += 1
+        instantiation("mlp", fault_base >= 0, wl_depth,
+                      carry is not None)] += 1
 
 
 launch_rollout_mlp.launches = Counter()

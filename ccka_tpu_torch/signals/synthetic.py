@@ -1,6 +1,6 @@
 """Synthetic signal backend: diurnal price/carbon + bursty demand.
 
-The PyTorch form of `ccka_tpu/signals/synthetic.py`. Three generators:
+The PyTorch form of `ccka_tpu/signals/synthetic.py`. Four generators:
 
 - :meth:`batch_trace` draws its AR(1) noise on the host with numpy's
   per-seed streams, exactly as the JAX package's ``batch_trace`` does, so
@@ -12,9 +12,13 @@ The PyTorch form of `ccka_tpu/signals/synthetic.py`. Three generators:
   workload lane blocks of the source's ``faults=`` and ``workloads=``
   configs appended. Each lane family draws from its own generator,
   seeded from (seed, the family's tag), so widening a stream leaves its
-  exo rows bitwise those of the plain stream on the same seed.
+  exo rows bitwise those of the plain stream on the same seed;
+- :meth:`packed_block_trace_device` synthesizes one time block of such a
+  stream at its global tick, from the block's own seed
+  (:func:`block_seed`): the streaming pipeline's unit
+  (`sim/streaming.py`).
 
-The first two share :meth:`SyntheticSignalSource._assemble`, the third
+The first two share :meth:`SyntheticSignalSource._assemble`, the last two
 :meth:`SyntheticSignalSource._assemble_packed` (the same formulas).
 """
 
@@ -113,42 +117,65 @@ class SyntheticSignalSource(SignalSource):
         """``seed -> [T_pad, packed_rows(), B]`` stream synthesis on
         ``device``: the exo rows from the generator seeded by ``seed``
         alone, each lane block from its family's own generator."""
-        from ccka_tpu_torch.faults.process import packed_fault_lanes
-        from ccka_tpu_torch.workloads.process import packed_workload_lanes
-
         dev = resolve_device(device)
         t_pad = steps if t_pad is None else int(t_pad)
         if t_pad < steps:
             raise ValueError(f"t_pad={t_pad} < steps={steps}")
-        z = self.cluster.n_zones
 
         def generate(seed: int) -> torch.Tensor:
-            g = family_generator(seed, None, dev)
-            noise = (_ar1_scan(g, (steps, z, batch), *_AR1_SPOT),
-                     _ar1_scan(g, (steps, z, batch), *_AR1_CARBON),
-                     _ar1_scan(g, (steps, batch), *_AR1_DEMAND))
-            out = torch.zeros((t_pad, self.packed_rows(), batch),
-                              dtype=torch.float32, device=dev)
-            base = lanes.exo_rows(z)
-            out[:, :base] = self._assemble_packed(steps, t_pad, noise)
-            if self.faults is not None:
-                hi = base + lanes.fault_rows(z)
-                out[:, base:hi] = packed_fault_lanes(
-                    self.faults, family_generator(
-                        seed, lanes.FAULT_KEY_TAG, dev),
-                    steps, t_pad, z, batch, price_dev=noise[0])
-                base = hi
-            del noise
-            if self.workloads is not None:
-                out[:, base:base + lanes.workload_rows(z)] = \
-                    packed_workload_lanes(
-                        self.workloads, family_generator(
-                            seed, lanes.WORKLOAD_KEY_TAG, dev),
-                        steps, t_pad, z, batch, dt_s=self.sim.dt_s,
-                        start_unix_s=self.start_unix_s)
-            return out
+            return self._synthesize(int(seed), steps, t_pad, batch, dev)
 
         return generate
+
+    def _synthesize(self, seed: int, steps: int, t_pad: int, batch: int,
+                    dev, *, t0_ticks: int | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+        """One packed stream from ``seed``: the exo noise from
+        ``family_generator(seed, None)``, each lane block from its
+        family's generator. ``t0_ticks`` puts the first row at that
+        global tick (the diurnal, peak and workload clocks); ``out``
+        (``[t_pad, packed_rows(), B]``, float32 on ``dev``) is written in
+        place of a new tensor, every element of it."""
+        from ccka_tpu_torch.faults.process import packed_fault_lanes
+        from ccka_tpu_torch.workloads.process import packed_workload_lanes
+
+        z = self.cluster.n_zones
+        shape = (t_pad, self.packed_rows(), batch)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+        elif (tuple(out.shape) != shape or out.dtype != torch.float32
+              or out.device.type != torch.device(dev).type
+              or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous float32 tensor "
+                             f"{list(shape)} on {dev}, got {out.dtype} "
+                             f"{list(out.shape)} on {out.device}")
+        g = family_generator(seed, None, dev)
+        noise = (_ar1_scan(g, (steps, z, batch), *_AR1_SPOT),
+                 _ar1_scan(g, (steps, z, batch), *_AR1_CARBON),
+                 _ar1_scan(g, (steps, batch), *_AR1_DEMAND))
+        base = lanes.exo_rows(z)
+        out[:, :base] = self._assemble_packed(steps, t_pad, noise,
+                                              t0_ticks=t0_ticks)
+        if self.faults is not None:
+            hi = base + lanes.fault_rows(z)
+            out[:, base:hi] = packed_fault_lanes(
+                self.faults, family_generator(seed, lanes.FAULT_KEY_TAG,
+                                              dev),
+                steps, t_pad, z, batch, price_dev=noise[0])
+            base = hi
+        del noise
+        if self.workloads is not None:
+            offset = None
+            if t0_ticks is not None:
+                offset = np.full(batch, np.float32(t0_ticks)
+                                 * np.float32(self.sim.dt_s), np.float32)
+            out[:, base:base + lanes.workload_rows(z)] = \
+                packed_workload_lanes(
+                    self.workloads, family_generator(
+                        seed, lanes.WORKLOAD_KEY_TAG, dev),
+                    steps, t_pad, z, batch, dt_s=self.sim.dt_s,
+                    start_unix_s=self.start_unix_s, start_offset_s=offset)
+        return out
 
     def packed_trace_device(self, steps: int, seed: int, batch: int, *,
                             t_pad: int | None = None,
@@ -164,17 +191,78 @@ class SyntheticSignalSource(SignalSource):
         return self.packed_generate_fn(steps, batch, t_pad=t_pad,
                                        device=device)(int(seed))
 
-    def _assemble_packed(self, steps: int, t_pad: int,
-                         noise: tuple) -> torch.Tensor:
+    def packed_block_generate_fn(self, block_T: int, batch: int, *,
+                                 t_chunk: int = 64, device=None):
+        """``(block_seed, t0_ticks, out=None) -> [block_T, packed_rows(),
+        B]``: the streaming pipeline's unit of synthesis
+        (`sim/streaming.py`). ``block_seed`` is one block's seed
+        (:func:`block_seed`); ``t0_ticks`` the global tick of its first
+        row, so the diurnal, peak and workload clocks run on the same
+        wall clock as an unblocked stream's.
+
+        Each block is an independent segment of the same generative
+        family: the AR(1) latents restart from their stationary draw at
+        every block, so a blocked stream is another random stream than an
+        unblocked one on the same seed, with the same marginals (use one
+        or the other within an experiment). Each lane family draws from
+        the block's seed under its own tag, so widening a blocked stream
+        leaves its exo and fault rows bitwise the same."""
+        lanes.block_layout(block_T, block_T, t_chunk)  # divisibility
+        dev = resolve_device(device)
+
+        def generate(seed: int, t0_ticks: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+            return self._synthesize(int(seed), block_T, block_T, batch, dev,
+                                    t0_ticks=int(t0_ticks), out=out)
+
+        return generate
+
+    def packed_block_trace_device(self, block_T: int, seed: int, batch: int,
+                                  block_index: int, *,
+                                  shard: int | None = None,
+                                  out: torch.Tensor | None = None,
+                                  t_chunk: int = 64,
+                                  device=None) -> torch.Tensor:
+        """Block ``block_index`` (``[block_T, packed_rows(), B]``) of the
+        blocked stream family of ``seed``, starting at global tick
+        ``block_index * block_T``; ``shard`` (a cluster chunk's index)
+        gives chunk ``shard`` its own world. ``out`` takes a dead block
+        buffer of the same shape and writes the block into it (the port's
+        counterpart of JAX's ``recycle=`` donation): a block loop then
+        allocates no stream after its first two blocks."""
+        if out is not None and device is None:
+            device = out.device
+        return self.packed_block_generate_fn(
+            block_T, batch, t_chunk=t_chunk, device=device)(
+            block_seed(seed, block_index, shard), block_index * block_T,
+            out=out)
+
+    def _assemble_packed(self, steps: int, t_pad: int, noise: tuple,
+                         t0_ticks: int | None = None) -> torch.Tensor:
         """The :meth:`_assemble` formulas, time-major: noise (spot
         [T, Z, B], carbon [T, Z, B], demand [T, B]) -> the exo block
-        [T_pad, exo_rows(Z), B] (zero padding)."""
+        [T_pad, exo_rows(Z), B] (zero padding).
+
+        ``t0_ticks``: the global tick of the first row (a block of a
+        blocked stream). The clock then runs in float32 from the day
+        fraction of ``start_unix_s``, reduced in float64 on the host, as
+        the JAX package's block synthesis computes it; ``None`` keeps the
+        float64 host clock of an unblocked stream."""
         spot_noise, carbon_noise, demand_noise = noise
         dev = spot_noise.device
         B = demand_noise.shape[-1]
-        t = self.start_unix_s + np.arange(steps) * self.sim.dt_s  # [T] f64
-        tod = torch.as_tensor(((t % _DAY_S) / _DAY_S).astype(np.float32),
-                              device=dev)                         # [T]
+        if t0_ticks is None:
+            t = self.start_unix_s + np.arange(steps) * self.sim.dt_s
+            tod = torch.as_tensor(((t % _DAY_S) / _DAY_S).astype(np.float32),
+                                  device=dev)                     # [T]
+        else:
+            day = float(np.float32(_DAY_S))
+            ticks = (torch.arange(steps, dtype=torch.float32, device=dev)
+                     + float(np.float32(t0_ticks)))
+            tod = torch.remainder(
+                float(np.float32(self.start_unix_s % _DAY_S))
+                + torch.remainder(ticks * float(np.float32(self.sim.dt_s)),
+                                  day), day) / day
         tod_zb = tod[:, None, None]
         nt = self.cluster.node_type
         zp = {k: torch.as_tensor(v, device=dev)[None, :, None]
@@ -354,6 +442,17 @@ def family_generator(seed: int, tag: int | None, device) -> torch.Generator:
     words = [int(seed)] if tag is None else [int(seed), int(tag)]
     mixed = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def block_seed(seed: int, block_index: int, shard: int | None = None) -> int:
+    """The seed of block ``block_index`` of a blocked stream of ``seed``
+    (and of cluster chunk ``shard``): (``seed``, ``BLOCK_KEY_TAG``, the
+    block[, the chunk]) mixed as :func:`family_generator` mixes a family,
+    so blocks, chunks and lane families never share draws."""
+    words = [int(seed), lanes.BLOCK_KEY_TAG, int(block_index)]
+    if shard is not None:
+        words.append(int(shard))
+    return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
 
 
 def _ar1_scan(generator: torch.Generator, shape, rho: float,

@@ -131,3 +131,55 @@ def workload_base(rows: int, Z: int) -> int:
     if not lay.has("workloads"):
         raise ValueError("stream carries no workload lanes")
     return lay.block("workloads")[0]
+
+
+# ---- time-axis blocks and cluster-axis chunks (sim/streaming.py) ----------
+#
+# The streaming rollout splits the packed stream's time axis into fixed
+# blocks (synthesis of block k+1 overlaps the kernel on block k) and a
+# fleet's cluster axis into equal chunks. The port's kernels have no time
+# chunk: ``t_chunk`` is kept in these signatures so that the port accepts
+# and refuses exactly the splits the JAX package does.
+
+BLOCK_KEY_TAG = 0x5B10C  # the per-block seed tag of block synthesis
+
+
+def block_layout(T: int, block_T: int, t_chunk: int) -> tuple[int, int]:
+    """``(n_blocks, T_pad)`` of a time-blocked stream covering ``T`` true
+    ticks in fixed ``block_T``-tick blocks of ``t_chunk``-tick chunks.
+    Rejects a block that is not a whole number of chunks, and a padded
+    horizon that is not a whole number of blocks (the double buffer holds
+    two blocks of one shape)."""
+    if block_T <= 0 or t_chunk <= 0:
+        raise ValueError(f"block_T={block_T} / t_chunk={t_chunk} must "
+                         "be positive")
+    if block_T % t_chunk:
+        raise ValueError(
+            f"block_T={block_T} is not a t_chunk={t_chunk} multiple — "
+            "the kernel grid advances whole time chunks")
+    T_pad = math.ceil(T / t_chunk) * t_chunk
+    if T_pad % block_T:
+        raise ValueError(
+            f"block_T={block_T} does not divide the padded horizon "
+            f"T_pad={T_pad} (T={T}, t_chunk={t_chunk}) — streaming "
+            "blocks must tile the horizon exactly")
+    return T_pad // block_T, T_pad
+
+
+def chunk_layout(batch: int, chunk: int) -> int:
+    """Number of cluster-axis chunks of ``chunk`` clusters in a
+    ``batch``-wide fleet. Rejects a chunk that does not divide the batch:
+    a ragged last chunk would be another launch geometry."""
+    if chunk <= 0:
+        raise ValueError(f"cluster chunk={chunk} must be positive")
+    if batch % chunk:
+        raise ValueError(
+            f"cluster chunk={chunk} does not divide batch={batch} — "
+            "cluster-axis chunking needs equal-width chunks")
+    return batch // chunk
+
+
+def block_bytes(block_T: int, rows: int, batch: int) -> int:
+    """float32 bytes of one stream block, the unit of the streaming
+    pipeline's memory bound (two blocks live)."""
+    return 4 * block_T * rows * batch

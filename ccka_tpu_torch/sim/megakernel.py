@@ -36,9 +36,16 @@ plain version threads the unpacked lanes through the rollout
 (`faults/process.py::unpack_fault_lanes`,
 `workloads/process.py::unpack_workload_lanes`).
 
+Carried state: :func:`packed_mode_block_summary_fn` runs a rollout one
+time block at a time (the kernels' CARRY instantiations), the state that
+crosses a block boundary packed as `sim/rollout.py::CarryLayout` rows:
+the streaming pipeline's unit (`sim/streaming.py`).
+
 Device rule: a stream on a CUDA device launches the kernel (or raises); a
 stream on the CPU runs the plain version. Each ``*_summary_from_packed``
-entry counts its kernel launches in its ``launches`` attribute.
+entry counts its kernel launches in its ``launches`` attribute; the
+launch wrappers of `kernels/build.py` count every launch by
+instantiation.
 
 As in the JAX package, workload class c consumes capacity type c
 (``SimParams.class_ct`` is the identity by construction).
@@ -47,6 +54,7 @@ As in the JAX package, workload class c consumes capacity type c
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -398,25 +406,28 @@ def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic,
                                    workloads=workloads)[1]
 
 
-def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None,
-                   faults=None, workloads=None):
-    """The profile kernel's plain version: the rule-policy rollout from
-    fresh clusters, or with ``carbon`` the CarbonAwarePolicy's zone
-    weights over the same two profiles."""
+def _profile_action_fn(off, peak, carbon):
+    """The profile kernel's policy as an ``action_fn``: the rule's select
+    of two profiles on is_peak, or with ``carbon`` = (sharpness,
+    min_weight, stickiness) the CarbonAwarePolicy's zone weights over the
+    same two profiles."""
     from ccka_tpu_torch.policy.carbon import carbon_aware_action
     from ccka_tpu_torch.policy.rule import select_profile
 
-    def rule(s, e, t):
-        return select_profile(e.is_peak, off, peak)
+    if carbon is None:
+        return lambda s, e, t: select_profile(e.is_peak, off, peak)
+    return lambda s, e, t: carbon_aware_action(
+        off, peak, s, e, sharpness=carbon[0], min_weight=carbon[1],
+        stickiness=carbon[2])
 
-    def carbon_aware(s, e, t):
-        return carbon_aware_action(off, peak, s, e, sharpness=carbon[0],
-                                   min_weight=carbon[1], stickiness=carbon[2])
 
+def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None,
+                   faults=None, workloads=None):
+    """The profile kernel's plain version: the rule-policy rollout from
+    fresh clusters, or with ``carbon`` the CarbonAwarePolicy's."""
     P, Z = off.zone_weight.shape
-    return _plain_rollout(params, P, Z, rule if carbon is None
-                          else carbon_aware, traces, seed, stochastic,
-                          faults, workloads)
+    return _plain_rollout(params, P, Z, _profile_action_fn(off, peak, carbon),
+                          traces, seed, stochastic, faults, workloads)
 
 
 # ---------------------------------------------------------------------------
@@ -786,3 +797,298 @@ def plan_action_fn(plan: Action, per_cluster: bool):
     if per_cluster:
         return lambda s, e, t: Action(*(x[:, t] for x in plan))
     return lambda s, e, t: Action(*(x[t] for x in plan))
+
+
+# ---------------------------------------------------------------------------
+# Carried state: one time block of a longer rollout (the CARRY
+# instantiations), for the streaming pipeline (`sim/streaming.py`).
+
+BLOCK_MODES = ("rule", "carbon", "neural", "plan")
+# CarbonAwarePolicy's constants, the carbon mode's default.
+_CARBON_DEFAULTS = (10.0, 0.05, 1.0)
+
+
+class BlockSummaryFns(NamedTuple):
+    """A rollout resumable across time blocks
+    (:func:`packed_mode_block_summary_fn`)."""
+
+    step: object
+    init_state: object
+    finalize: object
+    n_blocks: int
+    T_pad: int
+    plain_step: object
+
+
+def _carry_layout(params: SimParams, cluster: ClusterConfig, mode: str,
+                  stream_rows: int):
+    """The carried state's layout for ``mode`` on a stream of
+    ``stream_rows`` rows: a policy that observes signals (carbon, neural)
+    carries its held observation under fault lanes, and workload lanes
+    carry the queues."""
+    from ccka_tpu_torch.sim.lanes import stream_layout
+    from ccka_tpu_torch.sim.rollout import CarryLayout
+
+    if mode not in BLOCK_MODES:
+        raise ValueError(f"unknown packed mode {mode!r} — have "
+                         f"{BLOCK_MODES}")
+    P, Z = cluster.n_pools, cluster.n_zones
+    faults, wl = stream_layout(stream_rows, Z)
+    return CarryLayout(P, Z, int(params.provision_pipeline_k),
+                       held=faults and mode in ("carbon", "neural"),
+                       wl_depth=int(params.wl_batch_deadline_ticks)
+                       if wl else 0)
+
+
+def block_state_rows(params: SimParams, cluster: ClusterConfig, mode: str,
+                     stream_rows: int) -> int:
+    """Rows of the carried state for ``mode`` on a stream with
+    ``stream_rows`` rows (`sim/rollout.py::CarryLayout`, padded to a
+    multiple of 8): the lanes the stream carries decide the layout."""
+    return _carry_layout(params, cluster, mode, stream_rows).rows
+
+
+def init_block_state(params: SimParams, cluster: ClusterConfig, mode: str,
+                     stream_rows: int, batch: int, *,
+                     n_pop: int | None = None,
+                     device=None) -> torch.Tensor:
+    """The carried state of fresh clusters (all zeros: what the non-carry
+    kernels start from): ``[rows, B]``, or ``[NP, rows, B]`` for the
+    population ("neural") kernel."""
+    rows = block_state_rows(params, cluster, mode, stream_rows)
+    shape = (rows, batch) if n_pop is None else (n_pop, rows, batch)
+    return torch.zeros(shape, dtype=torch.float32,
+                       device=resolve_device(device))
+
+
+def packed_mode_block_summary_fn(params: SimParams, cluster: ClusterConfig,
+                                 mode: str, *, T: int, block_T: int,
+                                 t_chunk: int = 64, stochastic: bool = True,
+                                 net_params=None, plan_packed=None
+                                 ) -> BlockSummaryFns:
+    """The carried-state closures of ``mode`` ("rule", "carbon",
+    "neural", "plan") for a rollout of ``T`` ticks in ``block_T``-tick
+    blocks (`sim/lanes.py::block_layout`):
+
+    - ``step(stream_block, state, j, seed, *, state_out, cluster0=0) ->
+      (out, state_out)`` runs block ``j`` ([block_T, rows, B], global
+      ticks ``j * block_T`` on, the ticks before ``T``) from the carried
+      ``state`` and writes the state after it into ``state_out``, a
+      buffer of the caller's of the same shape (a drive alternates two).
+      On a CUDA stream it launches the CARRY instantiation of the mode's
+      kernel; on a CPU stream it runs the kernel's plain version,
+      `sim/rollout.py::resume_rollout_summary`, between `unpack_carry`
+      and `pack_carry`. ``out`` is a view of the accumulator rows of
+      ``state_out``, meaningful after the last block. ``cluster0`` is the
+      global index of the block's first cluster (a chunk of a larger
+      fleet).
+    - ``plain_step``: ``step`` with the plain version on any device (the
+      CARRY kernels' oracle on the card; nothing on the streaming path
+      calls it there).
+    - ``init_state(stream_rows, batch, device=None)``: the fresh carried
+      state for the stream's lanes.
+    - ``finalize(out)``: the EpisodeSummary batch (`_finalize` with the
+      global ``T``; fields [NP, B] for a population, [B] for one net).
+
+    Blocked equals unblocked bitwise: the same tick arithmetic, the
+    global tick and the global cluster in the Philox counter and the
+    clocks, and a state that crosses blocks as float32 rows. The JAX
+    package's ``block_chunk_seed`` has no counterpart: the port's Philox
+    stream is addressed by the global tick and cluster, so no seed
+    arithmetic is needed.
+
+    ``params`` lies on the streams' device. ``plan_packed`` (mode "plan"):
+    the whole horizon's packed plan, ``pack_plan(actions, T_pad)``; None
+    plays the neutral profile broadcast to every cluster. Mode "carbon"
+    runs CarbonAwarePolicy's constants. ``net_params`` (mode "neural"):
+    an ActorCritic params tree, a leading population axis allowed.
+    """
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
+    from ccka_tpu_torch.sim.lanes import block_layout
+    from ccka_tpu_torch.sim.random import seed_key
+    from ccka_tpu_torch.sim.rollout import (N_ACC_ROWS, pack_carry,
+                                            resume_rollout_summary,
+                                            unpack_carry)
+
+    if mode not in BLOCK_MODES:
+        raise ValueError(f"unknown packed mode {mode!r} — have "
+                         f"{BLOCK_MODES}")
+    n_blocks, T_pad = block_layout(T, block_T, t_chunk)
+    P, Z = cluster.n_pools, cluster.n_zones
+    K = int(params.provision_pipeline_k)
+    dev = params.dt_s.device
+    params_np = _pack_params(params).cpu().numpy().ravel()
+    off, peak = offpeak_action(cluster, dev), peak_action(cluster, dev)
+    cstat = _CARBON_DEFAULTS if mode == "carbon" else None
+    acts_np = torch.stack([_pack_action(off),
+                           _pack_action(peak)]).cpu().numpy()
+    n_pop, members, H, was_single = None, None, None, False
+    if mode == "neural":
+        if net_params is None:
+            raise ValueError("packed_mode_block_summary_fn: mode 'neural' "
+                             "needs net_params")
+        (_, H, _), was_single = _mlp_dims(net_params, P=P, Z=Z)
+        stacked = net_params if not was_single else _tree_map(
+            lambda x: np.asarray(x)[None], net_params)
+        n_pop = int(stacked["params"]["Dense_0"]["kernel"].shape[0])
+        members = [_tree_map(lambda x: np.asarray(x)[i], stacked)
+                   for i in range(n_pop)]
+    if mode == "plan":
+        if plan_packed is None:
+            plan_packed = _neutral_plan(cluster, T_pad, dev)
+        if (plan_packed.dim() not in (2, 3) or plan_packed.shape[0] != T_pad
+                or plan_packed.shape[1] != _plan_rows(P, Z)):
+            raise ValueError(
+                f"plan stream shape {tuple(plan_packed.shape)} does not "
+                f"match T_pad={T_pad} / plan_rows={_plan_rows(P, Z)} — pack "
+                f"with pack_plan(actions, T_pad)")
+        plan_packed = plan_packed.contiguous()
+    cache = {}   # per device: the MLP's kernel tensors
+
+    def checked(stream_block, state, state_out, j, seed):
+        """(t0, ticks, lanes, layout) of block ``j``, or raise."""
+        if stream_block.shape[0] != block_T:
+            raise ValueError(
+                f"stream block covers {stream_block.shape[0]} ticks, the "
+                f"blocked layout needs exactly block_T={block_T} — "
+                f"generate with packed_block_trace_device(block_T, ...)")
+        if not 0 <= j < n_blocks:
+            raise ValueError(f"block {j} is outside the {n_blocks} blocks")
+        t0 = j * block_T
+        n = min(block_T, T - t0)
+        lanes = _check_packed(stream_block, n, P, Z, K, params)
+        layout = _carry_layout(params, cluster, mode, stream_block.shape[1])
+        want = ((layout.rows, stream_block.shape[2]) if n_pop is None
+                else (n_pop, layout.rows, stream_block.shape[2]))
+        for name, s in (("carried state", state), ("state_out", state_out)):
+            if (tuple(s.shape) != want or s.device != stream_block.device
+                    or s.dtype != torch.float32):
+                raise ValueError(f"{name} {list(s.shape)} on {s.device} "
+                                 f"does not fit this stream: want float32 "
+                                 f"{list(want)} on {stream_block.device} "
+                                 f"(init_state)")
+        if state.data_ptr() == state_out.data_ptr():
+            raise ValueError("state_out must be another buffer than the "
+                             "carried state")
+        seed_key(seed)
+        return t0, n, lanes, layout
+
+    def plain_step(stream_block, state, j, seed, *, state_out,
+                   cluster0: int = 0):
+        t0, n, lanes, layout = checked(stream_block, state, state_out, j,
+                                       seed)
+        traces = unpack_exo(stream_block, n, Z)
+        extra = _unpack_lanes(stream_block, n, Z, lanes)
+        for m in range(1 if n_pop is None else n_pop):
+            if mode == "neural":
+                fn = kernel_numerics_action_fn(members[m], cluster, params)
+            elif mode == "plan":
+                blk = plan_packed[t0:t0 + n]
+                fn = plan_action_fn(unpack_plan(blk, n, P, Z),
+                                    blk.dim() == 3)
+            else:
+                fn = _profile_action_fn(off, peak, cstat)
+            s_in = state if n_pop is None else state[m]
+            carry = resume_rollout_summary(
+                params, unpack_carry(s_in, layout, params, t0), fn, traces,
+                seed, tick0=t0, cluster0=cluster0, stochastic=stochastic,
+                observe=mode != "plan", **extra)
+            pack_carry(carry, layout,
+                       state_out if n_pop is None else state_out[m])
+        return state_out[..., :N_ACC_ROWS, :], state_out
+
+    def step(stream_block, state, j, seed, *, state_out, cluster0: int = 0):
+        if stream_block.device.type == "cpu":
+            return plain_step(stream_block, state, j, seed,
+                              state_out=state_out, cluster0=cluster0)
+        t0, n, lanes, layout = checked(stream_block, state, state_out, j,
+                                       seed)
+        bc = build.BlockCarry(state, state_out, t0, cluster0)
+        kw = dict(P=P, Z=Z, K=K, T=n, seed=int(seed),
+                  stochastic=bool(stochastic),
+                  fault_base=lanes.fault_base, wl_base=lanes.wl_base,
+                  wl_depth=lanes.wl_depth, carry=bc)
+        if mode == "neural":
+            from ccka_tpu_torch.models.nets import (AFTER_MAX_S,
+                                                    HPA_BIAS, HPA_HI,
+                                                    HPA_LO)
+            from ccka_tpu_torch.policy.constraints import slo_pool_mask
+
+            if H != 128:
+                raise ValueError(f"the MLP rollout kernel is built for "
+                                 f"hidden width 128, not {H}")
+            key = stream_block.device
+            if key not in cache:
+                cache[key] = _pack_mlp_tensors(net_params, key)
+            build.launch_rollout_mlp(
+                None, stream_block, params_np,
+                slo_pool_mask(cluster, "cpu").numpy(),
+                np.array([AFTER_MAX_S, HPA_LO, HPA_HI - HPA_LO,
+                          HPA_BIAS], np.float32), cache[key], **kw)
+        elif mode == "plan":
+            build.launch_rollout_plan(None, stream_block, params_np,
+                                      plan_packed[t0:t0 + block_T], **kw)
+        else:
+            build.launch_rollout_profiles(None, stream_block, params_np,
+                                          acts_np, carbon=cstat, **kw)
+        return state_out[..., :N_ACC_ROWS, :], state_out
+
+    def init_state(stream_rows, batch, device=None):
+        return init_block_state(params, cluster, mode, stream_rows, batch,
+                                n_pop=n_pop, device=device)
+
+    def finalize(out):
+        if n_pop is None:
+            return _finalize(params, out, T)
+        flat = _finalize(params, out.permute(1, 0, 2).reshape(
+            out.shape[1], -1), T)
+        summary = EpisodeSummary(*(x.reshape(n_pop, out.shape[2])
+                                   for x in flat))
+        if was_single:
+            summary = EpisodeSummary(*(x[0] for x in summary))
+        return summary
+
+    return BlockSummaryFns(step, init_state, finalize, n_blocks, T_pad,
+                           plain_step)
+
+
+def _neutral_plan(cluster: ClusterConfig, T_pad: int, device) -> torch.Tensor:
+    """The neutral profile broadcast to every cluster and tick, packed."""
+    from ccka_tpu_torch.policy.rule import neutral_action
+
+    base = neutral_action(cluster, device)
+    return pack_plan(Action(*(x.expand((T_pad,) + tuple(x.shape))
+                              for x in base)), T_pad)
+
+
+def packed_mode_summary(params: SimParams, cluster: ClusterConfig, mode: str,
+                        exo_packed: torch.Tensor, T: int, seed: int = 0, *,
+                        stochastic: bool = True, net_params=None,
+                        plan_packed=None) -> EpisodeSummary:
+    """The non-carry entry of ``mode`` on a whole packed stream (the
+    kernel on a CUDA stream, the plain version on a CPU one): the
+    unblocked side of the blocked == unblocked comparison. Arguments as
+    for :func:`packed_mode_block_summary_fn`."""
+    from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
+
+    dev = exo_packed.device
+    kw = dict(seed=seed, stochastic=stochastic)
+    if mode in ("rule", "carbon"):
+        off, peak = offpeak_action(cluster, dev), peak_action(cluster, dev)
+        if mode == "rule":
+            return megakernel_summary_from_packed(params, off, peak,
+                                                  exo_packed, T, **kw)
+        sharp, floor, stick = _CARBON_DEFAULTS
+        return carbon_megakernel_summary_from_packed(
+            params, off, peak, exo_packed, T, sharpness=sharp,
+            min_weight=floor, stickiness=stick, **kw)
+    if mode == "neural":
+        return neural_megakernel_summary_from_packed(
+            params, cluster, net_params, exo_packed, T, **kw)
+    if mode == "plan":
+        if plan_packed is None:
+            plan_packed = _neutral_plan(cluster, exo_packed.shape[0], dev)
+        return plan_megakernel_summary_from_packed(
+            params, cluster, plan_packed.contiguous(), exo_packed, T, **kw)
+    raise ValueError(f"unknown packed mode {mode!r} — have {BLOCK_MODES}")

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Three main paths. The rule-profile fleet rollout: a batch of clusters
+Four main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -11,7 +11,11 @@ one packed multiregion fleet-day, paired world for world. The fault and
 workload boards: the same three policies and diff-MPC (the quick
 receding-horizon planner on the calm world, its plan played back by the
 plan kernel) on streams widened with fault lanes (four intensities) and
-workload-family lanes (four scenarios).
+workload-family lanes (four scenarios). The streaming path: the same
+policies and a plan over a day synthesized block by block beside the
+kernels, the rollout resumed at each block from its carried state, and a
+fleet of 262144 clusters in chunks whose whole stream would not fit the
+card.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -83,8 +87,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    held against its plain version at T = 720 on the stream's first ticks
    (stochastic standard; the flagship's by
    NEURAL_MEAN_PARITY_TOLERANCES);
-10. one JSON line listing every kernel and lane instantiation, the
+10. carried-state streaming (the main path of the fifth slice): (a)
+   every CARRY instantiation (rule, carbon, MLP, plan x the plain,
+   severe, flash-crowd and mixed streams x both modes), multiregion
+   B = 8192 x T = 720 in blocks of 180: bitwise the non-carry kernel on
+   the concatenated stream, its day timed against it; (b) at B = 1024
+   x T = 32 in blocks of 16, both modes: the carried state after every
+   block bitwise its plain version's `pack_carry`; (c) the streaming
+   path at multiregion B = 32768 x T = 2880, stochastic, the mixed
+   stream in 8 blocks of 360, rule, carbon, flagship and a per-cluster
+   plan, each through the synchronous and the double-buffered drive,
+   the CARRY counters zeroed just before and read just after, both
+   drives bitwise each other and the unblocked reference, the walls, the
+   occupancy and the two stream buffers; a day of 8 CARRY launches timed
+   against one non-carry launch; the carried state after each of the
+   day's first two blocks bitwise its plain version's at B = 32768; (d)
+   the cluster-chunked rule drive at
+   B = 262144 (8 chunks of 32768): wall, peak memory against two blocks
+   and against the whole stream, the last chunk bitwise a single-chunk
+   run;
+11. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
+
 
 Cut for time (the planner of the mpc rows takes about a minute a board):
 phases 7 and 9 hold their kernels against the plain versions at T = 720
@@ -696,10 +720,13 @@ def planner_ops(cfg) -> int:
     return Count.n
 
 
-def lane_bound(cfg, policy: str, name: str, net=None):
+def lane_bound(cfg, policy: str, name: str, net=None, B: int = B_MAIN,
+               T: int = T_DAY, extra_bytes: int = 0):
     """(bound ms, "bytes" or "operations", terms) of a lane kernel at the
-    boards' size (multiregion B = 32768 x T = 2880, stochastic); ``name``
-    a fault intensity, a workload scenario or "plain"."""
+    boards' size (multiregion B = 32768 x T = 2880, stochastic) or at
+    ``B`` x ``T``, with ``extra_bytes`` moved besides (a carried state's
+    round trips); ``name`` a fault intensity, a workload scenario or
+    "plain"."""
     from ccka_tpu_torch.sim import megakernel as mk
     from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
 
@@ -708,19 +735,17 @@ def lane_bound(cfg, policy: str, name: str, net=None):
     wl = sc is not None
     Z = cfg.cluster.n_zones
     ops = float_ops_per_cluster_tick(cfg, True, policy, net, faults, wl)
-    terms = {"tick": (ops * B_MAIN * T_DAY, F32_UNFUSED_OPS_PER_S,
-                      "float32")}
-    weight_bytes = 0
+    terms = {"tick": (ops * B * T, F32_UNFUSED_OPS_PER_S, "float32")}
+    weight_bytes = extra_bytes
     plan_rows = mk._act_rows(cfg.cluster.n_pools, Z) if policy == "plan" \
         else 0
     if policy == "mlp":
         F, H, A = mk._mlp_dims(net, P=cfg.cluster.n_pools, Z=Z)[0]
-        weight_bytes = (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
-        terms["torso"] = (2 * (F * H + H * H) * B_MAIN * T_DAY,
+        weight_bytes += (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
+        terms["torso"] = (2 * (F * H + H * H) * B * T,
                           BF16_TENSOR_OPS_PER_S, "tensor cores")
-        terms["head"] = (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S,
-                         "float32")
-    return bound(rollout_bytes(Z, B_MAIN, T_DAY, weight_bytes, faults, wl,
+        terms["head"] = (2 * H * A * B * T, F32_OPS_PER_S, "float32")
+    return bound(rollout_bytes(Z, B, T, weight_bytes, faults, wl,
                                plan_rows), terms) + (ops,)
 
 
@@ -932,6 +957,430 @@ def lane_kernel_rows(boards: dict, found: dict) -> list:
                 "bound_ms": rec.pop("bound_ms"),
                 "bound_by": rec.pop("bound_by"), "library_ms": None,
                 **rec})
+    return rows
+
+
+# ---- carried-state streaming (phase 10)
+
+STREAM_KEY, STREAM_SEED = 83, 41    # the blocked stream's seed; Philox's
+BLOCK_DAY = 360                     # 8 blocks a day (phase 10c, 10d)
+BLOCK_PARITY = 180                  # 4 blocks of T_PARITY (phase 10a)
+HELD_BLOCKS = 2                     # full-width blocks held to plain (10c)
+# The port's kernels have no time chunk; 20 ticks divide every block here,
+# so the splits pass the JAX package's own checks.
+T_CHUNK_STREAM = 20
+B_CHUNKED, CHUNK = 262144, 32768    # phase 10d: 8 chunks
+CARRY_REPLACES = "ccka_tpu/sim/megakernel.py:340"
+ROUTES = ("rule", "carbon", "mlp", "plan")
+BLOCK_MODE = {"rule": "rule", "carbon": "carbon", "mlp": "neural",
+              "plan": "plan"}
+STREAM_NAMES = ("plain", "severe", "flash-crowd", "mixed")
+
+
+def stream_source(cfg, name: str):
+    """(source, WorkloadsConfig or None) of the plain stream or a lane
+    stream."""
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+
+    if name == "plain":
+        return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                     cfg.signals), None
+    return lane_source(cfg, name)
+
+
+def carry_label(route: str, name: str) -> str:
+    """The CARRY instantiation a route runs on a stream."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    sc = WORKLOAD_SCENARIOS.get(name)
+    faults = (name in FAULT_LEVELS) or bool(sc and sc.fault_preset)
+    suffix = build.instantiation(route, faults, 16 if sc else 0, carry=True)
+    return ("rollout_mlp_kernel" if route == "mlp"
+            else "rollout_profiles_kernel") + suffix
+
+
+def block_fns(cfg, params, route: str, T: int, block_T: int, stochastic,
+              net=None, plan=None):
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    return mk.packed_mode_block_summary_fn(
+        params, cfg.cluster, BLOCK_MODE[route], T=T, block_T=block_T,
+        t_chunk=T_CHUNK_STREAM if block_T % 16 else 16,
+        stochastic=stochastic, net_params=net if route == "mlp" else None,
+        plan_packed=plan if route == "plan" else None)
+
+
+def carry_day(fns, blocks, seed: int = STREAM_SEED):
+    """Every block through the CARRY kernel from a fresh state, the state
+    alternating between two buffers; returns the last block's accumulator
+    rows."""
+    first = fns.init_state(blocks[0].shape[1], blocks[0].shape[2],
+                           device=blocks[0].device)
+    states = [first, torch.zeros_like(first)]
+    out = None
+    for j, blk in enumerate(blocks):
+        out, _ = fns.step(blk, states[j % 2], j, seed,
+                          state_out=states[(j + 1) % 2])
+    return out
+
+
+def hold_carry(fns, blocks, what: str) -> tuple[float, float]:
+    """Each block through the CARRY kernel and through its plain version
+    (`plain_step` on the card) from the same carried state; fails unless
+    the two states after every block are bitwise equal. Returns (the plain
+    version's seconds over all blocks, the largest absolute difference)."""
+    state = fns.init_state(blocks[0].shape[1], blocks[0].shape[2],
+                           device=blocks[0].device)
+    k_state, p_state = torch.zeros_like(state), torch.zeros_like(state)
+    plain_s = err = 0.0
+    for j, blk in enumerate(blocks):
+        fns.step(blk, state, j, STREAM_SEED, state_out=k_state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns.plain_step(blk, state, j, STREAM_SEED, state_out=p_state)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        diff = (k_state - p_state).abs()
+        err = max(err, float(diff.max()))
+        if not torch.equal(k_state, p_state):
+            rows = sorted(set(torch.nonzero(diff)[:, -2].tolist()))
+            fail(f"{what}: the carried state after block {j} differs from "
+                 f"its plain version in rows {rows[:12]} (max abs "
+                 f"{float(diff.max()):.4g})")
+        state, p_state = p_state, state
+    return plain_s, err
+
+
+def state_bytes(cfg, params, route: str, rows: int, B: int,
+                n_blocks: int) -> int:
+    """Bytes a blocked day moves in carried state: the used rows read and
+    written once a block."""
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    layout = mk._carry_layout(params, cfg.cluster, BLOCK_MODE[route], rows)
+    return layout.blocks()["queues"][1] * 4 * B * 2 * n_blocks
+
+
+def carry_phase(dev, setup) -> dict:
+    """10a: every CARRY instantiation (4 routes x plain, severe,
+    flash-crowd, mixed x both modes), multiregion B = 8192 x T = 720 in
+    blocks of 180: its last state's summary bitwise the non-carry
+    kernel's on the concatenated stream; the stochastic day's time (4
+    launches) against the non-carry launch's. 10b: at B = 1024 x T = 32
+    in blocks of 16, both modes, the carried state after every block
+    bitwise its plain version's `pack_carry` (`plain_step` on the card);
+    the plain version's time (10c holds the mixed stream's at full
+    width). Returns {instantiation: record}."""
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    t_phase = time.perf_counter()
+    cfg, _, _, _, _, net = setup("multiregion")
+    found: dict = {}
+    plan = random_plan(cfg, B_PARITY, T_PARITY, T_PARITY, dev)
+    n_bitwise = 0
+    for name in STREAM_NAMES:
+        source, wl = stream_source(cfg, name)
+        params = lane_params(cfg, wl, dev)
+        blocks = [source.packed_block_trace_device(
+            BLOCK_PARITY, STREAM_KEY, B_PARITY, j, t_chunk=T_CHUNK_STREAM,
+            device=dev) for j in range(T_PARITY // BLOCK_PARITY)]
+        full = torch.cat(blocks)
+        for route in ROUTES:
+            label = carry_label(route, name)
+            rec = found.setdefault(label, {"route": route, "stream": name})
+            for st in (False, True):
+                fns = block_fns(cfg, params, route, T_PARITY, BLOCK_PARITY,
+                                st, net, plan)
+
+                def noncarry():
+                    return mk.packed_mode_summary(
+                        params, cfg.cluster, BLOCK_MODE[route], full,
+                        T_PARITY, STREAM_SEED, stochastic=st,
+                        net_params=net if route == "mlp" else None,
+                        plan_packed=plan)
+
+                got = fns.finalize(carry_day(fns, blocks))
+                want = noncarry()
+                torch.cuda.synchronize()
+                if not bitwise(got, want):
+                    bad = [f for f in got._fields if not torch.equal(
+                        getattr(got, f), getattr(want, f))]
+                    fail(f"10a: {label} on {name} (stochastic={st}) is not "
+                         f"bitwise the non-carry kernel: {bad}")
+                n_bitwise += 1
+                if st:
+                    rec["a_ms"] = median_ms(lambda: carry_day(fns, blocks))
+                    rec["a_noncarry_ms"] = median_ms(noncarry)
+                    rec["a_bound"] = lane_bound(
+                        cfg, route, name, net, B_PARITY, T_PARITY,
+                        state_bytes(cfg, params, route, full.shape[1],
+                                    B_PARITY, len(blocks)))
+        del blocks, full
+        torch.cuda.empty_cache()
+    log(f"# 10a carry: {n_bitwise} blocked days (4 routes x "
+        f"{len(STREAM_NAMES)} streams x 2 modes, multiregion B={B_PARITY} "
+        f"T={T_PARITY}, blocks of {BLOCK_PARITY}), every one bitwise the "
+        f"non-carry kernel on the concatenated stream "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    for label, rec in found.items():
+        log(f"#   {label} ({rec['stream']}): day of 4 CARRY launches "
+            f"{rec['a_ms']:.4f} ms, non-carry {rec['a_noncarry_ms']:.4f} ms "
+            f"(x {rec['a_ms'] / rec['a_noncarry_ms']:.4f}); bound "
+            f"{rec['a_bound'][0]:.4f} ms ({rec['a_bound'][1]})")
+
+    # 10b: the carried state against its plain version after every block.
+    n_states = 0
+    T, bT = T_SHORT, 16
+    bplan = random_plan(cfg, B_MULTI, T, T, dev)
+    for name in STREAM_NAMES:
+        source, wl = stream_source(cfg, name)
+        params = lane_params(cfg, wl, dev)
+        blocks = [source.packed_block_trace_device(
+            bT, STREAM_KEY, B_MULTI, j, t_chunk=16, device=dev)
+            for j in range(T // bT)]
+        for route in ROUTES:
+            label = carry_label(route, name)
+            rec = found[label]
+            for st in (False, True):
+                fns = block_fns(cfg, params, route, T, bT, st, net, bplan)
+                plain_s, err = hold_carry(
+                    fns, blocks, f"10b: {label} on {name} (stochastic={st})")
+                n_states += len(blocks)
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+                if st:
+                    rec["plain_ms"] = plain_s * 1e3
+                    rec["plain_shape"] = (f"{name} multiregion B={B_MULTI} "
+                                          f"T={T} in blocks of {bT}, "
+                                          f"stochastic, the plain version on "
+                                          f"the card (plain_step)")
+        del blocks
+    log(f"# 10b carry: {n_states} carried states (every block of 4 routes x "
+        f"{len(STREAM_NAMES)} streams x 2 modes at B={B_MULTI}), every one "
+        f"bitwise its plain version's pack_carry (10a and 10b "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    torch.cuda.empty_cache()
+    return found
+
+
+def streaming_phase(dev, setup, found: dict) -> dict:
+    """10c: the main path of this slice: multiregion B = 32768 x T = 2880,
+    stochastic, the mixed stream in 8 blocks of 360, rule, carbon, the
+    shipped flagship and a decoded per-cluster plan, each through the
+    synchronous and the double-buffered drive of
+    `streaming_rollout_summary`, the CARRY counters zeroed just before and
+    read just after; both drives bitwise each other and
+    `unblocked_reference_summary`; a day of 8 CARRY launches timed against
+    the non-carry launch on the same stream; the CARRY kernels held
+    against `plain_step` on the day's first two blocks at full width,
+    their carried state bitwise after each. 10d: the cluster-chunked
+    rule drive at B = 262144 (8 chunks of 32768), its peak memory, its
+    last chunk bitwise a single-chunk run. Returns the phase's record."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+
+    cfg, _, _, _, _, net = setup("multiregion")
+    source, wl = stream_source(cfg, "mixed")
+    params = lane_params(cfg, wl, dev)
+    plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
+    kw = dict(key=STREAM_KEY, batch=B_MAIN, T=T_DAY, block_T=BLOCK_DAY,
+              seed=STREAM_SEED, t_chunk=T_CHUNK_STREAM, stochastic=True,
+              device=dev)
+
+    def route_kw(route):
+        return dict(kw, net_params=net if route == "mlp" else None,
+                    plan_packed=plan if route == "plan" else None)
+
+    counters = (build.launch_rollout_profiles, build.launch_rollout_plan,
+                build.launch_rollout_mlp)
+    rec: dict = {"drives": {}}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    for counter in counters:
+        counter.launches.clear()
+    runs = {}
+    for route in ROUTES:
+        # Each drive twice, in turns: sync, double-buffered, then the other
+        # way round.
+        for pipelined in (False, True, True, False):
+            runs.setdefault((route, pipelined), []).append(
+                stm.streaming_rollout_summary(
+                    source, params, cfg.cluster, BLOCK_MODE[route],
+                    pipelined=pipelined, **route_kw(route)))
+    torch.cuda.synchronize()
+    launches: dict = {}
+    for counter, kernel in zip(counters, ("rollout_profiles_kernel",
+                                          "rollout_profiles_kernel",
+                                          "rollout_mlp_kernel")):
+        launches.update({kernel + k: v for k, v in counter.launches.items()})
+    rec["launches"] = launches
+    log(f"# 10c streaming path multiregion B={B_MAIN} T={T_DAY} stochastic, "
+        f"mixed stream in {T_DAY // BLOCK_DAY} blocks of {BLOCK_DAY}: "
+        f"launches {launches}")
+    for route in ROUTES:
+        label = carry_label(route, "mixed")
+        if launches.get(label, 0) != 4 * (T_DAY // BLOCK_DAY):
+            fail(f"10c: {label} launched {launches.get(label, 0)} times, "
+                 f"expected {4 * (T_DAY // BLOCK_DAY)}")
+    if any("CARRY" not in k for k in launches):
+        fail(f"10c: a non-carry kernel ran on the streaming path: "
+             f"{launches}")
+    for route in ROUTES:
+        ref = stm.unblocked_reference_summary(
+            source, params, cfg.cluster, BLOCK_MODE[route],
+            **{k: v for k, v in route_kw(route).items()})
+        for summary, rep in runs[route, False] + runs[route, True]:
+            if not bitwise(summary, ref):
+                fail(f"10c: {route}: the {rep['pipeline']} drive is not "
+                     f"bitwise the unblocked reference")
+        pipe = runs[route, True][0][0]
+        buffers = [rep["stream_buffers"] for _, rep in runs[route, True]]
+        if buffers != [2, 2]:
+            fail(f"10c: {route}: the double-buffered drives used {buffers} "
+                 f"stream buffers")
+        for f in ("usd_per_slo_hour", "g_co2_per_kreq", "slo_attainment",
+                  "inf_slo_violations", "batch_deadline_misses"):
+            v = getattr(pipe, f)
+            if v.shape != (B_MAIN,) or not torch.isfinite(v).all():
+                fail(f"10c: {route}.{f} malformed")
+        rec["drives"][route] = {
+            "sync": [{"wall_s": rep["wall_s"],
+                      "seconds": rep["occupancy"]["seconds"],
+                      "fractions": rep["occupancy"]["fractions"]}
+                     for _, rep in runs[route, False]],
+            "double_buffered": [{"wall_s": rep["wall_s"],
+                                 "pipeline_s": rep["pipeline_s"],
+                                 "host_s": rep["host_s"],
+                                 "stream_buffers": rep["stream_buffers"]}
+                                for _, rep in runs[route, True]]}
+        log(f"#   {route}: " + "; ".join(
+            f"sync wall {d['wall_s']} s (stages {d['seconds']}, fractions "
+            f"{d['fractions']})" for d in rec["drives"][route]["sync"])
+            + "; " + "; ".join(
+            f"double-buffered wall {d['wall_s']} s (pipeline "
+            f"{d['pipeline_s']} s, host {d['host_s']} s, "
+            f"{d['stream_buffers']} stream buffers)"
+            for d in rec["drives"][route]["double_buffered"])
+            + f"; all four bitwise the unblocked reference; $/SLO-hr "
+            f"{pipe.usd_per_slo_hour.mean().item():.6f}, SLO attainment "
+            f"{pipe.slo_attainment.mean().item():.6f}")
+    del runs, ref, pipe
+    torch.cuda.empty_cache()
+    log(f"#   10c drives and references: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # A day of 8 CARRY launches against one non-carry launch, same stream.
+    blocks = [source.packed_block_trace_device(
+        BLOCK_DAY, STREAM_KEY, B_MAIN, j, t_chunk=T_CHUNK_STREAM,
+        device=dev) for j in range(T_DAY // BLOCK_DAY)]
+    full = torch.cat(blocks)
+    del blocks
+    torch.cuda.empty_cache()
+    views = [full[j * BLOCK_DAY:(j + 1) * BLOCK_DAY]
+             for j in range(T_DAY // BLOCK_DAY)]
+    for route in ROUTES:
+        fns = block_fns(cfg, params, route, T_DAY, BLOCK_DAY, True, net,
+                        plan)
+        r = found[carry_label(route, "mixed")]
+        r["ms"] = median_ms(lambda: carry_day(fns, views))
+        r["noncarry_ms"] = median_ms(lambda: mk.packed_mode_summary(
+            params, cfg.cluster, BLOCK_MODE[route], full, T_DAY,
+            STREAM_SEED, net_params=net if route == "mlp" else None,
+            plan_packed=plan))
+        r["bound"] = lane_bound(
+            cfg, route, "mixed", net, B_MAIN, T_DAY,
+            state_bytes(cfg, params, route, full.shape[1], B_MAIN,
+                        len(views)))
+        log(f"#   {route}: day of {len(views)} CARRY launches "
+            f"{r['ms']:.4f} ms, non-carry {r['noncarry_ms']:.4f} ms "
+            f"(x {r['ms'] / r['noncarry_ms']:.4f}); bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}; terms "
+            f"{r['bound'][2]})")
+        # The main path's shape held against the plain version: the day's
+        # first blocks, across a block boundary.
+        label = carry_label(route, "mixed")
+        plain_s, err = hold_carry(fns, views[:HELD_BLOCKS],
+                                  f"10c: {label} at full width")
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        r["plain_ms"] = plain_s * 1e3
+        r["plain_shape"] = (f"mixed multiregion B={B_MAIN}, the day's first "
+                            f"{HELD_BLOCKS} blocks of {BLOCK_DAY} (T="
+                            f"{HELD_BLOCKS * BLOCK_DAY}), stochastic, the "
+                            f"plain version on the card (plain_step)")
+        log(f"#   {route}: the carried state after each of the first "
+            f"{HELD_BLOCKS} blocks bitwise its plain version's at B={B_MAIN} "
+            f"(max abs {err}); plain version {r['plain_ms']:.4f} ms")
+    del full, views, plan, fns
+    torch.cuda.empty_cache()
+
+    # 10d: the cluster-chunked rule drive.
+    torch.cuda.synchronize()
+    chunked, rep = stm.chunked_streaming_summary(
+        source, params, cfg.cluster, "rule", key=STREAM_KEY,
+        batch=B_CHUNKED, chunk=CHUNK, T=T_DAY, block_T=BLOCK_DAY,
+        seed=STREAM_SEED, t_chunk=T_CHUNK_STREAM, stochastic=True,
+        device=dev)
+    last = B_CHUNKED // CHUNK - 1
+    single, _ = stm.streaming_rollout_summary(
+        source, params, cfg.cluster, "rule", **dict(
+            kw, batch=CHUNK, shard=last, cluster0=last * CHUNK))
+    tail = type(chunked)(*(x[last * CHUNK:] for x in chunked))
+    if not bitwise(tail, single):
+        fail("10d: the chunked drive's last chunk is not bitwise a "
+             "single-chunk run")
+    if rep["stream_buffers"] != 2:
+        fail(f"10d: {rep['stream_buffers']} stream buffers")
+    if not all(torch.isfinite(x).all() for x in chunked) or \
+            chunked.cost_usd.shape != (B_CHUNKED,):
+        fail("10d: malformed chunked summary")
+    rec["chunked"] = rep
+    log(f"# 10d chunked rule drive B={B_CHUNKED} ({rep['chunks']} chunks of "
+        f"{CHUNK}) T={T_DAY} stochastic, mixed stream: wall "
+        f"{rep['wall_s']:.6f} s; peak memory {rep['peak_bytes']} bytes "
+        f"against two live blocks {rep['live_block_bytes']} bytes and the "
+        f"unchunked stream {rep['stream_bytes']} bytes; "
+        f"{rep['stream_buffers']} stream buffers; the last chunk bitwise a "
+        f"single-chunk run; $/SLO-hr "
+        f"{chunked.usd_per_slo_hour.mean().item():.6f}")
+    del chunked, single, tail
+    torch.cuda.empty_cache()
+    log(f"#   10c and 10d: {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+def carry_kernel_rows(found: dict, stream_rec: dict) -> list:
+    """The `kernels` line's entries of the CARRY instantiations: on the
+    mixed stream (the streaming path's), times at full size; on the
+    others, at phase 10a's B = 8192 x T = 720."""
+    rows = []
+    n_day, n_parity = T_DAY // BLOCK_DAY, T_PARITY // BLOCK_PARITY
+    for label, rec in found.items():
+        main = rec["stream"] == "mixed"
+        b_ms, b_by, _, _ = rec["bound"] if main else rec["a_bound"]
+        rows.append({
+            "name": label, "route": "cuda",
+            "source": ("ccka_tpu_torch/csrc/rollout_mlp.cu"
+                       if rec["route"] == "mlp" else
+                       "ccka_tpu_torch/csrc/rollout_profiles.cu"),
+            "replaces": CARRY_REPLACES,
+            "launches": stream_rec["launches"].get(label, 0),
+            "launches_from": ("phase 10c, the streaming path (sync and "
+                              "double-buffered drives)" if main else
+                              "phase 10a, its checks (not on the streaming "
+                              "path, whose stream is mixed)"),
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"] if main else rec["a_ms"],
+            "noncarry_ms": (rec["noncarry_ms"] if main
+                            else rec["a_noncarry_ms"]),
+            "plain_ms": rec["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bitwise": True,
+            "shape": (f"{rec['stream']} multiregion B="
+                      f"{B_MAIN if main else B_PARITY} T="
+                      f"{T_DAY if main else T_PARITY} stochastic, a day of "
+                      f"{n_day if main else n_parity} CARRY launches (ms) "
+                      f"against one non-carry launch (noncarry_ms)"),
+            "plain_shape": rec["plain_shape"]})
     return rows
 
 
@@ -1410,8 +1859,13 @@ def main() -> None:
 
     # ---- 9. the fault and workload boards at full size: see board_phase.
     boards = board_phase(dev, setup, zero_counters, read_counters)
+    torch.cuda.empty_cache()
 
-    # ---- 10. the kernels, the card, the result
+    # ---- 10. carried-state streaming: see carry_phase, streaming_phase.
+    carry_found = carry_phase(dev, setup)
+    stream_rec = streaming_phase(dev, setup, carry_found)
+
+    # ---- 11. the kernels, the card, the result
     kernels = [
         {"name": "rollout_profiles_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
@@ -1481,7 +1935,8 @@ def main() -> None:
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, a random "
                   f"per-cluster plan (phase 4b)",
          "plain_shape": f"multiregion B={B_MULTI} T={T_PARITY} stochastic"},
-    ] + lane_kernel_rows(boards, lanes_found)
+    ] + lane_kernel_rows(boards, lanes_found) + carry_kernel_rows(
+        carry_found, stream_rec)
     log(f"# build {build_s:.2f} s; total {time.perf_counter() - t_start:.1f}"
         f" s")
     print(json.dumps({"kernels": kernels}))

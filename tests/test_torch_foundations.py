@@ -236,7 +236,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "workloads.types", "workloads.process", "workloads.scenarios",
              "workloads.scoreboard", "train.objective", "train.mpc",
              "train.evaluate", "forecast.base", "forecast.backends",
-             "forecast.metrics"):
+             "forecast.metrics", "sim.streaming", "obs.trace",
+             "obs.occupancy"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch

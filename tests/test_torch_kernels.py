@@ -461,3 +461,101 @@ def test_plan_kernel_refuses_mismatched_plans(cuda):
         with pytest.raises(ValueError, match="plan"):
             mk.plan_megakernel_summary_from_packed(params, cfg.cluster, bad,
                                                    exo, 64, stochastic=False)
+
+
+def _stream_source(cfg, name: str):
+    """(source, SimParams config) of the plain stream or a lane stream."""
+    import dataclasses
+
+    from ccka_tpu_torch.config import FAULT_PRESETS
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    scenario_source)
+
+    if name in WORKLOAD_SCENARIOS:
+        sc = WORKLOAD_SCENARIOS[name]
+        return (scenario_source(cfg, sc),
+                dataclasses.replace(cfg, workloads=sc.workloads))
+    return SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals,
+        faults=None if name == "plain" else FAULT_PRESETS[name]), cfg
+
+
+@pytest.mark.parametrize("stream", ["plain", "severe", "flash-crowd",
+                                    "mixed"])
+@pytest.mark.parametrize("mode", ["rule", "carbon", "neural", "plan"])
+def test_carry_kernels_are_bitwise_their_plain_version(cuda, mode, stream):
+    """Each CARRY instantiation (multiregion B = 256, T = 45 in blocks of
+    16, both modes): the carried state after every block bitwise its plain
+    version's `pack_carry` (`plain_step`); the finalized last block
+    bitwise the non-carry kernel on the concatenated blocks; the
+    synchronous and double-buffered drives bitwise that too; launches
+    counted under the CARRY instantiation."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.sim import streaming as stm
+
+    cfg = PRESETS["multiregion"]()
+    src, pcfg = _stream_source(cfg, stream)
+    params = SimParams.from_config(pcfg, device=cuda)
+    net = load_flagship_backend(cfg, device=cuda)[0].params
+    plan = _random_plan(cfg, 256, 45, 48, cuda)
+    blocks = [src.packed_block_trace_device(16, 3, 256, j, t_chunk=16,
+                                            device=cuda) for j in range(3)]
+    kw = dict(net_params=net if mode == "neural" else None,
+              plan_packed=plan if mode == "plan" else None)
+    counter = {"neural": build.launch_rollout_mlp,
+               "plan": build.launch_rollout_plan}.get(
+        mode, build.launch_rollout_profiles).launches
+    for stochastic in (False, True):
+        fns = mk.packed_mode_block_summary_fn(
+            params, cfg.cluster, mode, T=45, block_T=16, t_chunk=16,
+            stochastic=stochastic, **kw)
+        state = fns.init_state(blocks[0].shape[1], 256, device=cuda)
+        k_state, p_state = torch.zeros_like(state), torch.zeros_like(state)
+        before = sum(v for k, v in counter.items() if "CARRY" in k)
+        for j, blk in enumerate(blocks):
+            fns.step(blk, state, j, 8, state_out=k_state)
+            fns.plain_step(blk, state, j, 8, state_out=p_state)
+            assert torch.equal(k_state, p_state), (mode, stream, j)
+            state, p_state = p_state, state
+        assert sum(v for k, v in counter.items() if "CARRY" in k) == \
+            before + 3
+        got = fns.finalize(k_state[..., :21, :])
+        want = mk.packed_mode_summary(params, cfg.cluster, mode,
+                                      torch.cat(blocks), 45, 8,
+                                      stochastic=stochastic, **kw)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        drive = dict(key=3, batch=256, T=45, block_T=16, seed=8, t_chunk=16,
+                     stochastic=stochastic, device=cuda, **kw)
+        for pipelined in (False, True):
+            s, rep = stm.streaming_rollout_summary(
+                src, params, cfg.cluster, mode, pipelined=pipelined, **drive)
+            for f in s._fields:
+                assert torch.equal(getattr(s, f), getattr(want, f).cpu()), f
+        assert rep["stream_buffers"] == 2
+
+
+def test_carry_kernel_refuses_bad_states(cuda):
+    from ccka_tpu_torch.kernels import build
+
+    cfg = PRESETS["multiregion"]()
+    params = SimParams.from_config(cfg, device=cuda)
+    fns = mk.packed_mode_block_summary_fn(params, cfg.cluster, "rule", T=32,
+                                          block_T=16, t_chunk=16)
+    exo = torch.zeros((16, mk.exo_rows(4), 64), device=cuda)
+    state = fns.init_state(exo.shape[1], 64, device=cuda)
+    acts = np.zeros((2, 18), np.float32)
+    kw = dict(P=2, Z=4, K=3, T=16, seed=0, stochastic=False)
+    pnp = mk._pack_params(params).cpu().numpy().ravel()
+    for bad, match in (
+            (build.BlockCarry(state, state, 0), "another buffer"),
+            (build.BlockCarry(state, state[:8].clone(), 0), "state_in"),
+            (build.BlockCarry(state, state.clone(), -1), "non-negative")):
+        with pytest.raises(ValueError, match=match):
+            build.launch_rollout_profiles(None, exo, pnp, acts, carry=bad,
+                                          **kw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        short = state[:40].clone()
+        build.launch_rollout_profiles(
+            None, exo, pnp, acts, carry=build.BlockCarry(
+                short, short.clone(), 0), **kw)
