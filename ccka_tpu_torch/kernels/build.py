@@ -14,8 +14,9 @@ The launch wrappers check device, dtype, shape and contiguity, launch on
 PyTorch's current stream, and raise if the C function returns a CUDA
 error. They allocate nothing: the caller passes the output tensor (or,
 for a CARRY instantiation, the two state buffers of a :class:`BlockCarry`).
-Each counts its launches by instantiation in its ``launches`` Counter
-("<FAULTS,CARRY>" and the like: :func:`instantiation`).
+The rollout wrappers count their launches by instantiation in their
+``launches`` Counter ("<FAULTS,CARRY>" and the like:
+:func:`instantiation`); the others count in an integer ``launches``.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ _SIGNATURES = {
         "ccka_rollout_mlp_carry": (_VP, _VP, _VP, _I) + (_VP,) * 9
                                   + (_I,) * 10 + (_ULL,) + (_I,) * 6
                                   + (_VP,),
+        "ccka_mlp_forward": (_VP,) * 13 + (_I,) * 4 + (_VP,),
     },
 }
 
@@ -338,6 +340,28 @@ def launch_rollout_plan(out: torch.Tensor | None, exo: torch.Tensor,
 launch_rollout_plan.launches = Counter()
 
 
+def _check_weights(weights: tuple, device) -> tuple[int, int, int, int]:
+    """(NP, F, H, A) of the MLP kernel's weight tensors, or raise unless
+    they are contiguous on ``device`` with the kernel's dtypes and
+    consistent shapes."""
+    w1, b1, w2, b2, w3, b3 = weights
+    NP, F, H = w1.shape
+    A = w3.shape[-1]
+    want = {"w1": (w1, (NP, F, H), torch.bfloat16),
+            "b1": (b1, (NP, H), torch.bfloat16),
+            "w2": (w2, (NP, H, H), torch.bfloat16),
+            "b2": (b2, (NP, H), torch.bfloat16),
+            "w3": (w3, (NP, H, A), torch.float32),
+            "b3": (b3, (NP, A), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if not (t.device == device and t.dtype == dtype
+                and tuple(t.shape) == shape and t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
+                             f"{list(shape)} on {device}, got {t.dtype} "
+                             f"{list(t.shape)} on {t.device}")
+    return NP, F, H, A
+
+
 def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
                        params: np.ndarray, slo: np.ndarray,
                        codec: np.ndarray, weights: tuple, *, P: int, Z: int,
@@ -352,22 +376,8 @@ def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
     [P] and ``codec`` [4] host float32; the lanes and ``carry`` (states
     [NP, rows, B]) as for :func:`launch_rollout_profiles`."""
     _, rows, B = exo.shape
-    w1, b1, w2, b2, w3, b3 = weights
-    NP, F, H = w1.shape
-    A = w3.shape[-1]
+    NP, F, H, A = _check_weights(weights, exo.device)
     _check_stream(exo, out, (NP, 24, B), T, carry)
-    want = {"w1": (w1, (NP, F, H), torch.bfloat16),
-            "b1": (b1, (NP, H), torch.bfloat16),
-            "w2": (w2, (NP, H, H), torch.bfloat16),
-            "b2": (b2, (NP, H), torch.bfloat16),
-            "w3": (w3, (NP, H, A), torch.float32),
-            "b3": (b3, (NP, A), torch.float32)}
-    for name, (t, shape, dtype) in want.items():
-        if not (t.device == exo.device and t.dtype == dtype
-                and tuple(t.shape) == shape and t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
-                             f"{list(shape)} on {exo.device}, got {t.dtype} "
-                             f"{list(t.shape)} on {t.device}")
     params = np.ascontiguousarray(params, np.float32)
     slo = np.ascontiguousarray(slo, np.float32)
     codec = np.ascontiguousarray(codec, np.float32)
@@ -394,6 +404,70 @@ def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
 
 
 launch_rollout_mlp.launches = Counter()
+
+
+def launch_mlp_forward(out: tuple, obs: torch.Tensor,
+                       weights: tuple) -> None:
+    """Launch ``mlp_forward_kernel``, the MLP rollout kernel's
+    observation -> torso -> head on given observations: ``obs`` [N, F]
+    float32; ``weights`` as for :func:`launch_rollout_mlp` (member 0 is
+    used); ``out`` = (x [N, F], pre1 [N, H], h1 [N, H], pre2 [N, H],
+    h2 [N, H], u [N, A]), x, h1 and h2 bfloat16, the rest float32, all
+    contiguous on ``obs``'s device."""
+    _require_cuda_f32(obs, "obs")
+    _, F, H, A = _check_weights(weights, obs.device)
+    if obs.dim() != 2 or obs.shape[1] != F:
+        raise ValueError(f"obs must be [N, {F}], got {list(obs.shape)}")
+    N = obs.shape[0]
+    bf16, f32 = torch.bfloat16, torch.float32
+    want = ((F, bf16), (H, f32), (H, bf16), (H, f32), (H, bf16), (A, f32))
+    for t, (width, dtype) in zip(out, want, strict=True):
+        if not (t.device == obs.device and t.dtype == dtype
+                and tuple(t.shape) == (N, width) and t.is_contiguous()):
+            raise ValueError(f"outputs must be contiguous [N, width] "
+                             f"tensors {[w for w, _ in want]} of "
+                             f"{[str(d) for _, d in want]} on {obs.device}")
+    err = library("rollout_mlp.cu").ccka_mlp_forward(
+        obs.data_ptr(), *(t.data_ptr() for t in out),
+        *(t.data_ptr() for t in weights), N, F, H, A, _stream(obs))
+    _check(err, f"mlp_forward (N={N}, F={F}, H={H}, A={A})")
+    launch_mlp_forward.launches += 1
+
+
+launch_mlp_forward.launches = 0
+
+
+def sass_summary(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel function of a built library (demangled where c++filt
+    is found): its SASS instructions, tensor-core ones (HMMA) and local
+    memory loads and stores (LDL, STL: spilled registers), from
+    ``cuobjdump -sass`` of the toolkit beside nvcc."""
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True,
+                          check=True).stdout
+    out: dict[str, dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            counts = out.setdefault(line.split("Function :")[1].strip(), {
+                "instructions": 0, "HMMA": 0, "LDL": 0, "STL": 0})
+        elif counts is not None and line.lstrip().startswith("/*") and \
+                ";" in line:
+            counts["instructions"] += 1
+            op = line.split("*/", 1)[1].split()
+            # A predicated instruction starts with its guard (@P0).
+            mnemonic = op[1] if op and op[0].startswith("@") else op[0]
+            for name in ("HMMA", "LDL", "STL"):
+                if mnemonic.startswith(name):
+                    counts[name] += 1
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and out:
+        names = subprocess.run([cxxfilt], input="\n".join(out),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        out = dict(zip(names, out.values(), strict=True))
+    return out
 
 
 def launch_philox_uniforms(out: torch.Tensor, seed: int, tick0: int) -> None:

@@ -494,7 +494,8 @@ def _pack_mlp_tensors(net_params: dict, device) -> tuple:
 def _chained_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[B, IN] x [IN, OUT] in float32 as one chain over k in ascending
     order, ``acc = acc + x[:, k] * w[k]`` from zero: the order in which the
-    CUDA kernel's thread adds."""
+    CUDA kernel's head adds, and the torso sums whose rounding to bfloat16
+    the kernel's tensor-core sums reproduce."""
     acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
                       device=x.device)
     for k in range(w.shape[0]):
@@ -502,24 +503,150 @@ def _chained_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+class MlpStages(NamedTuple):
+    """One forward of the MLP kernel's numerics, layer by layer, for N
+    observations: ``x`` [N, F] bfloat16 (the normalized observation),
+    ``pre1`` [N, H] float32 (the first layer's sum before rounding),
+    ``h1`` [N, H] bfloat16, ``pre2`` and ``h2`` likewise for the second
+    layer, and the latent ``u`` [N, A] float32."""
+
+    x: torch.Tensor
+    pre1: torch.Tensor
+    h1: torch.Tensor
+    pre2: torch.Tensor
+    h2: torch.Tensor
+    u: torch.Tensor
+
+
+def _gelu_layer(pre: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``gelu(bf16(bf16(pre) + b))``: a torso layer's epilogue."""
+    from ccka_tpu_torch.models.nets import gelu_tanh
+
+    return gelu_tanh(pre.to(torch.bfloat16) + b)
+
+
+def mlp_stages(obs: torch.Tensor, weights: tuple) -> MlpStages:
+    """The MLP kernel's forward in plain PyTorch on observations ``obs``
+    [N, F] float32, for one net's ``weights`` = (w1 [F, H], b1 [H],
+    w2 [H, H], b2 [H]) bfloat16 and (w3 [H, A], b3 [A]) float32: the
+    log1p-normalized observation in bfloat16; two torso layers whose
+    float32 sums (:func:`_chained_product`) are rounded once to bfloat16,
+    the bias added in bfloat16 and the tanh-form GELU computed operation
+    by operation in bfloat16 (`models/nets.py::gelu_tanh`); a float32
+    head (the same chain)."""
+    from ccka_tpu_torch.models.nets import _normalize_obs
+
+    w1, b1, w2, b2, w3, b3 = weights
+    x = _normalize_obs(obs).to(torch.bfloat16)
+    pre1 = _chained_product(x.to(torch.float32), w1.to(torch.float32))
+    h1 = _gelu_layer(pre1, b1)
+    pre2 = _chained_product(h1.to(torch.float32), w2.to(torch.float32))
+    h2 = _gelu_layer(pre2, b2)
+    u = _chained_product(h2.to(torch.float32), w3) + b3
+    return MlpStages(x, pre1, h1, pre2, h2, u)
+
+
+def mlp_forward(obs: torch.Tensor, weights: tuple) -> MlpStages:
+    """The MLP rollout kernel's forward on given observations ``obs``
+    [N, F] float32, layer by layer: on a CUDA tensor one launch of the
+    kernel's own device functions (`csrc/rollout_mlp.cu::ccka_mlp_forward`,
+    observation tile -> torso -> head), on a CPU tensor its plain version
+    :func:`mlp_stages`. ``weights``: :func:`_pack_mlp_tensors`' tuple;
+    member 0 is used."""
+    member = tuple(w[0] for w in weights)
+    if obs.device.type == "cpu":
+        return mlp_stages(obs, member)
+    from ccka_tpu_torch.kernels import build
+
+    N, F = obs.shape
+    H, A = member[2].shape[0], member[4].shape[1]
+
+    def empty(width, dtype):
+        return torch.empty((N, width), dtype=dtype, device=obs.device)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = MlpStages(empty(F, bf16), empty(H, f32), empty(H, bf16),
+                    empty(H, f32), empty(H, bf16), empty(A, f32))
+    build.launch_mlp_forward(out, obs, weights)
+    return out
+
+
+# The summation bound of :func:`check_mlp_forward`: two float32 sums of
+# n <= 128 terms in any two orders differ by at most 2 (n - 1) 2^-24
+# times the sum of the terms' magnitudes, under 2^-16 of it.
+MLP_SUM_BOUND = 2.0 ** -16
+# `csrc/rollout_mlp.cu::kNearTie`: the kernel sums a hidden unit again as
+# the plain chain when a bf16 rounding boundary lies within this share of
+# its terms' magnitudes.
+MLP_NEAR_TIE = 2.0 ** -20
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_mlp_forward(got: MlpStages, obs: torch.Tensor,
+                      weights: tuple) -> dict:
+    """The MLP kernel's forward (``got``, from :func:`mlp_forward`) held
+    layer by layer against its plain version, each layer given the
+    kernel's own input to it: ``x`` bitwise the plain normalization; each
+    pre-activation within ``MLP_SUM_BOUND * sum_k |w[k][j] * in[k]|`` of
+    the plain float32 chain (the tensor cores add in another order); each
+    ``h`` bitwise ``gelu(bf16(bf16(pre) + b))`` of the kernel's own
+    ``pre``; ``u`` bitwise the plain head on the kernel's ``h2``.
+    ``weights`` as for :func:`mlp_forward`. Returns ``violations`` (check
+    -> elements that fail it; all zero when the kernel holds), the share
+    of ``h1``, ``h2`` and ``u`` bitwise the plain end-to-end forward,
+    ``u``'s largest absolute difference from it, how much of the sum
+    bound each layer uses at most, and the share of each layer's units
+    within ``MLP_NEAR_TIE`` of a bf16 rounding boundary (the units the
+    kernel sums again as the plain chain)."""
+    w1, b1, w2, b2, w3, b3 = (w[0] for w in weights)
+    plain = mlp_stages(obs, (w1, b1, w2, b2, w3, b3))
+    violations = {"x": int((_bits(got.x) != _bits(plain.x)).sum())}
+    bound_use, near_tie = {}, {}
+    for name, inp, w, b, h_name in (("pre1", got.x, w1, b1, "h1"),
+                                    ("pre2", got.h1, w2, b2, "h2")):
+        pre = getattr(got, name)
+        ref = _chained_product(inp.to(torch.float32), w.to(torch.float32))
+        mag = inp.double().abs() @ w.double().abs()
+        bound = MLP_SUM_BOUND * mag
+        diff = (pre.double() - ref.double()).abs()
+        violations[name] = int((diff > bound).sum())
+        bound_use[name] = float((diff / bound.clamp_min(1e-300)).max())
+        edges = [(pre.double() + s * MLP_NEAR_TIE * mag).to(torch.float32)
+                 .to(torch.bfloat16) for s in (-1, 1)]
+        near_tie[name] = float((_bits(edges[0]) != _bits(edges[1]))
+                               .double().mean())
+        violations[h_name] = int((_bits(getattr(got, h_name))
+                                  != _bits(_gelu_layer(pre, b))).sum())
+    head = _chained_product(got.h2.to(torch.float32), w3) + b3
+    violations["u"] = int((_bits(got.u) != _bits(head)).sum())
+    share = {f: float((_bits(getattr(got, f)) == _bits(getattr(plain, f)))
+                      .double().mean())
+             for f in ("h1", "h2", "u")}
+    return {"violations": violations, "bitwise_share": share,
+            "u_max_abs_diff": float((got.u - plain.u).abs().max()),
+            "sum_bound_use": bound_use, "near_tie_share": near_tie}
+
+
 def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
                               params_sim: SimParams):
     """The MLP kernel's plain version: an ``action_fn`` for
-    `sim/rollout.py` with the kernel's numerics (log1p-normalized
-    observation in bfloat16; two torso layers whose float32 sums are
-    rounded once to bfloat16, the bias added in bfloat16 and the tanh-form
-    GELU computed operation by operation in bfloat16, `models/nets.py
-    ::gelu_tanh`; a float32 head; the latent codec). It
-    differs from `train/ppo.py::PPOBackend` only in where bfloat16 rounds.
+    `sim/rollout.py` with the kernel's numerics, :func:`mlp_stages` on the
+    observation, then the latent codec. It differs from
+    `train/ppo.py::PPOBackend` only in where bfloat16 rounds.
 
     Every product is a chained float32 sum over k in ascending order
-    (:func:`_chained_product`), not ``torch.matmul``: a product of two
-    bfloat16 values is exact in float32, so the torso sums equal the
-    kernel's bit for bit on any device and whatever the TF32 settings;
-    the head's float32 products round once each in a fused multiply-add on
-    the card, as the kernel's do."""
-    from ccka_tpu_torch.models.nets import (_normalize_obs, gelu_tanh,
-                                            latent_to_action)
+    (:func:`_chained_product`), not ``torch.matmul``, so the result does
+    not depend on the device or the TF32 settings. The kernel's head adds
+    in this order too (its float32 products round once each in a fused
+    multiply-add on the card, as ``addcmul``'s do there). Its torso sums
+    come from the tensor cores in their own order, and it rounds each to
+    the side this version's chain rounds to, summing the chain again
+    where a bfloat16 rounding boundary lies close
+    (:func:`check_mlp_forward` holds each layer)."""
+    from ccka_tpu_torch.models.nets import latent_to_action
     from ccka_tpu_torch.policy.base import observe
 
     (_, _, _), was_single = _mlp_dims(
@@ -528,19 +655,11 @@ def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
         raise ValueError("kernel_numerics_action_fn takes one net, not a "
                          "population")
     dev = params_sim.dt_s.device
-    w1, b1, w2, b2, w3, b3 = (x[0] for x in _pack_mlp_tensors(net_params,
-                                                               dev))
-    w1f, w2f = w1.to(torch.float32), w2.to(torch.float32)
+    weights = tuple(x[0] for x in _pack_mlp_tensors(net_params, dev))
 
     def action_fn(state, exo, t):
         obs = observe(params_sim, state, exo).flatten()
-        x = _normalize_obs(obs).to(torch.bfloat16)
-        h = gelu_tanh(_chained_product(x.to(torch.float32), w1f)
-                      .to(torch.bfloat16) + b1)
-        h = gelu_tanh(_chained_product(h.to(torch.float32), w2f)
-                      .to(torch.bfloat16) + b2)
-        u = _chained_product(h.to(torch.float32), w3) + b3
-        return latent_to_action(u, cluster)
+        return latent_to_action(mlp_stages(obs, weights).u, cluster)
 
     return action_fn
 

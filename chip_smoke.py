@@ -20,7 +20,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
 2. build every CUDA source in each lane variant with nvcc (8 processes,
-   all started together), printing registers and spill;
+   all started together), printing registers and spill, and for each MLP
+   build every kernel function's SASS counts (`cuobjdump -sass`:
+   instructions, tensor-core HMMA, spill loads and stores LDL/STL); a
+   build whose MLP kernels hold no HMMA fails;
 3. philox_uniform_kernel against `sim/random.uniforms`, bitwise. This
    kernel is on no rollout path (the rollout kernels inline the same
    device function); its launch count is this phase's;
@@ -39,7 +42,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    decoded plan per cluster and one broadcast to every cluster, at phase
    4's standard; a rule-equivalent plan bitwise the rule kernel; its time
    at multiregion B = 32768 x T = 2880 on a random plan;
-5. the MLP kernel against `kernel_numerics_action_fn`: (a) the shipped
+5. the MLP kernel against `kernel_numerics_action_fn` (the tensor cores
+   add the torso's sums in another order than the plain chains; the
+   kernel rounds each hidden unit to the chain's side): (a) the shipped
    multiregion flagship, B = 1024 x T = 32, deterministic, every field's
    largest per-cluster relative difference within 1e-3 (five near-zero-
    denominator fields 2e-2); (d) the same with the replay checkpoint on
@@ -59,6 +64,15 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    standard; denials, stale ticks, shed load and deadline misses among
    the near-zero fields) and at B = 8192 x T = 720 by
    NEURAL_MEAN_PARITY_TOLERANCES;
+5e. the MLP kernel's forward layer by layer (`mlp_forward`, the C entry
+   `ccka_mlp_forward` running the rollout kernel's device functions):
+   the observations of the plain multiregion rollout's states on the
+   calm stream at ticks 0, 60, 120 and 180, B = 32768, through the
+   shipped flagship; `check_mlp_forward`: each pre-activation within
+   2^-16 x sum_k |w[k][j] x[k]| of the plain float32 chain, x, h1, h2 and
+   u bitwise given the kernel's own input to each layer; the shares of
+   h1, h2 and u bitwise the plain end-to-end forward and u's largest
+   difference; the entry's time. Its launches are this phase's;
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
@@ -280,8 +294,6 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
     observation, with ``workloads`` the D = 16 queues), counted by
     dispatching it on the CPU. The MLP's chained products (`addcmul`) are
     left out: the bound counts them from the layer widths."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from ccka_tpu_torch.faults.types import FaultStep
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import RulePolicy
@@ -292,18 +304,6 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
     from ccka_tpu_torch.sim.types import SimParams
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
     from ccka_tpu_torch.workloads.types import WorkloadState, WorkloadStep
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if (torch.Tag.pointwise in func.tags
-                    and isinstance(out, torch.Tensor)
-                    and out.dtype.is_floating_point
-                    and func is not torch.ops.aten.addcmul.default):
-                Count.n += out.numel()
-            return out
 
     params = SimParams.from_config(cfg, device="cpu")
     src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
@@ -328,8 +328,7 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
     lanes = (dict(workload=WorkloadStep(one, one, one),
                   wl_state=WorkloadState.zero(16, 1, "cpu"))
              if workloads else {})
-    Count.n = 0
-    with Count():
+    def one_tick():
         u3 = (uniforms(0, torch.zeros((1, 1), dtype=torch.int64), 0,
                        torch.arange(P * Z)[None, :]).reshape(3, 1, P, Z)
               if stochastic else None)
@@ -338,6 +337,30 @@ def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
         action = action_fn(state, obs, 0)
         step(params, state, action, exo, u3, stochastic=stochastic,
              fault=fault, **lanes)
+
+    return pointwise_ops(one_tick)
+
+
+def pointwise_ops(fn) -> int:
+    """Elements written by the floating-point pointwise operations that
+    ``fn()`` dispatches (on the CPU), the chained products' `addcmul`s
+    left out: a bound counts those from the layer widths."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (torch.Tag.pointwise in func.tags
+                    and isinstance(out, torch.Tensor)
+                    and out.dtype.is_floating_point
+                    and func is not torch.ops.aten.addcmul.default):
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
     return Count.n
 
 
@@ -960,6 +983,106 @@ def lane_kernel_rows(boards: dict, found: dict) -> list:
     return rows
 
 
+# ---- the MLP kernel's forward, layer by layer (phase 5e)
+
+FWD_TICKS = (0, 60, 120, 180)
+FWD_REPLACES = "ccka_tpu/sim/megakernel.py:509"
+
+
+def forward_ops(net) -> int:
+    """Floating-point pointwise operations of the plain forward on one
+    observation (:func:`pointwise_ops`)."""
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    weights = tuple(w[0] for w in mk._pack_mlp_tensors(net, "cpu"))
+    obs = torch.ones((1, weights[0].shape[0]))
+    return pointwise_ops(lambda: mk.mlp_stages(obs, weights))
+
+
+def forward_phase(dev, setup) -> dict:
+    """5e: the observations of the plain multiregion rollout's states on
+    the calm stream (B = 32768, `kernel_numerics_action_fn`) at
+    FWD_TICKS through `mlp_forward` on the card, each held by
+    `check_mlp_forward`; the entry's time, its plain version's and its
+    bound at N = 32768. Returns its `kernels` row."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.policy.base import observe
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
+                                            initial_state)
+
+    cfg, src, params, _, _, net = setup("multiregion")
+    T = max(FWD_TICKS) + 1
+    traces = src.batch_trace_device(
+        T, torch.Generator(device=dev).manual_seed(59), B_MAIN, device=dev)
+    plain = mk.kernel_numerics_action_fn(net, cfg.cluster, params)
+    seen = {}
+
+    def action_fn(state, exo, t):
+        if t in FWD_TICKS:
+            seen[t] = observe(params, state, exo).flatten().contiguous()
+        return plain(state, exo, t)
+
+    batched_rollout_summary(params, initial_state(cfg, B_MAIN, dev),
+                            action_fn, traces, 5, stochastic=False)
+    del traces
+    weights = mk._pack_mlp_tensors(net, dev)
+    build.launch_mlp_forward.launches = 0
+    worst: dict = {"u_max_abs_diff": 0.0}
+    for t in FWD_TICKS:
+        got = mk.mlp_forward(seen[t], weights)
+        torch.cuda.synchronize()
+        rep = mk.check_mlp_forward(got, seen[t], weights)
+        log(f"# 5e forward multiregion N={B_MAIN} tick {t}: {rep}")
+        if any(rep["violations"].values()):
+            fail(f"5e: the MLP kernel's forward at tick {t} breaks its "
+                 f"standard: {rep['violations']}")
+        worst["u_max_abs_diff"] = max(worst["u_max_abs_diff"],
+                                      rep["u_max_abs_diff"])
+        for f, v in rep["bitwise_share"].items():
+            worst[f"min_bitwise_share_{f}"] = min(
+                worst.get(f"min_bitwise_share_{f}", 1.0), v)
+        for key in ("sum_bound_use", "near_tie_share"):
+            for f, v in rep[key].items():
+                worst[f"max_{key}_{f}"] = max(
+                    worst.get(f"max_{key}_{f}", 0.0), v)
+    launches = build.launch_mlp_forward.launches
+    if launches != len(FWD_TICKS):
+        fail(f"5e launched the forward {launches} times, expected "
+             f"{len(FWD_TICKS)}")
+    obs = seen[FWD_TICKS[-1]]
+    ms = median_ms(lambda: mk.mlp_forward(obs, weights))
+    member = tuple(w[0] for w in weights)
+    plain_ms = median_ms(lambda: mk.mlp_stages(obs, member))
+    F, H, A = mk._mlp_dims(net, P=cfg.cluster.n_pools,
+                           Z=cfg.cluster.n_zones)[0]
+    N = B_MAIN
+    ops = forward_ops(net)
+    nbytes = (N * F * 4 + N * F * 2 + 2 * N * H * (4 + 2) + N * A * 4
+              + (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4)
+    b_ms, b_by, terms = bound(nbytes, {
+        "pointwise": (ops * N, F32_UNFUSED_OPS_PER_S, "float32"),
+        "torso": (2 * (F * H + H * H) * N, BF16_TENSOR_OPS_PER_S,
+                  "tensor cores"),
+        "head": (2 * H * A * N, F32_OPS_PER_S, "float32")})
+    log(f"# 5e forward N={N}: {ms:.4f} ms median of {N_TIMED}, plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; terms in ms "
+        f"{terms}; {ops} pointwise float ops per observation); over the "
+        f"{len(FWD_TICKS)} ticks {worst}")
+    return {"name": "mlp_forward_kernel", "route": "cuda",
+            "source": "ccka_tpu_torch/csrc/rollout_mlp.cu",
+            "replaces": FWD_REPLACES, "launches": launches,
+            "launches_from": "phase 5e, its check: the rollout kernel "
+                             "inlines the same device functions (0 "
+                             "launches on every path)",
+            "max_abs_err": worst["u_max_abs_diff"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"multiregion N={N}, F={F} H={H} A={A}, the plain "
+                     f"rollout's observations at tick {FWD_TICKS[-1]}",
+            **{k: v for k, v in worst.items() if k != "u_max_abs_diff"}}
+
+
 # ---- carried-state streaming (phase 10)
 
 STREAM_KEY, STREAM_SEED = 83, 41    # the blocked stream's seed; Philox's
@@ -1428,6 +1551,12 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"#   ptxas: {line.strip()}")
         build.library(*unit)
+        if unit[0] != "rollout_mlp.cu":
+            continue
+        for fn, counts in build.sass_summary(lib).items():
+            log(f"#   sass: {fn}: {counts}")
+            if counts["HMMA"] < 1:
+                fail(f"{fn} in {lib.name} runs no tensor-core instruction")
 
     def gen(seed: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(seed)
@@ -1626,6 +1755,9 @@ def main() -> None:
 
     # ---- 5b. the zero gates, 5c. the widened kernels: see lane_phases.
     lanes_found = lane_phases(dev, setup, hold)
+
+    # ---- 5e. the MLP kernel's forward layer by layer: see forward_phase.
+    forward_rec = forward_phase(dev, setup)
 
     counters = {
         "rollout_profiles_kernel": mk.megakernel_summary_from_packed,
@@ -1921,6 +2053,7 @@ def main() -> None:
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, F={F} "
                   f"H={H} A={A}, one member (phase 7)",
          "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}"},
+        forward_rec,
         {"name": "rollout_profiles_kernel<PLAN>", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
          "replaces": PLAN_REPLACES,

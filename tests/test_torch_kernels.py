@@ -173,6 +173,74 @@ def test_mlp_kernel_population_axis(cuda):
     assert not torch.equal(pop.cost_usd[1], pop.cost_usd[0])
 
 
+@pytest.mark.parametrize("preset,variant", [("default", "replay"),
+                                            ("multiregion", "")])
+def test_mlp_forward_entry_holds_its_standard(cuda, preset, variant):
+    """The kernel's forward (`ccka_mlp_forward`) on the observations of a
+    plain rollout's states (B = 300, a ragged last warp) at
+    `check_mlp_forward`'s standard: each pre-activation within the sum
+    bound, x, the epilogues and the head bitwise given the kernel's own
+    inputs; one launch counted."""
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.policy.base import observe
+
+    cfg = PRESETS[preset]()
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    B, T = 300, 12
+    traces = src.batch_trace_device(
+        T, torch.Generator(device=cuda).manual_seed(7), B, device=cuda)
+    params = SimParams.from_config(cfg, device=cuda)
+    net = load_flagship_backend(cfg, variant=variant, device=cuda)[0].params
+    plain = mk.kernel_numerics_action_fn(net, cfg.cluster, params)
+    seen = {}
+
+    def action_fn(state, exo, t):
+        seen[t] = observe(params, state, exo).flatten()
+        return plain(state, exo, t)
+
+    batched_rollout_summary(params, initial_state(cfg, B, cuda), action_fn,
+                            traces, 4, stochastic=True)
+    weights = mk._pack_mlp_tensors(net, cuda)
+    before = build.launch_mlp_forward.launches
+    got = mk.mlp_forward(seen[T - 1].contiguous(), weights)
+    assert build.launch_mlp_forward.launches == before + 1
+    rep = mk.check_mlp_forward(got, seen[T - 1], weights)
+    assert set(rep["violations"].values()) == {0}, rep
+    assert rep["bitwise_share"]["h1"] > 0.9, rep
+
+
+@pytest.mark.parametrize("stream", ["plain", "severe", "flash-crowd",
+                                    "mixed"])
+@pytest.mark.parametrize("preset", ["default", "multiregion"])
+def test_mlp_instantiations_are_deterministic(cuda, preset, stream):
+    """Two launches of each MLP instantiation on the same inputs (both
+    modes, non-carry and CARRY) are bitwise each other: the tensor-core
+    torso adds in a fixed order."""
+    cfg = PRESETS[preset]()
+    src, pcfg = _stream_source(cfg, stream)
+    params = SimParams.from_config(pcfg, device=cuda)
+    net = load_flagship_backend(
+        cfg, variant="" if cfg.cluster.regions else "replay",
+        device=cuda)[0].params
+    B, T = 288, 32
+    packed = src.packed_trace_device(T, 5, B, device=cuda)
+    for stochastic in (False, True):
+        runs = [mk.neural_megakernel_summary_from_packed(
+            params, cfg.cluster, net, packed, T, 3, stochastic=stochastic)
+            for _ in range(2)]
+        for f in runs[0]._fields:
+            assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+        fns = mk.packed_mode_block_summary_fn(
+            params, cfg.cluster, "neural", T=T, block_T=T, t_chunk=16,
+            stochastic=stochastic, net_params=net)
+        state = fns.init_state(packed.shape[1], B, device=cuda)
+        outs = [fns.step(packed, state, 0, 3,
+                         state_out=torch.zeros_like(state))[1]
+                for _ in range(2)]
+        assert torch.equal(outs[0], outs[1])
+
+
 def test_mlp_kernel_refuses_other_widths(cuda):
     cfg = PRESETS["default"]()
     params = SimParams.from_config(cfg, device=cuda)
