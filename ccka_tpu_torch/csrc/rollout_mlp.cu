@@ -40,10 +40,15 @@
 // tensor cores, and a unit whose sum lies within 2^-20 of them of a
 // boundary (near_tie; 0.1 to 4 % of a layer's units for the shipped
 // flagship, chip_smoke.py phase 5e) is summed again as the plain chain on
-// the float32 pipes and rounded from that: every hidden unit then rounds
-// as the plain version's does, and the epilogue and the head are bitwise
-// the plain ones given the same inputs. ccka_mlp_forward below lets a
-// caller check this layer by layer (sim/megakernel.py::check_mlp_forward).
+// the float32 pipes and rounded from that. Every hidden unit then rounds
+// as the plain version's does wherever the two sums differ by less than
+// 2^-20 of the magnitudes, a premise that is measured, not guaranteed
+// (any two orders of a 128-term float32 sum may differ by up to 2^-16):
+// chip_smoke.py phase 5e measured at most 2^-21.3 for the shipped
+// flagship, a margin of 2.5x, and fails when it exceeds 2^-20 or any
+// unit differs. The epilogue and the head are bitwise the plain ones
+// given the same inputs. ccka_mlp_forward below lets a caller check this
+// layer by layer (sim/megakernel.py::check_mlp_forward).
 //
 // CARRY: one time block of a longer rollout, as in rollout_profiles.cu;
 // the held observation is carried under FAULTS, and member m's state is
@@ -315,10 +320,11 @@ __device__ __forceinline__ float chained_sum(const bf16* x, const bf16* w) {
 // tensor-core sum whose terms' magnitudes add up to a: there the plain
 // version's ascending chain may round to the other side, and the unit is
 // summed again as the chain. Both sums are within (n - 1) 2^-24 a of the
-// exact one, but their difference stays far below kNearTie * a:
-// chip_smoke.py phase 5e reports its largest share of 2^-16 a
-// (sum_bound_use: 0.025, so 2^-21.3 a, for the shipped multiregion
-// flagship on an NVIDIA H100 80GB HBM3 at 700 W).
+// exact one; their difference was measured below kNearTie * a, which
+// nothing guarantees: chip_smoke.py phase 5e reports its largest share
+// of 2^-16 a (sum_bound_use: 0.025, so 2^-21.3 a, for the shipped
+// multiregion flagship on an NVIDIA H100 80GB HBM3 at 700 W) and fails
+// above 2^-20 a (sim/megakernel.py::mlp_forward_departures).
 constexpr float kNearTie = 1.0f / 1048576.0f;  // 2^-20
 
 __device__ __forceinline__ bool near_tie(float m, float a) {

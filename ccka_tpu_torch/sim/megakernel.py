@@ -630,6 +630,23 @@ def check_mlp_forward(got: MlpStages, obs: torch.Tensor,
             "sum_bound_use": bound_use, "near_tie_share": near_tie}
 
 
+def mlp_forward_departures(rep: dict) -> dict:
+    """What a :func:`check_mlp_forward` report shows against the MLP
+    kernel being bitwise its plain version: each layer whose sums differ
+    from the plain chain by more than the kernel's near-tie window
+    (``sum_bound_use`` above ``MLP_NEAR_TIE / MLP_SUM_BOUND``, where
+    summing the near-tie units again no longer makes every unit round as
+    the chain does), and each of ``h1``, ``h2``, ``u`` not wholly bitwise
+    the plain end-to-end forward. Empty when the kernel was bitwise on
+    these observations with its premise met."""
+    limit = MLP_NEAR_TIE / MLP_SUM_BOUND
+    out = {f"sum_bound_use_{k}": v for k, v in rep["sum_bound_use"].items()
+           if v > limit}
+    out.update({f"bitwise_share_{k}": v
+                for k, v in rep["bitwise_share"].items() if v < 1.0})
+    return out
+
+
 def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
                               params_sim: SimParams):
     """The MLP kernel's plain version: an ``action_fn`` for
@@ -642,10 +659,12 @@ def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
     not depend on the device or the TF32 settings. The kernel's head adds
     in this order too (its float32 products round once each in a fused
     multiply-add on the card, as ``addcmul``'s do there). Its torso sums
-    come from the tensor cores in their own order, and it rounds each to
-    the side this version's chain rounds to, summing the chain again
-    where a bfloat16 rounding boundary lies close
-    (:func:`check_mlp_forward` holds each layer)."""
+    come from the tensor cores in their own order; it sums the chain again
+    where a bfloat16 rounding boundary lies close, so each unit rounds to
+    the side this version's chain rounds to while the two sums differ by
+    less than that window (:func:`check_mlp_forward` holds each layer and
+    :func:`mlp_forward_departures` names where the premise or the
+    bitwise result fails)."""
     from ccka_tpu_torch.models.nets import latent_to_action
     from ccka_tpu_torch.policy.base import observe
 

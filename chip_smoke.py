@@ -70,9 +70,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    calm stream at ticks 0, 60, 120 and 180, B = 32768, through the
    shipped flagship; `check_mlp_forward`: each pre-activation within
    2^-16 x sum_k |w[k][j] x[k]| of the plain float32 chain, x, h1, h2 and
-   u bitwise given the kernel's own input to each layer; the shares of
-   h1, h2 and u bitwise the plain end-to-end forward and u's largest
-   difference; the entry's time. Its launches are this phase's;
+   u bitwise given the kernel's own input to each layer; then
+   `mlp_forward_departures`: every sum within 2^-20 x sum_k |w[k][j]
+   x[k]| of the chain (the kernel's near-tie window, the premise of its
+   bitwise rounding) and h1, h2 and u wholly bitwise the plain end-to-end
+   forward; u's largest difference; the entry's time. Its launches are
+   this phase's;
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
@@ -1003,7 +1006,7 @@ def forward_phase(dev, setup) -> dict:
     """5e: the observations of the plain multiregion rollout's states on
     the calm stream (B = 32768, `kernel_numerics_action_fn`) at
     FWD_TICKS through `mlp_forward` on the card, each held by
-    `check_mlp_forward`; the entry's time, its plain version's and its
+    `check_mlp_forward` and `mlp_forward_departures`; the entry's time, its plain version's and its
     bound at N = 32768. Returns its `kernels` row."""
     from ccka_tpu_torch.kernels import build
     from ccka_tpu_torch.policy.base import observe
@@ -1037,6 +1040,11 @@ def forward_phase(dev, setup) -> dict:
         if any(rep["violations"].values()):
             fail(f"5e: the MLP kernel's forward at tick {t} breaks its "
                  f"standard: {rep['violations']}")
+        departures = mk.mlp_forward_departures(rep)
+        if departures:
+            fail(f"5e: the MLP kernel's forward at tick {t} is not "
+                 f"bitwise its plain version, or its sums leave the "
+                 f"near-tie window: {departures}")
         worst["u_max_abs_diff"] = max(worst["u_max_abs_diff"],
                                       rep["u_max_abs_diff"])
         for f, v in rep["bitwise_share"].items():

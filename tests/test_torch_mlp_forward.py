@@ -222,3 +222,30 @@ def test_forward_comparator_accepts_another_sum_order_only():
                                               (5, 3))})
         v = mk.check_mlp_forward(bad, obs, weights)["violations"]
         assert v[want] == 1, (field, v)
+
+
+def test_forward_departures_name_what_breaks_bitwise_rounding():
+    """mlp_forward_departures is empty on the plain forward; a forward
+    whose sums sit inside the near-tie window (1/32 of the sum bound)
+    leaves the premise standing, and one at 0.9 of the bound names the
+    layers past the window and the fields no longer bitwise the plain
+    forward."""
+    rng = np.random.default_rng(15)
+    weights = _pack(_random_net(rng, 36, 128, 18))
+    _, _, _, _, obs = _observations(rng, "multiregion", 64)
+    plain = mk.mlp_stages(obs, tuple(w[0] for w in weights))
+    assert mk.mlp_forward_departures(
+        mk.check_mlp_forward(plain, obs, weights)) == {}
+
+    inside = mk.check_mlp_forward(
+        _perturbed_forward(obs, weights, 1 / 32, rng), obs, weights)
+    assert set(inside["violations"].values()) == {0}
+    assert not any(k.startswith("sum_bound_use_")
+                   for k in mk.mlp_forward_departures(inside))
+
+    far = mk.check_mlp_forward(
+        _perturbed_forward(obs, weights, 0.9, rng), obs, weights)
+    assert set(far["violations"].values()) == {0}
+    got = mk.mlp_forward_departures(far)
+    assert {"sum_bound_use_pre1", "sum_bound_use_pre2",
+            "bitwise_share_h1"} <= set(got), got
