@@ -587,8 +587,10 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
           put(s.nodes[p][z][0]);
           put(s.nodes[p][z][1]);
         }
-      put(s.incoming(0));
-      put(s.incoming(1));
+      float inc[2];
+      s.incoming(inc);
+      put(inc[0]);
+      put(inc[1]);
       put(s.running[0]);
       put(s.running[1]);
       put(o.demand[0]);

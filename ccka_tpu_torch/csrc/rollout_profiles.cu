@@ -1,7 +1,7 @@
-// Profile and plan-playback fleet rollouts on Hopper: one thread steps one
-// cluster through the whole horizon under the Peak/Off-Peak rule, under
-// the carbon-aware re-rank of its zone weights, or replaying a
-// precomputed plan.
+// Profile and plan-playback fleet rollouts on Hopper: two adjacent lanes
+// of a warp step one cluster through the whole horizon, one lane per pool,
+// under the Peak/Off-Peak rule, under the carbon-aware re-rank of its zone
+// weights, or replaying a precomputed plan.
 //
 // Replaces: ccka_tpu/sim/megakernel.py::_run (the Pallas TPU kernel of
 // _make_kernel(policy="profiles") and, with POLICY = kCarbon,
@@ -13,7 +13,7 @@
 // (_run(state_in=...) :1010 and _run_plan(state_in=...) :1657, body
 // :340-353 and :896-903).
 //
-// CARRY: one time block of a longer rollout. The thread loads its
+// CARRY: one time block of a longer rollout. Each lane loads its
 // registers (Fleet, the workload Queues, the carbon re-rank's held
 // observation under FAULTS) from the carried state at the block's first
 // tick and stores them after its last (rollout_tick.cuh::CarryRows, batch
@@ -58,14 +58,32 @@
 // by the macros CCKA_FAULTS and CCKA_WL_D (kernels/build.py builds the
 // four pairs in parallel, one library each).
 //
-// Design: the whole state (nodes[P][Z][2], pipe[K][P][Z][2], running[2],
-// timer[P], 16 accumulators, the workload queues) lives in registers, and one loop runs over
-// all T ticks inside the thread: no time grid, no scratch carried between
-// blocks, no padding ticks. The stream exo[t][r][b] has b innermost, so a
-// warp's reads of one row coalesce. 32768 threads fill only about 8 of an
-// SM's 64 warp slots, so this first version is expected to be latency-
-// bound; prefetching exo rows into shared memory (cp.async or TMA) is
-// later work.
+// Design: a cluster is a pair of lanes (rollout_tick.cuh::Group<2>), lane
+// p owning pool p: its nodes, pipeline and timer in registers, its spot
+// rows' Philox draws and interruptions, its share of the provisioning
+// split and consolidation; lane c computes capacity type c's softmax and
+// consolidation terms. The shared state (running pods, accumulators,
+// workload queues, the held observation) is in both lanes in the same
+// bits; sums over pools are handed over by __shfl_sync in the plain
+// version's order. Lane 0 stores the output block and the carried state's
+// shared rows, each lane its own pool's rows. A pair past B steps a copy
+// of cluster B - 1 and stores nothing, so every lane reaches every
+// shuffle. One loop runs over all T ticks inside the pair: no time grid,
+// no scratch carried between blocks, no padding ticks. The stream
+// exo[t][r][b] has b innermost, so a warp's reads of one row coalesce.
+//
+// What bounds it (PERF.md, section 6): one thread a cluster was
+// latency-bound (time flat in the fleet size, under two warps a
+// scheduler at B = 32768); a pair halves each lane's chain of dependent
+// operations and doubles the warps. The divisions with a zero dividend
+// (most of a rule profile's zone split) took the library's slow path;
+// rollout_tick.cuh::quot answers them apart. A B = 32768 fleet is then
+// about 1.3x its issue floor (SASS instructions of the tick loop x ticks
+// x warps over the 528 schedulers' rate). The register bound keeps the
+// fleet in one wave; the heaviest lane and CARRY instantiations spill
+// under it, which measured faster than a second wave. A register double
+// buffer of the next tick's rows gained little on the main path and made
+// the lane instantiations spill, so each tick loads its own rows.
 //
 // philox_uniform_kernel writes the uniforms of the tick's Philox stream
 // for a grid of (tick, row, cluster); it is on no rollout path.
@@ -84,7 +102,8 @@ namespace {
 using namespace ccka;
 
 constexpr int kMaxAct = 32;
-constexpr int kBlock = 64;
+constexpr int kGroup = 2;  // lanes a cluster: one per pool
+constexpr int kBlock = 64;  // threads a block: 32 clusters
 
 // The policy of a rollout_profiles_kernel instantiation.
 constexpr int kRule = 0;
@@ -98,19 +117,21 @@ struct PlanStream {
   size_t ts, rs, bs;
 };
 
-// The action coordinates in the packed order (zone weights, capacity
-// types, aggressiveness, consolidate-after, HPA) from coordinate j's
-// value src(j).
-template <int P, int Z, typename Src>
-__device__ __forceinline__ void fill_action(TickAction<P, Z>& a, Src src) {
+// The action coordinates of the lane's PL pools from pool0 on, in the
+// packed order (zone weights, capacity types, aggressiveness,
+// consolidate-after, HPA), from coordinate j's value src(j).
+template <int P, int Z, int PL, typename Src>
+__device__ __forceinline__ void fill_action(TickAction<PL, Z>& a, int pool0,
+                                            Src src) {
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
+  for (int j = 0; j < PL; ++j) {
+    const int p = pool0 + j;
 #pragma unroll
-    for (int z = 0; z < Z; ++z) a.zw[p][z] = src(p * Z + z);
-    a.ct[p][0] = src(P * Z + p * 2);
-    a.ct[p][1] = src(P * Z + p * 2 + 1);
-    a.aggr[p] = src(P * Z + 2 * P + p);
-    a.after[p] = src(P * Z + 3 * P + p);
+    for (int z = 0; z < Z; ++z) a.zw[j][z] = src(p * Z + z);
+    a.ct[j][0] = src(P * Z + p * 2);
+    a.ct[j][1] = src(P * Z + p * 2 + 1);
+    a.aggr[j] = src(P * Z + 2 * P + p);
+    a.after[j] = src(P * Z + 3 * P + p);
   }
   a.hpa[0] = src(P * Z + 4 * P);
   a.hpa[1] = src(P * Z + 4 * P + 1);
@@ -122,62 +143,79 @@ struct Profiles {
   float carbon[3];        // sharpness, min_weight, stickiness (kCarbon only)
 };
 
+// Register budget: a fleet of 32768 clusters in pairs is 65536 threads,
+// 497 a SM, so 8 blocks of kBlock = 64 threads must be resident on each SM
+// at once: at most 65536 / (8 * 64) = 128 registers a thread, in every
+// instantiation (see the design note above for what that costs).
+constexpr int kMinBlocks = 8;
+
 template <int P, int Z, int K, bool STOCH, int POLICY, bool FAULTS,
           int WL_D, bool CARRY>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 rollout_profiles_kernel(const float* __restrict__ exo,
                         float* __restrict__ out, const Profiles pr,
                         const PlanStream plan, int T, int B, int rows, int fb,
                         int wb, uint32_t k0, uint32_t k1, const Carry cs) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  static_assert(P == kGroup, "a lane per pool");
+  constexpr int PL = P / kGroup;
   // The carbon re-rank observes held signals under an outage.
   constexpr bool kHeld = FAULTS && POLICY == kCarbon;
+  const int rank = threadIdx.x % kGroup;
+  const int b = (blockIdx.x * kBlock + threadIdx.x) / kGroup;
+  // Every lane must reach the group's shuffles: a pair past B steps a
+  // copy of cluster B - 1 and stores nothing.
+  const bool live = b < B;
+  const int bv = live ? b : B - 1;
+  const int pool0 = rank * PL;
 
-  const Consts<P, Z> k(pr.p);
-  Fleet<P, Z, K> s;
+  const Consts<P, Z, kGroup> k(pr.p, rank);
+  Fleet<P, Z, K, kGroup> s(rank);
   Queues<WL_D> q;
   TickExo<Z> held{};
   if constexpr (CARRY)
-    load_carry<P, Z, K, kHeld, WL_D>(cs.in, B, b, s, q, held);
+    load_carry<P, Z, K, kHeld, WL_D>(cs.in, B, bv, s, q, held);
   // The global cluster of the Philox counter.
-  const int gb = CARRY ? cs.b0 + b : b;
+  const int gb = CARRY ? cs.b0 + bv : bv;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
-    // The global tick: Philox, the held observation's first tick.
-    const int tg = CARRY ? cs.t0 + t : t;
-    const float* x = exo + (size_t)t * plane + b;
+    const float* x = exo + (size_t)t * plane + bv;
     const TickExo<Z> e(x, B);
     const TickLanes<Z, FAULTS, (WL_D > 0)> l(x, B, fb, wb);
-    TickAction<P, Z> a;
-    if (POLICY == kPlan) {
-      // Row t of this cluster's plan (or of the broadcast plan).
-      const float* row = plan.p + (size_t)t * plan.ts + (size_t)b * plan.bs;
-      fill_action<P, Z>(a, [&](int j) { return __ldg(row + j * plan.rs); });
+
+    // The global tick: Philox, the held observation's first tick.
+    const int tg = CARRY ? cs.t0 + t : t;
+    TickAction<PL, Z> a;
+    if constexpr (POLICY == kPlan) {
+      // Row t of this cluster's plan (or of the broadcast plan): the
+      // lane's pools' coordinates.
+      const float* row = plan.p + (size_t)t * plan.ts + (size_t)bv * plan.bs;
+      fill_action<P, Z>(a, pool0,
+                        [&](int j) { return __ldg(row + j * plan.rs); });
     } else {
       // The rule: per-cluster select of the two profiles on is_peak.
-      // Every coordinate index is a compile-time constant, so both loads
-      // come from the parameter bank and the select stays in registers.
       const bool peak = e.is_peak > 0.5f;
       fill_action<P, Z>(
-          a, [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; });
+          a, pool0, [&](int j) { return peak ? pr.act[1][j] : pr.act[0][j]; });
     }
 
-    if (POLICY == kCarbon) {
+    if constexpr (POLICY == kCarbon) {
       // Zone weight from observed carbon and the pre-step placement.
       const TickExo<Z> o = FAULTS ? observed(e, held, l.stale, tg) : e;
       float csum = o.carb[0];
 #pragma unroll
       for (int z = 1; z < Z; ++z) csum = csum + o.carb[z];
       const float cmean = csum * (1.0f / (float)Z);
-      float nodes_z[Z];
+      float nodes_z[Z];  // chained capacity type, then pool
 #pragma unroll
-      for (int z = 0; z < Z; ++z) {  // chained capacity type, then pool
-        float n = s.nodes[0][z][0];
+      for (int z = 0; z < Z; ++z) nodes_z[z] = -0.0f;
 #pragma unroll
-        for (int i = 1; i < 2 * P; ++i) n = n + s.nodes[i % P][z][i / P];
-        nodes_z[z] = n;
-      }
+      for (int c = 0; c < 2; ++c)
+        s.grp.chain(nodes_z, [&](float (&acc)[Z]) {
+#pragma unroll
+          for (int j = 0; j < PL; ++j)
+#pragma unroll
+            for (int z = 0; z < Z; ++z) acc[z] = acc[z] + s.nodes[j][z][c];
+        });
       float ntot = nodes_z[0];
 #pragma unroll
       for (int z = 1; z < Z; ++z) ntot = ntot + nodes_z[z];
@@ -185,19 +223,20 @@ rollout_profiles_kernel(const float* __restrict__ exo,
 #pragma unroll
       for (int z = 0; z < Z; ++z) {
         const float occ = fminf(
-            fmaxf(nodes_z[z] / ntot * (float)Z - 1.0f, -1.0f), 1.0f);
+            fmaxf(quot(nodes_z[z], ntot) * (float)Z - 1.0f, -1.0f), 1.0f);
         const float rel = (cmean - o.carb[z]) / (cmean + 1e-6f);
         const float w = fmaxf(
             sigmoid(pr.carbon[0] * rel + pr.carbon[2] * occ), pr.carbon[1]);
 #pragma unroll
-        for (int p = 0; p < P; ++p) a.zw[p][z] = w;
+        for (int j = 0; j < PL; ++j) a.zw[j][z] = w;
       }
     }
     tick<P, Z, K, STOCH, FAULTS, WL_D>(k, s, q, a, e, l, gb, tg, k0, k1);
   }
+  if (!live) return;
   if constexpr (CARRY)
     store_carry<P, Z, K, kHeld, WL_D>(cs.out, B, b, s, q, held);
-  else
+  else if (rank == 0)
     s.store(out, B, b, q.sums);
 }
 
@@ -223,7 +262,8 @@ cudaError_t launch(const float* exo, float* out, const Profiles& pr,
                    int wb, uint32_t k0, uint32_t k1, bool stochastic,
                    const Carry* cs, cudaStream_t s) {
   constexpr bool kFaults = CCKA_FAULTS != 0;
-  const dim3 grid((B + kBlock - 1) / kBlock), block(kBlock);
+  const dim3 grid((unsigned)(((size_t)B * kGroup + kBlock - 1) / kBlock)),
+      block(kBlock);
   auto go = [&](auto kernel, const Carry& c) {
     kernel<<<grid, block, 0, s>>>(exo, out, pr, plan, T, B, rows, fb, wb, k0,
                                   k1, c);

@@ -1,9 +1,9 @@
 // One control tick of one cluster, shared by the rollout kernels.
 //
-// rollout_profiles.cu (rule profiles, carbon re-rank) and rollout_mlp.cu
-// (learned policy) differ only in how a thread picks its action; what the
-// action then does to the fleet is this header: tick() advances a Fleet
-// held in the calling thread's registers by one 30 s step and folds the
+// rollout_profiles.cu (rule profiles, carbon re-rank, plan playback) and
+// rollout_mlp.cu (learned policy) differ only in how a cluster picks its
+// action; what the action then does to the fleet is this header: tick()
+// advances a Fleet held in registers by one 30 s step and folds the
 // step's metrics into its accumulators.
 //
 // Computes, per cluster and tick, exactly what the port's plain rollout
@@ -13,6 +13,19 @@
 // cheapest-zone split with the per-pool cap, consolidation (sigmoid
 // timers, PDB budget), and the cost, carbon, latency and SLO accounting
 // into 16 accumulators.
+//
+// Lanes of a cluster (Group<G>): G adjacent lanes of a warp step one
+// cluster. Lane r owns pools [r P/G, (r+1) P/G): their nodes, pipeline
+// and consolidation timers, their spot rows' interruptions, their share
+// of the provisioning split and of consolidation. The state the pools
+// share (running pods, the accumulators, the workload queues, a held
+// observation) sits in every lane of the group in the same bits: each
+// lane computes it from the same inputs with the same operations. A sum
+// over pools is handed from lane to lane (Group::chain), and with two
+// lanes a quantity of capacity type c is computed by lane c and swapped
+// (Group::per_type). The profile kernel runs pairs (G = 2, a lane per
+// pool); the MLP kernel one thread a cluster (G = 1), where every
+// exchange is the plain loop.
 //
 // Two compile-time branches widen the tick (they replace the fault and
 // workload specialisations of ccka_tpu/sim/megakernel.py::_make_kernel):
@@ -33,7 +46,8 @@
 // exact.
 //
 // Arithmetic follows the plain version op for op: sums over the pool,
-// zone and capacity-type axes are the same left-to-right chains; a
+// zone and capacity-type axes are the same left-to-right chains (a chain
+// starts from -0.0f, which x + -0.0f == x makes exact for every x); a
 // division by a literal is a multiply by its float reciprocal, as
 // PyTorch's CUDA division by a Python scalar is; build with -fmad=false
 // and without fast math so that no multiply-add is fused and expf, logf,
@@ -55,6 +69,7 @@ namespace ccka {
 constexpr int kParams = 22;
 constexpr int kOutRows = 24;
 constexpr float kEps = 1e-6f;
+constexpr unsigned kWarp = 0xffffffffu;
 
 // Packed scalar params: ccka_tpu_torch/sim/megakernel.py::_PARAM_NAMES.
 enum {
@@ -92,19 +107,102 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The scalar params of a run and what the tick derives from them once.
-template <int P, int Z>
+// a / b, correctly rounded, for b > 0 and a dividend that is often zero.
+// The library division checks its operands' range (FCHK) and takes its
+// slow path, a call of some hundred cycles, on a zero dividend, though
+// the answer is exact: a zero dividend is answered apart (0 / b = a for
+// b > 0, the sign kept) and the division is given 1 instead. The empty
+// asm hides that substitute from the compiler, which would otherwise fold
+// it back into a / b.
+__device__ __forceinline__ float quot(float a, float b) {
+  float d = a == 0.0f ? 1.0f : a;
+  asm("" : "+f"(d));
+  const float q = d / b;
+  return a == 0.0f ? a : q;
+}
+
+// v[c] for a capacity type c known at run time (a select, not a local
+// memory index).
+__device__ __forceinline__ float at(const float (&v)[2], int c) {
+  return c ? v[1] : v[0];
+}
+
+// The lanes that step one cluster (see the header comment). Every lane of
+// the warp must reach each exchange: no lane may have returned.
+template <int G>
+struct Group {
+  static_assert(G == 1 || G == 2, "a cluster has one lane, or a pair");
+  int r;  // the lane's rank in its group (unused for G = 1)
+
+  __device__ __forceinline__ int rank() const { return G == 1 ? 0 : r; }
+
+  // Continues the chains acc[0..N) by the group's terms in the plain
+  // version's order: part(acc) adds the calling lane's own terms (its
+  // pools', in order) to acc. The lanes take their turns in rank order,
+  // each continuing what its predecessor handed over by a shuffle, so
+  // every lane ends with the chains' bits.
+  template <int N, typename Part>
+  __device__ __forceinline__ void chain(float (&acc)[N], Part part) const {
+    if constexpr (G == 1) {
+      part(acc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        float mine[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) mine[n] = acc[n];
+        part(mine);
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+          acc[n] = __shfl_sync(kWarp, mine[n], i, G);
+      }
+    }
+  }
+
+  // v[n][c] = the n-th output of f(c, out) for both capacity types c: in
+  // a pair lane c computes type c and the two swap; one lane computes
+  // both.
+  template <int N, typename F>
+  __device__ __forceinline__ void per_type(float (&v)[N][2], F f) const {
+    float o[N];
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        f(c, o);
+#pragma unroll
+        for (int n = 0; n < N; ++n) v[n][c] = o[n];
+      }
+    } else {
+      f(r, o);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float other = __shfl_xor_sync(kWarp, o[n], 1);
+        v[n][0] = r ? other : o[n];
+        v[n][1] = r ? o[n] : other;
+      }
+    }
+  }
+};
+
+// The scalar params of a run and what the tick derives from them once;
+// the per-pool ones (max_nodes, sa) of the lane's own pools.
+template <int P, int Z, int G = 1>
 struct Consts {
-  float dt_s, ppn, base_od, max_nodes[P], sa[P][2], p_int, pdb, frag,
+  static constexpr int PL = P / G;
+  float dt_s, ppn, base_od, max_nodes[PL], sa[PL][2], p_int, pdb, frag,
       underutil, w_idle, rps, slo_frac, tau_s, lat_base, lat_slo, dt_hr,
       base_z, base_cap, one_m_pdb, one_p_frag, w_span, wl_qmax, wl_slo;
 
-  __device__ __forceinline__ explicit Consts(const float* p) {
+  __device__ __forceinline__ explicit Consts(const float* p, int rank = 0) {
     static_assert(P == 2, "the packed params carry two pools");
+    const int pool0 = G == 1 ? 0 : rank * PL;
     dt_s = p[DT_S], ppn = p[PPN], base_od = p[BASE_OD];
-    max_nodes[0] = p[MAXN0], max_nodes[1] = p[MAXN1];
-    sa[0][0] = p[SA00], sa[0][1] = p[SA01];
-    sa[1][0] = p[SA10], sa[1][1] = p[SA11];
+#pragma unroll
+    for (int j = 0; j < PL; ++j) {
+      max_nodes[j] = p[MAXN0 + pool0 + j];
+      sa[j][0] = p[SA00 + 2 * (pool0 + j)];
+      sa[j][1] = p[SA00 + 2 * (pool0 + j) + 1];
+    }
     p_int = p[INTERRUPT_P], pdb = p[PDB];
     frag = p[FRAG], underutil = p[UNDERUTIL];
     w_idle = p[WATTS_IDLE];
@@ -199,31 +297,36 @@ struct Queues {
   }
 };
 
-// The canonical action of one cluster for one tick.
-template <int P, int Z>
+// The canonical action of one cluster for one tick, of the PL pools a
+// lane holds (all P with one lane a cluster).
+template <int PL, int Z>
 struct TickAction {
-  float zw[P][Z], ct[P][2], aggr[P], after[P], hpa[2];
+  float zw[PL][Z], ct[PL][2], aggr[PL], after[PL], hpa[2];
 };
 
-// A cluster's state and its episode accumulators, all in registers.
-template <int P, int Z, int K>
+// A cluster's state and its episode accumulators, all in registers: the
+// lane's own pools' nodes, pipeline and timers, and the shared rest.
+template <int P, int Z, int K, int G = 1>
 struct Fleet {
-  float nodes[P][Z][2], pipe[K][P][Z][2], running[2], timer[P];
+  static constexpr int PL = P / G;
+  Group<G> grp;
+  float nodes[PL][Z][2], pipe[K][PL][Z][2], running[2], timer[PL];
   float acc_cost, acc_carbon, acc_req, acc_slo, acc_evict, nct_sum[2],
       served_sum, capacity_sum, waste_sum, lat_sum, lat_max, queue_sum,
       int_sum, denied_sum, stale_sum;
 
-  __device__ __forceinline__ Fleet() {
+  __device__ __forceinline__ explicit Fleet(int rank = 0) {
+    grp.r = rank;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      timer[p] = 0.0f;
+    for (int j = 0; j < PL; ++j) {
+      timer[j] = 0.0f;
 #pragma unroll
       for (int z = 0; z < Z; ++z)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          nodes[p][z][c] = 0.0f;
+          nodes[j][z][c] = 0.0f;
 #pragma unroll
-          for (int k = 0; k < K; ++k) pipe[k][p][z][c] = 0.0f;
+          for (int k = 0; k < K; ++k) pipe[k][j][z][c] = 0.0f;
         }
     }
     running[0] = running[1] = 0.0f;
@@ -233,14 +336,20 @@ struct Fleet {
     queue_sum = int_sum = denied_sum = stale_sum = 0.0f;
   }
 
-  // Capacity in flight of type c: the chain over (k, p, z) that both the
-  // tick's provisioning need and the policy observation use.
-  __device__ __forceinline__ float incoming(int c) const {
-    float inc = pipe[0][0][0][c];
+  // Capacity in flight of each type c: the chains over (k, p, z) that
+  // both the tick's provisioning need and the policy observation use.
+  __device__ __forceinline__ void incoming(float (&inc)[2]) const {
+    inc[0] = inc[1] = -0.0f;
 #pragma unroll
-    for (int i = 1; i < K * P * Z; ++i)
-      inc = inc + pipe[i / (P * Z)][(i / Z) % P][i % Z][c];
-    return inc;
+    for (int k = 0; k < K; ++k)
+      grp.chain(inc, [&](float (&a)[2]) {
+#pragma unroll
+        for (int j = 0; j < PL; ++j)
+#pragma unroll
+          for (int z = 0; z < Z; ++z)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) a[c] = a[c] + pipe[k][j][z][c];
+      });
   }
 
   // The [24, B] output block's column b: 16 accumulators, the 5 of the
@@ -259,7 +368,7 @@ struct Fleet {
   }
 };
 
-// A CARRY launch: one time block of a longer rollout. The thread loads its
+// A CARRY launch: one time block of a longer rollout. A cluster loads its
 // state from in[row][b] at the block's first tick and stores it to
 // out[row][b] after its last (rows: CarryRows; a population member m's
 // state starts m * rows rows further). t0 is the global tick of the
@@ -289,81 +398,94 @@ struct CarryRows {
   static constexpr int used = queues + (WL_D > 0 ? WL_D + 2 : 0);
 };
 
-// f(row, value) on every register of the carried state, in CarryRows'
-// order: loads with f = read, stores with f = write.
-template <int P, int Z, int K, bool HELD, int WL_D, typename F>
-__device__ __forceinline__ void carry_fields(Fleet<P, Z, K>& s,
+// f(row, value, shared) on every register of the carried state a lane
+// holds, in CarryRows' order: its own pools' rows (shared false), then or
+// between them the rows every lane of the group holds (shared true).
+// Loads with f = read, stores with f = write.
+template <int P, int Z, int K, bool HELD, int WL_D, int G, typename F>
+__device__ __forceinline__ void carry_fields(Fleet<P, Z, K, G>& s,
                                              Queues<WL_D>& q,
                                              TickExo<Z>& held, F f) {
   using R = CarryRows<P, Z, K, HELD, WL_D>;
-  f(0, s.acc_cost);
-  f(1, s.acc_carbon);
-  f(2, s.acc_req);
-  f(3, s.acc_slo);
-  f(4, s.acc_evict);
-  f(5, s.nct_sum[0]);
-  f(6, s.nct_sum[1]);
-  f(7, s.served_sum);
-  f(8, s.capacity_sum);
-  f(9, s.waste_sum);
-  f(10, s.lat_sum);
-  f(11, s.lat_max);
-  f(12, s.queue_sum);
-  f(13, s.int_sum);
-  f(14, s.denied_sum);
-  f(15, s.stale_sum);
+  constexpr int PL = P / G;
+  const int pool0 = s.grp.rank() * PL;
+  f(0, s.acc_cost, true);
+  f(1, s.acc_carbon, true);
+  f(2, s.acc_req, true);
+  f(3, s.acc_slo, true);
+  f(4, s.acc_evict, true);
+  f(5, s.nct_sum[0], true);
+  f(6, s.nct_sum[1], true);
+  f(7, s.served_sum, true);
+  f(8, s.capacity_sum, true);
+  f(9, s.waste_sum, true);
+  f(10, s.lat_sum, true);
+  f(11, s.lat_max, true);
+  f(12, s.queue_sum, true);
+  f(13, s.int_sum, true);
+  f(14, s.denied_sum, true);
+  f(15, s.stale_sum, true);
 #pragma unroll
-  for (int i = 0; i < 5; ++i) f(16 + i, q.sums[i]);
+  for (int i = 0; i < 5; ++i) f(16 + i, q.sums[i], true);
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int j = 0; j < PL; ++j)
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        f(R::nodes + (p * Z + z) * 2 + c, s.nodes[p][z][c]);
+        const int p = pool0 + j;
+        f(R::nodes + (p * Z + z) * 2 + c, s.nodes[j][z][c], false);
 #pragma unroll
         for (int k = 0; k < K; ++k)
-          f(R::pipe + ((k * P + p) * Z + z) * 2 + c, s.pipe[k][p][z][c]);
+          f(R::pipe + ((k * P + p) * Z + z) * 2 + c, s.pipe[k][j][z][c],
+            false);
       }
-  f(R::running, s.running[0]);
-  f(R::running + 1, s.running[1]);
+  f(R::running, s.running[0], true);
+  f(R::running + 1, s.running[1], true);
 #pragma unroll
-  for (int p = 0; p < P; ++p) f(R::timer + p, s.timer[p]);
+  for (int j = 0; j < PL; ++j) f(R::timer + pool0 + j, s.timer[j], false);
   if constexpr (HELD) {
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      f(R::held + z, held.spot[z]);
-      f(R::held + Z + z, held.od[z]);
-      f(R::held + 2 * Z + z, held.carb[z]);
+      f(R::held + z, held.spot[z], true);
+      f(R::held + Z + z, held.od[z], true);
+      f(R::held + 2 * Z + z, held.carb[z], true);
     }
-    f(R::held + 3 * Z, held.demand[0]);
-    f(R::held + 3 * Z + 1, held.demand[1]);
-    f(R::held + 3 * Z + 2, held.is_peak);
+    f(R::held + 3 * Z, held.demand[0], true);
+    f(R::held + 3 * Z + 1, held.demand[1], true);
+    f(R::held + 3 * Z + 2, held.is_peak, true);
   }
   if constexpr (WL_D > 0) {
-    f(R::queues, q.inf_q);
+    f(R::queues, q.inf_q, true);
 #pragma unroll
-    for (int i = 0; i < WL_D; ++i) f(R::queues + 1 + i, q.batch[i]);
-    f(R::queues + WL_D + 1, q.bg_q);
+    for (int i = 0; i < WL_D; ++i) f(R::queues + 1 + i, q.batch[i], true);
+    f(R::queues + WL_D + 1, q.bg_q, true);
   }
 }
 
-template <int P, int Z, int K, bool HELD, int WL_D>
+template <int P, int Z, int K, bool HELD, int WL_D, int G>
 __device__ __forceinline__ void load_carry(const float* __restrict__ in,
-                                           int B, int b, Fleet<P, Z, K>& s,
+                                           int B, int b,
+                                           Fleet<P, Z, K, G>& s,
                                            Queues<WL_D>& q,
                                            TickExo<Z>& held) {
   carry_fields<P, Z, K, HELD, WL_D>(
-      s, q, held, [&](int r, float& v) { v = in[(size_t)r * B + b]; });
+      s, q, held,
+      [&](int r, float& v, bool) { v = in[(size_t)r * B + b]; });
 }
 
-template <int P, int Z, int K, bool HELD, int WL_D>
+// Each lane stores its own pools' rows; the first lane of the group
+// alone stores the shared ones.
+template <int P, int Z, int K, bool HELD, int WL_D, int G>
 __device__ __forceinline__ void store_carry(float* __restrict__ out, int B,
-                                            int b, Fleet<P, Z, K>& s,
+                                            int b, Fleet<P, Z, K, G>& s,
                                             Queues<WL_D>& q,
                                             TickExo<Z>& held) {
+  const bool first = s.grp.rank() == 0;
   carry_fields<P, Z, K, HELD, WL_D>(
-      s, q, held, [&](int r, float& v) { out[(size_t)r * B + b] = v; });
+      s, q, held, [&](int r, float& v, bool shared) {
+        if (first || !shared) out[(size_t)r * B + b] = v;
+      });
 }
 
 // Rows a CARRY instantiation uses, for the host's checks.
@@ -372,18 +494,21 @@ inline int carry_rows_used(int P, int Z, int K, bool held, int wl_depth) {
          (wl_depth > 0 ? wl_depth + 2 : 0);
 }
 
-// Advance cluster b by global tick t under action a, on the tick's true
-// signals e and lanes l.
-template <int P, int Z, int K, bool STOCH, bool FAULTS, int WL_D>
-__device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
-                                     Queues<WL_D>& q,
-                                     const TickAction<P, Z>& a,
+// Advance cluster b by global tick t under action a (of the lane's
+// pools), on the tick's true signals e and lanes l.
+template <int P, int Z, int K, bool STOCH, bool FAULTS, int WL_D, int G>
+__device__ __forceinline__ void tick(const Consts<P, Z, G>& k,
+                                     Fleet<P, Z, K, G>& s, Queues<WL_D>& q,
+                                     const TickAction<P / G, Z>& a,
                                      const TickExo<Z>& e,
                                      const TickLanes<Z, FAULTS, (WL_D > 0)>& l,
                                      int b, int t, uint32_t k0, uint32_t k1) {
+  constexpr int PL = P / G;
+  const Group<G>& grp = s.grp;
+  const int pool0 = grp.rank() * PL;
   const float ppn = k.ppn, dt_s = k.dt_s;
-  float (&nodes)[P][Z][2] = s.nodes;
-  float (&pipe)[K][P][Z][2] = s.pipe;
+  float (&nodes)[PL][Z][2] = s.nodes;
+  float (&pipe)[K][PL][Z][2] = s.pipe;
   float (&running)[2] = s.running;
   const float (&spot)[Z] = e.spot;
   const float (&od)[Z] = e.od;
@@ -397,34 +522,35 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   // 2. pipeline arrivals and shift; a fault holds a delay share of the
   // arrivals back at the shifted pipeline's head.
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int j = 0; j < PL; ++j)
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float arr = pipe[0][p][z][c];
+        const float arr = pipe[0][j][z][c];
         const float held = FAULTS ? arr * l.delay : 0.0f;
-        nodes[p][z][c] = FAULTS ? nodes[p][z][c] + (arr - held)
-                                : nodes[p][z][c] + arr;
+        nodes[j][z][c] = FAULTS ? nodes[j][z][c] + (arr - held)
+                                : nodes[j][z][c] + arr;
 #pragma unroll
-        for (int i = 0; i + 1 < K; ++i) pipe[i][p][z][c] = pipe[i + 1][p][z][c];
-        pipe[K - 1][p][z][c] = 0.0f;
-        if (FAULTS) pipe[0][p][z][c] = pipe[0][p][z][c] + held;
+        for (int i = 0; i + 1 < K; ++i) pipe[i][j][z][c] = pipe[i + 1][j][z][c];
+        pipe[K - 1][j][z][c] = 0.0f;
+        if (FAULTS) pipe[0][j][z][c] = pipe[0][j][z][c] + held;
       }
 
-  // 3. spot interruptions.
-  float interrupted_total = 0.0f;
+  // 3. spot interruptions, the lane's spot rows p*Z+z.
+  float intr[PL][Z];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int j = 0; j < PL; ++j)
 #pragma unroll
     for (int z = 0; z < Z; ++z) {
-      const float spot_n = nodes[p][z][0];
+      const float spot_n = nodes[j][z][0];
       const float lam =
           spot_n * (FAULTS ? fminf(k.p_int * l.haz[z], 1.0f) : k.p_int);
-      float intr = lam;
+      float x = lam;
       if (STOCH) {
         const uint4 w = philox4x32_10(
-            make_uint4((uint32_t)b, (uint32_t)t, (uint32_t)(p * Z + z), 0u),
+            make_uint4((uint32_t)b, (uint32_t)t,
+                       (uint32_t)((pool0 + j) * Z + z), 0u),
             k0, k1);
         const float u = to_uniform(w.x);
         float tt = expf(-lam), cdf = tt, count = 0.0f;
@@ -440,21 +566,29 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
             sqrtf(-2.0f * logf(u1)) * cosf(6.28318530717958647692f * u2);
         const float gauss = rintf(lam + sqrtf(lam) * normal);
         const float sample = lam < 0.5f ? count : fmaxf(gauss, 0.0f);
-        intr = fminf(sample, spot_n);
+        x = fminf(sample, spot_n);
       }
-      nodes[p][z][0] = spot_n - intr;
-      interrupted_total = (p == 0 && z == 0) ? intr : interrupted_total + intr;
+      nodes[j][z][0] = spot_n - x;
+      intr[j][z] = x;
     }
+  float interrupted[1] = {-0.0f};
+  grp.chain(interrupted, [&](float (&acc)[1]) {
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+#pragma unroll
+      for (int z = 0; z < Z; ++z) acc[0] = acc[0] + intr[j][z];
+  });
 
   // 4. scheduling (class c <-> capacity type c).
-  float nodes_ct[2];
+  float nodes_ct[2] = {-0.0f, -0.0f};
+  grp.chain(nodes_ct, [&](float (&acc)[2]) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    float sum = nodes[0][0][c];
+    for (int j = 0; j < PL; ++j)
 #pragma unroll
-    for (int i = 1; i < P * Z; ++i) sum = sum + nodes[i / Z][i % Z][c];
-    nodes_ct[c] = sum;
-  }
+      for (int z = 0; z < Z; ++z)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) acc[c] = acc[c] + nodes[j][z][c];
+  });
   const float cap_ct[2] = {nodes_ct[0] * ppn, nodes_ct[1] * ppn + k.base_cap};
   float pending[2];
 #pragma unroll
@@ -464,10 +598,12 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   }
 
   // 5. provisioning: need, cheapest-fit softmax split, per-pool cap.
+  float inc[2];
+  s.incoming(inc);
   float need[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c)
-    need[c] = fmaxf(pending[c] / ppn - s.incoming(c), 0.0f);
+    need[c] = fmaxf(quot(pending[c], ppn) - inc[c], 0.0f);
   float price_sum = spot[0];
   price_sum = price_sum + od[0];
 #pragma unroll
@@ -477,8 +613,7 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   }
   const float tau = 0.1f * (price_sum * (1.0f / (float)(2 * Z))) + kEps;
   float cheap[Z][2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
+  grp.per_type(cheap, [&](int c, float (&out)[Z]) {
     float xz[Z];
 #pragma unroll
     for (int z = 0; z < Z; ++z) xz[z] = -(c == 0 ? spot[z] : od[z]) / tau;
@@ -492,77 +627,78 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
 #pragma unroll
     for (int z = 1; z < Z; ++z) sum = sum + ex[z];
 #pragma unroll
-    for (int z = 0; z < Z; ++z) cheap[z][c] = ex[z] / sum;
-  }
-  float newn[P][Z][2];
-  float wsum[2];
+    for (int z = 0; z < Z; ++z) out[z] = ex[z] / sum;
+  });
+  float newn[PL][Z][2];
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+  for (int j = 0; j < PL; ++j)
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float allow = a.ct[p][c] * k.sa[p][c];
-        newn[p][z][c] = a.zw[p][z] * allow * cheap[z][c];
+        const float allow = a.ct[j][c] * k.sa[j][c];
+        newn[j][z][c] = a.zw[j][z] * allow * cheap[z][c];
       }
+  float wsum[2] = {-0.0f, -0.0f};
+  grp.chain(wsum, [&](float (&acc)[2]) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    float sum = newn[0][0][c];
+    for (int j = 0; j < PL; ++j)
 #pragma unroll
-    for (int i = 1; i < P * Z; ++i) sum = sum + newn[i / Z][i % Z][c];
-    wsum[c] = sum;
-  }
+      for (int z = 0; z < Z; ++z)
 #pragma unroll
-  for (int p = 0; p < P; ++p)
+        for (int c = 0; c < 2; ++c) acc[c] = acc[c] + newn[j][z][c];
+  });
+#pragma unroll
+  for (int j = 0; j < PL; ++j)
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float frac =
-            wsum[c] > kEps ? newn[p][z][c] / (wsum[c] + kEps) : 0.0f;
-        newn[p][z][c] = frac * need[c];
+            wsum[c] > kEps ? quot(newn[j][z][c], wsum[c] + kEps) : 0.0f;
+        newn[j][z][c] = frac * need[c];
       }
-  float spot_req = 0.0f;  // the spot request before denial (FAULTS)
+  float spot_req[PL][Z];  // the spot request before denial (FAULTS)
   const float one_m_deny = 1.0f - l.deny;
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float now_n = nodes[p][0][0];
-    now_n = now_n + nodes[p][0][1];
+  for (int j = 0; j < PL; ++j) {
+    float now_n = nodes[j][0][0];
+    now_n = now_n + nodes[j][0][1];
 #pragma unroll
     for (int z = 1; z < Z; ++z) {
-      now_n = now_n + nodes[p][z][0];
-      now_n = now_n + nodes[p][z][1];
+      now_n = now_n + nodes[j][z][0];
+      now_n = now_n + nodes[j][z][1];
     }
-    float now_p = pipe[0][p][0][0];
-    now_p = now_p + pipe[0][p][0][1];
+    float now_p = pipe[0][j][0][0];
+    now_p = now_p + pipe[0][j][0][1];
 #pragma unroll
     for (int i = 1; i < K * Z; ++i) {
-      now_p = now_p + pipe[i / Z][p][i % Z][0];
-      now_p = now_p + pipe[i / Z][p][i % Z][1];
+      now_p = now_p + pipe[i / Z][j][i % Z][0];
+      now_p = now_p + pipe[i / Z][j][i % Z][1];
     }
     const float pool_now = now_n + now_p;
-    float pool_new = newn[p][0][0];
-    pool_new = pool_new + newn[p][0][1];
+    float pool_new = newn[j][0][0];
+    pool_new = pool_new + newn[j][0][1];
 #pragma unroll
     for (int z = 1; z < Z; ++z) {
-      pool_new = pool_new + newn[p][z][0];
-      pool_new = pool_new + newn[p][z][1];
+      pool_new = pool_new + newn[j][z][0];
+      pool_new = pool_new + newn[j][z][1];
     }
-    const float headroom = fmaxf(k.max_nodes[p] - pool_now, 0.0f);
+    const float headroom = fmaxf(k.max_nodes[j] - pool_now, 0.0f);
     const float scale =
-        pool_new > kEps ? fminf(headroom / (pool_new + kEps), 1.0f) : 1.0f;
+        pool_new > kEps ? fminf(quot(headroom, pool_new + kEps), 1.0f) : 1.0f;
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float req = newn[p][z][c] * scale;
+        const float req = newn[j][z][c] * scale;
         if (!FAULTS) {
-          pipe[K - 1][p][z][c] = req;
+          pipe[K - 1][j][z][c] = req;
         } else if (c == 0) {  // the spot share is denied, and counted
-          spot_req = (p == 0 && z == 0) ? req : spot_req + req;
-          pipe[K - 1][p][z][c] = pipe[K - 1][p][z][c] + req * one_m_deny;
+          spot_req[j][z] = req;
+          pipe[K - 1][j][z][c] = pipe[K - 1][j][z][c] + req * one_m_deny;
         } else {
-          pipe[K - 1][p][z][c] = pipe[K - 1][p][z][c] + req;
+          pipe[K - 1][j][z][c] = pipe[K - 1][j][z][c] + req;
         }
       }
   }
@@ -570,28 +706,31 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   // 6. consolidation.
   const float used_karp[2] = {running[0],
                               fmaxf(running[1] - k.base_cap, 0.0f)};
-  float empty[2], aggr_ct[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const float repack = used_karp[c] / ppn;
-    const float slack = fmaxf(nodes_ct[c] - repack, 0.0f);
-    empty[c] = fmaxf(nodes_ct[c] - repack * k.one_p_frag, 0.0f);
-    const float util = used_karp[c] / (nodes_ct[c] * ppn + kEps);
+  float cons[2][2];  // [empty, aggr_ct][c]
+  grp.per_type(cons, [&](int c, float (&out)[2]) {
+    const float used = at(used_karp, c), nct = at(nodes_ct, c);
+    const float repack = quot(used, ppn);
+    const float slack = fmaxf(nct - repack, 0.0f);
+    const float empty = fmaxf(nct - repack * k.one_p_frag, 0.0f);
+    const float util = quot(used, nct * ppn + kEps);
     const float under = sigmoid((k.underutil - util) * (1.0f / 0.05f));
-    const float budget = k.one_m_pdb * used_karp[c];
-    aggr_ct[c] = fminf(slack, empty[c] + under * budget / ppn);
-  }
-  float removed_ct[2];
+    const float budget = k.one_m_pdb * used;
+    out[0] = empty;
+    out[1] = fminf(slack, empty + quot(under * budget, ppn));
+  });
+  const float (&empty)[2] = cons[0];
+  const float (&aggr_ct)[2] = cons[1];
+  float removed[PL][Z][2];
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float aggr = a.aggr[p];
-    const float after = a.after[p];
+  for (int j = 0; j < PL; ++j) {
+    const float aggr = a.aggr[j];
+    const float after = a.after[j];
     float rem[Z][2];
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float share = nodes[p][z][c] / (nodes_ct[c] + kEps);
+        const float share = quot(nodes[j][z][c], nodes_ct[c] + kEps);
         rem[z][c] = share * (empty[c] * (1.0f - aggr) + aggr_ct[c] * aggr);
       }
     float rem_p = rem[0][0];
@@ -601,33 +740,47 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
       rem_p = rem_p + rem[z][0];
       rem_p = rem_p + rem[z][1];
     }
-    const float tmr = rem_p > 1e-3f ? s.timer[p] + dt_s : 0.0f;
+    const float tmr = rem_p > 1e-3f ? s.timer[j] + dt_s : 0.0f;
     const float gate = sigmoid((tmr - after) / k.tau_s);
 #pragma unroll
     for (int z = 0; z < Z; ++z)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float removed = rem[z][c] * gate;
-        nodes[p][z][c] = fmaxf(nodes[p][z][c] - removed, 0.0f);
-        removed_ct[c] = (p == 0 && z == 0) ? removed : removed_ct[c] + removed;
+        removed[j][z][c] = rem[z][c] * gate;
+        nodes[j][z][c] = fmaxf(nodes[j][z][c] - removed[j][z][c], 0.0f);
       }
-    s.timer[p] = gate > 0.5f ? 0.0f : tmr;
+    s.timer[j] = gate > 0.5f ? 0.0f : tmr;
   }
+  float removed_ct[2] = {-0.0f, -0.0f};
+  grp.chain(removed_ct, [&](float (&acc)[2]) {
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+#pragma unroll
+      for (int z = 0; z < Z; ++z)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) acc[c] = acc[c] + removed[j][z][c];
+  });
   const float evicted =
       (fmaxf(removed_ct[0] - empty[0], 0.0f) +
        fmaxf(removed_ct[1] - empty[1], 0.0f)) * ppn * 0.5f;
 
   // 7. accounting on the post-step fleet.
+  float nz[2 * Z];  // the pool sums, (z, c) at 2z + c
+#pragma unroll
+  for (int i = 0; i < 2 * Z; ++i) nz[i] = -0.0f;
+  grp.chain(nz, [&](float (&acc)[2 * Z]) {
+#pragma unroll
+    for (int j = 0; j < PL; ++j)
+#pragma unroll
+      for (int i = 0; i < 2 * Z; ++i)
+        acc[i] = acc[i] + nodes[j][i / 2][i % 2];
+  });
   float nzc[Z][2];
 #pragma unroll
-  for (int z = 0; z < Z; ++z)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float sum = nodes[0][z][c];
-#pragma unroll
-      for (int p = 1; p < P; ++p) sum = sum + nodes[p][z][c];
-      nzc[z][c] = c == 1 ? sum + k.base_z : sum;
-    }
+  for (int z = 0; z < Z; ++z) {
+    nzc[z][0] = nz[2 * z];
+    nzc[z][1] = nz[2 * z + 1] + k.base_z;
+  }
   float cost = nzc[0][0] * spot[0];
   cost = cost + nzc[0][1] * od[0];
 #pragma unroll
@@ -636,22 +789,22 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
     cost = cost + nzc[z][1] * od[z];
   }
   cost = cost * k.dt_hr;
-  float watts[2];
+  float watts[1][2];
+  grp.per_type(watts, [&](int c, float (&out)[1]) {
+    float tot = at(nzc[0], c);
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    float tot = nzc[0][c];
-#pragma unroll
-    for (int z = 1; z < Z; ++z) tot = tot + nzc[z][c];
+    for (int z = 1; z < Z; ++z) tot = tot + at(nzc[z], c);
     const float util =
-        tot > kEps ? fminf(running[c] / (tot * ppn + kEps), 1.0f) : 0.0f;
-    watts[c] = k.w_idle + k.w_span * util;
-  }
+        tot > kEps ? fminf(quot(at(running, c), tot * ppn + kEps), 1.0f)
+                   : 0.0f;
+    out[0] = k.w_idle + k.w_span * util;
+  });
   float carbon = 0.0f;
 #pragma unroll
   for (int z = 0; z < Z; ++z)
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      const float kwh = nzc[z][c] * watts[c] * (1.0f / 1000.0f) * k.dt_hr;
+      const float kwh = nzc[z][c] * watts[0][c] * (1.0f / 1000.0f) * k.dt_hr;
       const float g = kwh * e.carb[z];
       carbon = (z == 0 && c == 0) ? g : carbon + g;
     }
@@ -688,10 +841,10 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
     q.inf_q = inf_after - inf_dropped;
     float rem = headroom - inf_served;
     const float inf_rho =
-        fminf(fmaxf(inf_in / (headroom + kEps), 0.0f), kRhoClip);
+        fminf(fmaxf(quot(inf_in, headroom + kEps), 0.0f), kRhoClip);
     const float inf_lat =
         k.lat_base *
-        (1.0f + kCurveCoef * inf_rho * inf_rho / (1.0f - inf_rho));
+        (1.0f + quot(kCurveCoef * inf_rho * inf_rho, 1.0f - inf_rho));
     const float inf_viol =
         fmaxf(inf_lat > k.wl_slo ? 1.0f : 0.0f, inf_dropped > 0.0f ? 1.0f : 0.0f);
     // Batch: the pool's slot i is work that has waited i ticks (slot 0
@@ -727,15 +880,17 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   s.acc_req = s.acc_req + requests;
   s.acc_slo = s.acc_slo + slo_ok * dt_s;
   s.acc_evict = s.acc_evict + evicted;
-  float nbc[2];
+  float nbc[2] = {-0.0f, -0.0f};
+  grp.chain(nbc, [&](float (&acc)[2]) {
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    float sum = nodes[0][0][c];
+    for (int j = 0; j < PL; ++j)
 #pragma unroll
-    for (int i = 1; i < P * Z; ++i) sum = sum + nodes[i / Z][i % Z][c];
-    nbc[c] = sum;
-    s.nct_sum[c] = s.nct_sum[c] + sum;
-  }
+      for (int z = 0; z < Z; ++z)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) acc[c] = acc[c] + nodes[j][z][c];
+  });
+#pragma unroll
+  for (int c = 0; c < 2; ++c) s.nct_sum[c] = s.nct_sum[c] + nbc[c];
   const float capacity = ((nbc[0] + nbc[1]) + k.base_od) * ppn;
   const float served = running[0] + running[1];
   s.served_sum = s.served_sum + served;
@@ -744,9 +899,16 @@ __device__ __forceinline__ void tick(const Consts<P, Z>& k, Fleet<P, Z, K>& s,
   s.lat_sum = s.lat_sum + lat;
   s.lat_max = fmaxf(s.lat_max, lat);
   s.queue_sum = s.queue_sum + queue;
-  s.int_sum = s.int_sum + interrupted_total;
+  s.int_sum = s.int_sum + interrupted[0];
   if constexpr (FAULTS) {
-    s.denied_sum = s.denied_sum + spot_req * l.deny;
+    float denied_req[1] = {-0.0f};
+    grp.chain(denied_req, [&](float (&acc)[1]) {
+#pragma unroll
+      for (int j = 0; j < PL; ++j)
+#pragma unroll
+        for (int z = 0; z < Z; ++z) acc[0] = acc[0] + spot_req[j][z];
+    });
+    s.denied_sum = s.denied_sum + denied_req[0] * l.deny;
     s.stale_sum = s.stale_sum + l.stale;
   }
 }

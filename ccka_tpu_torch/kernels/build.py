@@ -437,30 +437,55 @@ def launch_mlp_forward(out: tuple, obs: torch.Tensor,
 launch_mlp_forward.launches = 0
 
 
-def sass_summary(lib: Path) -> dict[str, dict[str, int]]:
-    """Per kernel function of a built library (demangled where c++filt
-    is found): its SASS instructions, tensor-core ones (HMMA) and local
-    memory loads and stores (LDL, STL: spilled registers), from
-    ``cuobjdump -sass`` of the toolkit beside nvcc."""
-    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True,
-                          check=True).stdout
+# The SASS opcodes sass_counts counts: tensor-core products, warp
+# shuffles, the special-function unit (reciprocal, exp2, log2, sqrt,
+# sin/cos), calls (the division and square-root slow paths), global
+# loads, and local-memory loads and stores (spilled registers).
+SASS_OPS = ("HMMA", "SHFL", "MUFU", "CALL", "LDG", "LDL", "STL")
+
+
+def sass_counts(text: str) -> dict[str, dict[str, int]]:
+    """Per kernel function of ``cuobjdump -sass`` output: its static
+    instructions, each opcode of :data:`SASS_OPS`, and under "loop" the
+    instructions of its longest loop (from the target of the backward
+    branch that spans the most code to that branch: a rollout kernel's
+    tick loop, the division slow paths it calls left out)."""
     out: dict[str, dict[str, int]] = {}
     counts = None
     for line in text.splitlines():
         if "Function :" in line:
             counts = out.setdefault(line.split("Function :")[1].strip(), {
-                "instructions": 0, "HMMA": 0, "LDL": 0, "STL": 0})
+                "instructions": 0, "loop": 0, **dict.fromkeys(SASS_OPS, 0)})
+            addrs, spans = [], []
         elif counts is not None and line.lstrip().startswith("/*") and \
                 ";" in line:
-            counts["instructions"] += 1
-            op = line.split("*/", 1)[1].split()
+            addr, op = line.split("*/", 1)
+            addr = int(addr.strip().lstrip("/*"), 16)
+            op = op.split(";", 1)[0].split()
             # A predicated instruction starts with its guard (@P0).
-            mnemonic = op[1] if op and op[0].startswith("@") else op[0]
-            for name in ("HMMA", "LDL", "STL"):
-                if mnemonic.startswith(name):
-                    counts[name] += 1
+            if op and op[0].startswith("@"):
+                op = op[1:]
+            mnemonic = op[0].split(".")[0] if op else ""
+            counts["instructions"] += 1
+            addrs.append(addr)
+            if mnemonic in SASS_OPS:
+                counts[mnemonic] += 1
+            if mnemonic == "BRA" and op[-1].startswith("0x") and \
+                    int(op[-1], 16) < addr:
+                spans.append((int(op[-1], 16), addr))
+                lo, hi = max(spans, key=lambda s: s[1] - s[0])
+                counts["loop"] = sum(lo <= a <= hi for a in addrs)
+    return out
+
+
+def sass_summary(lib: Path) -> dict[str, dict[str, int]]:
+    """:func:`sass_counts` of a built library's ``cuobjdump -sass`` (the
+    toolkit's, beside nvcc), kernel names demangled where c++filt is
+    found."""
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    out = sass_counts(subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)
     cxxfilt = shutil.which("c++filt")
     if cxxfilt and out:
         names = subprocess.run([cxxfilt], input="\n".join(out),

@@ -20,10 +20,14 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
 2. build every CUDA source in each lane variant with nvcc (8 processes,
-   all started together), printing registers and spill, and for each MLP
-   build every kernel function's SASS counts (`cuobjdump -sass`:
-   instructions, tensor-core HMMA, spill loads and stores LDL/STL); a
-   build whose MLP kernels hold no HMMA fails;
+   all started together), printing registers and spill, and every kernel
+   function's SASS counts (`cuobjdump -sass`, `kernels/build.py::
+   sass_counts`: instructions, those of the tick loop, tensor-core HMMA,
+   warp shuffles SHFL, special-function MUFU, slow-path CALLs, global
+   loads LDG, spill loads and stores LDL/STL); a build whose MLP kernels
+   hold no HMMA fails, and so does a profile build whose
+   rollout_profiles_kernel instantiations hold no SHFL (the pair of lanes
+   a cluster is then absent);
 3. philox_uniform_kernel against `sim/random.uniforms`, bitwise. This
    kernel is on no rollout path (the rollout kernels inline the same
    device function); its launch count is this phase's;
@@ -79,7 +83,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
-   same traces, held against it; the pack's and the kernel's time;
+   same traces, held against it; the pack's and the kernel's time, its
+   bound and its issue floor (the tick loop's SASS instructions x T x
+   the launch's warps over the card's 4 x 132 warp schedulers at the SM
+   clock nvidia-smi reads under load; also in phases 4b, 7 and 8);
 7. the three-policy path at multiregion B = 32768 x T = 2880, stochastic:
    trace synthesis, one `_pack_exo`, then the rule, carbon and neural
    `*_summary_from_packed` entries on that stream and seed, with all
@@ -90,7 +97,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (the plain versions at T = 720 on the stream's first ticks, the kernels
    re-run there);
 8. the rule kernel's time across fleet sizes B = 8192 ... 65536, both
-   modes, against its bound and the warps per SM the launch gives;
+   modes, against its bound and issue floor, with the lanes a cluster,
+   the warps per SM the launch gives and those an SM holds at once;
 9. the boards: first the graphed planner against the eager one, bitwise
    (multiregion N = 1024 x T = 96); then `fault_scoreboard` and
    `workload_scoreboard` at multiregion B = 32768 x T = 2880, stochastic,
@@ -151,6 +159,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -286,6 +295,81 @@ def rollout_bytes(Z: int, B: int, T: int, weight_bytes: int = 0,
     rows = (3 * Z + 3 + (Z + 3 if faults else 0) + (3 if workloads else 0)
             + plan_rows)
     return (rows * T + OUT_ROWS) * B * 4 + weight_bytes
+
+
+# rollout_profiles_kernel's layout (csrc/rollout_profiles.cu: kGroup lanes
+# a cluster, kBlock threads a block); four warp schedulers an SM.
+PAIR, PROFILE_BLOCK, SCHEDULERS_PER_SM = 2, 64, 4
+_POLICY_NAMES = ("rule", "carbon", "plan")
+
+
+def profile_key(name: str) -> tuple | None:
+    """(policy, Z, stochastic, faults, wl_depth, carry) of a
+    rollout_profiles_kernel function name, mangled or demangled."""
+    m = re.search(r"rollout_profiles_kernel<2, (\d+), 3, (true|false), "
+                  r"(\d+), (true|false), (\d+), (true|false)>", name)
+    if m:
+        z, st, pol, fa, wl, ca = m.groups()
+        flags = [v == "true" for v in (st, fa, ca)]
+    else:
+        m = re.search(r"rollout_profiles_kernelILi2ELi(\d+)ELi3ELb(\d)ELi"
+                      r"(\d+)ELb(\d)ELi(\d+)ELb(\d)E", name)
+        if not m:
+            return None
+        z, st, pol, fa, wl, ca = m.groups()
+        flags = [v == "1" for v in (st, fa, ca)]
+    return (_POLICY_NAMES[int(pol)], int(z), flags[0], flags[1], int(wl),
+            flags[2])
+
+
+class ProfileBuilds:
+    """What phase 2 reads off every rollout_profiles_kernel instantiation,
+    keyed by profile_key: its tick loop's SASS instructions (``loop``) and
+    its registers (``regs``, ptxas); and the SM clock nvidia-smi reads
+    under load, read once."""
+
+    def __init__(self):
+        self.loop: dict = {}
+        self.regs: dict = {}
+        self.clock_mhz: float | None = None
+
+    def sm_clock_mhz(self, fn) -> float:
+        """The SM clock while 40 launches of ``fn`` run (the first
+        reading is kept for the whole run)."""
+        if self.clock_mhz is None:
+            for _ in range(40):
+                fn()
+            self.clock_mhz = float(subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, check=True, timeout=60).stdout.split()[0])
+            torch.cuda.synchronize()
+            log(f"# SM clock under load: {self.clock_mhz:.0f} MHz")
+        return self.clock_mhz
+
+    def issue_floor_ms(self, key: tuple, B: int, T: int, fn) -> float:
+        """The least time the warp schedulers take to issue the profile
+        kernel's tick loop for B clusters x T ticks, one instruction a
+        cycle each: the loop's SASS instructions x T x the launch's warps
+        (PAIR lanes a cluster) over the card's schedulers at the SM clock
+        read while ``fn`` runs. A pair issues each cluster's shared work
+        twice, so this says how far the layout is from what its
+        instruction stream allows."""
+        warps = math.ceil(PAIR * B / 32)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return (self.loop[key] * T * warps
+                / (SCHEDULERS_PER_SM * sms * self.sm_clock_mhz(fn) * 1e6)
+                * 1e3)
+
+    def resident_warps_per_sm(self, key: tuple, B: int) -> float:
+        """Warps of a B-cluster launch an SM holds at once: the launch's
+        warps per SM, capped by what the instantiation's registers
+        (allocated in units of 8) leave room for."""
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        regs = -(-self.regs[key] // 8) * 8
+        blocks = min(32, 65536 // (regs * PROFILE_BLOCK))
+        return min(math.ceil(PAIR * B / 32) / sms,
+                   blocks * PROFILE_BLOCK / 32)
 
 
 def float_ops_per_cluster_tick(cfg, stochastic: bool, policy: str = "rule",
@@ -611,13 +695,14 @@ def lane_phases(dev, setup, hold) -> dict:
     return found
 
 
-def plan_phase(dev, setup, hold) -> dict:
+def plan_phase(dev, setup, hold, profiles) -> dict:
     """4b: the plan kernel against its plain version: default B = 8192 and
     multiregion B = 1024 at T = 720, both modes, a random decoded plan per
     cluster and the same plan's first cluster broadcast to every cluster;
     a rule-equivalent per-cluster plan bitwise the rule kernel. Then the
-    plain-stream PLAN instantiation's time at multiregion B = 32768 x
-    T = 2880, stochastic, on a random plan. Returns its `kernels` row."""
+    plain-stream PLAN instantiation's time and issue floor at multiregion
+    B = 32768 x T = 2880, stochastic, on a random plan. Returns its
+    `kernels` row."""
     from ccka_tpu_torch.kernels import build
     from ccka_tpu_torch.sim import megakernel as mk
 
@@ -667,15 +752,20 @@ def plan_phase(dev, setup, hold) -> dict:
     stream = src.packed_trace_device(T_DAY, 83, B_MAIN, device=dev)
     plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
     torch.cuda.empty_cache()
-    rec["ms"] = median_ms(lambda: run_entry("plan", cfg, params, None, stream,
-                                            T_DAY, True, plan=plan))
+    def timed():
+        return run_entry("plan", cfg, params, None, stream, T_DAY, True,
+                         plan=plan)
+
+    rec["ms"] = median_ms(timed)
     b_ms, b_by, terms, ops = lane_bound(cfg, "plan", "plain")
+    floor = profiles.issue_floor_ms(("plan", cfg.cluster.n_zones, True,
+                                     False, 0, False), B_MAIN, T_DAY, timed)
     rec.update(bound_ms=b_ms, bound_by=b_by, bound_unit=terms["set_by"],
-               ops_per_cluster_tick=ops)
+               ops_per_cluster_tick=ops, issue_floor_ms=floor)
     log(f"# plan kernel (plain stream) multiregion B={B_MAIN} T={T_DAY} "
         f"stochastic, random plan: {rec['ms']:.4f} ms median of {N_TIMED}; "
         f"bound {b_ms:.4f} ms ({b_by}; terms in ms {terms}; {ops} float ops "
-        f"per cluster-tick)")
+        f"per cluster-tick); issue floor {floor:.4f} ms")
     del stream, plan
     torch.cuda.empty_cache()
     return rec
@@ -1551,20 +1641,34 @@ def main() -> None:
     # ---- 2. build
     t0 = time.perf_counter()
     built = build.build_all()
+    profiles = ProfileBuilds()
     build_s = time.perf_counter() - t0
     log(f"# build: {build_s:.2f} s wall, {len(built)} nvcc processes")
     for unit, (lib, text, secs) in built.items():
         log(f"#   {unit} -> {lib.name} ({secs:.2f} s nvcc)")
+        entry = None
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"#   ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = profile_key(line)
+            elif entry is not None and "Used" in line and "registers" in line:
+                profiles.regs[entry] = int(line.split("Used")[1].split()[0])
         build.library(*unit)
-        if unit[0] != "rollout_mlp.cu":
-            continue
         for fn, counts in build.sass_summary(lib).items():
             log(f"#   sass: {fn}: {counts}")
-            if counts["HMMA"] < 1:
+            key = profile_key(fn)
+            if unit[0] == "rollout_mlp.cu" and counts["HMMA"] < 1:
                 fail(f"{fn} in {lib.name} runs no tensor-core instruction")
+            if key is not None:
+                profiles.loop[key] = counts["loop"]
+                if counts["SHFL"] < 1:
+                    fail(f"{fn} in {lib.name} exchanges nothing between "
+                         f"lanes: the pair layout is absent")
+    if len(profiles.loop) != 96 or set(profiles.loop) != set(profiles.regs):
+        fail(f"phase 2 found {len(profiles.loop)} rollout_profiles_kernel "
+             f"instantiations in the SASS and {len(profiles.regs)} in the "
+             f"ptxas lines, not 96")
 
     def gen(seed: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(seed)
@@ -1674,7 +1778,7 @@ def main() -> None:
     parity("multiregion", B_MULTI, (False, True), T_PARITY)
 
     # ---- 4b. the plan kernel: see plan_phase.
-    plan_rec = plan_phase(dev, setup, hold)
+    plan_rec = plan_phase(dev, setup, hold, profiles)
 
     # The carbon constants reach the kernel, each in its place.
     cfg, src, params, off, peak, _ = setup("multiregion")
@@ -1845,10 +1949,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     k_ms = rule_ms(exo, True)
     k_bound, k_by, k_terms = rule_bound(B_MAIN, ops_tick[True])
+
+    def rule_floor(B: int, exo, stochastic: bool) -> float:
+        return profiles.issue_floor_ms(
+            ("rule", Z, stochastic, False, 0, False), B, T_DAY,
+            lambda: mk.megakernel_summary_from_packed(
+                params, off, peak, exo, T_DAY, seed=5,
+                stochastic=stochastic))
+
+    k_floor = rule_floor(B_MAIN, exo, True)
     log(f"#   _pack_exo {pack_ms:.4f} ms; kernel {k_ms:.4f} ms median of "
         f"{N_TIMED}; bound {k_bound:.4f} ms ({k_by}; terms in ms {k_terms}; "
         f"{rollout_bytes(Z, B_MAIN, T_DAY)} bytes, {ops_tick[True]} float "
-        f"ops per cluster-tick); {B_MAIN / (k_ms / 1e3):.1f} cluster-days/s")
+        f"ops per cluster-tick); issue floor {k_floor:.4f} ms "
+        f"({profiles.loop[('rule', Z, True, False, 0, False)]} SASS "
+        f"instructions a tick, {PAIR} lanes a cluster); "
+        f"{B_MAIN / (k_ms / 1e3):.1f} cluster-days/s")
     del exo
     torch.cuda.empty_cache()
 
@@ -1966,13 +2082,18 @@ def main() -> None:
                    "head": (2 * H * A * B_MAIN * T_DAY, F32_OPS_PER_S,
                             "float32")})),
     }
-    main_ms = {}
+    main_ms, floors = {}, {}
     for name, (fn, (b_ms, b_by, terms)) in timed.items():
         main_ms[name] = (median_ms(fn), b_ms, b_by)
+        floor = ""
+        if name != "flagship":
+            floors[name] = profiles.issue_floor_ms(
+                (name, Zm, True, False, 0, False), B_MAIN, T_DAY, fn)
+            floor = f"; issue floor {floors[name]:.4f} ms"
         log(f"#   {name} kernel {main_ms[name][0]:.4f} ms median of "
             f"{N_TIMED}; bound {b_ms:.4f} ms ({b_by}; terms in ms {terms}; "
             f"{tick_ops['mlp' if name == 'flagship' else name]} float ops "
-            f"per cluster-tick outside the products); "
+            f"per cluster-tick outside the products){floor}; "
             f"{B_MAIN / (main_ms[name][0] / 1e3):.1f} cluster-days/s")
     del exo, board
     torch.cuda.empty_cache()
@@ -1988,11 +2109,17 @@ def main() -> None:
         for stochastic in (False, True):
             ms = rule_ms(exo, stochastic)
             b_ms, b_by, _ = rule_bound(B, ops_tick[stochastic])
+            key = ("rule", Z, stochastic, False, 0, False)
             log("# sweep " + json.dumps({
                 "B": B, "T": T_DAY, "stochastic": stochastic, "ms": ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                "issue_floor_ms": rule_floor(B, exo, stochastic),
                 "cluster_days_per_s": B / (ms / 1e3),
-                "warps_per_sm": B / 32 / props.multi_processor_count}))
+                "threads_per_cluster": PAIR,
+                "warps_per_sm": PAIR * B / 32 / props.multi_processor_count,
+                "resident_warps_per_sm": profiles.resident_warps_per_sm(
+                    key, B),
+                "registers": profiles.regs[key]}))
         del exo
     del exo_all
     torch.cuda.empty_cache()
@@ -2017,6 +2144,7 @@ def main() -> None:
                  launches["rollout_profiles_kernel"]},
          "max_abs_err": main_abs, "ms": k_ms, "plain_ms": plain_ms,
          "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
+         "issue_floor_ms": k_floor,
          "shape": f"default B={B_MAIN} T={T_DAY} stochastic (phase 6): "
                   f"launches, max_abs_err, ms, plain_ms and bound_ms are "
                   f"all of that path",
@@ -2028,7 +2156,8 @@ def main() -> None:
                  "plain_ms": checks7["rule"][0],
              "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}",
              "bound_ms": main_ms["rule"][1],
-             "bound_by": main_ms["rule"][2]}},
+             "bound_by": main_ms["rule"][2],
+             "issue_floor_ms": floors["rule"]}},
         {"name": "philox_uniform_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:228",
@@ -2048,6 +2177,7 @@ def main() -> None:
          "max_abs_err": checks7["carbon"][1], "ms": main_ms["carbon"][0],
          "plain_ms": checks7["carbon"][0], "bound_ms": main_ms["carbon"][1],
          "bound_by": main_ms["carbon"][2], "library_ms": None,
+         "issue_floor_ms": floors["carbon"],
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic (phase 7)",
          "plain_shape": f"multiregion B={B_MAIN} T={T_PARITY}"},
         {"name": "rollout_mlp_kernel", "route": "cuda",
@@ -2072,6 +2202,7 @@ def main() -> None:
          "max_abs_err": plan_rec["max_abs_err"], "ms": plan_rec["ms"],
          "plain_ms": plan_rec["plain_ms"], "bound_ms": plan_rec["bound_ms"],
          "bound_by": plan_rec["bound_by"], "library_ms": None,
+         "issue_floor_ms": plan_rec["issue_floor_ms"],
          "bitwise": plan_rec["bitwise"],
          "shape": f"multiregion B={B_MAIN} T={T_DAY} stochastic, a random "
                   f"per-cluster plan (phase 4b)",

@@ -335,3 +335,33 @@ def test_sources_ship_with_the_package():
     assert "-gencode" in build.NVCC_FLAGS and "-fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert all("fast_math" not in f for f in build.NVCC_FLAGS)
+
+
+_SASS = """
+	code for sm_90a
+		Function : _Z6kernelPf
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+        /*0010*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;  /* 0x0 */
+        /*0020*/                   MUFU.RCP R4, R3 ;               /* 0x0 */
+        /*0030*/                   FCHK P0, R2, R3 ;               /* 0x0 */
+        /*0040*/              @!P0 BRA 0x60 ;                      /* 0x0 */
+        /*0050*/                   CALL.REL.NOINC 0xa0 ;           /* 0x0 */
+        /*0060*/                   SHFL.IDX PT, R5, R4, RZ, 0x1c1f ;  /* 0x0 */
+        /*0070*/               @P1 BRA 0x10 ;                      /* 0x0 */
+        /*0080*/                   STL [R1], R5 ;                  /* 0x0 */
+        /*0090*/                   EXIT ;                          /* 0x0 */
+        /*00a0*/                   RET.REL.NODEC R20 0x0 ;         /* 0x0 */
+"""
+
+
+def test_sass_counts_reads_the_tick_loop():
+    """`kernels/build.py::sass_counts` on a cuobjdump listing: every
+    opcode it counts, predicated ones included, and the loop from the
+    backward branch's target to the branch (the call's target outside)."""
+    from ccka_tpu_torch.kernels import build
+
+    (name, counts), = build.sass_counts(_SASS).items()
+    assert name == "_Z6kernelPf"
+    assert counts == {"instructions": 11, "loop": 7, "HMMA": 0, "SHFL": 1,
+                      "MUFU": 1, "CALL": 1, "LDG": 1, "LDL": 0, "STL": 1}

@@ -629,3 +629,60 @@ def test_carry_kernel_refuses_bad_states(cuda):
         build.launch_rollout_profiles(
             None, exo, pnp, acts, carry=build.BlockCarry(
                 short, short.clone(), 0), **kw)
+
+
+@pytest.mark.parametrize("B", [1, 17, 300])
+@pytest.mark.parametrize("policy", ["rule", "carbon", "plan"])
+def test_pair_kernel_ragged_fleets_are_bitwise(cuda, policy, B):
+    """A cluster is a pair of lanes: fleets that end inside a warp and a
+    block (multiregion B in {1, 17, 300} x T = 64, both modes). Each
+    kernel bitwise its plain version; in CARRY blocks of 16 the carried
+    state after every block bitwise the plain version's, the finalized
+    last block bitwise the plain rollout."""
+    cfg = PRESETS["multiregion"]()
+    params = SimParams.from_config(cfg, device=cuda)
+    T, block_T = 64, 16
+    packed = SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).packed_trace_device(
+        T, 6, B, device=cuda)
+    plan = _random_plan(cfg, B, T, T, cuda) if policy == "plan" else None
+    for stochastic in (False, True):
+        want = (_plan_plain(cfg, params, plan, packed, T, stochastic)
+                if policy == "plan" else
+                _lane_plain(cuda, cfg, params, policy, packed, T, stochastic))
+        got = mk.packed_mode_summary(params, cfg.cluster, policy, packed, T,
+                                     4, stochastic=stochastic,
+                                     plan_packed=plan)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        fns = mk.packed_mode_block_summary_fn(
+            params, cfg.cluster, policy, T=T, block_T=block_T,
+            t_chunk=block_T, stochastic=stochastic, plan_packed=plan)
+        state = fns.init_state(packed.shape[1], B, device=cuda)
+        k_state, p_state = torch.zeros_like(state), torch.zeros_like(state)
+        for j in range(T // block_T):
+            blk = packed[j * block_T:(j + 1) * block_T].contiguous()
+            fns.step(blk, state, j, 4, state_out=k_state)
+            fns.plain_step(blk, state, j, 4, state_out=p_state)
+            assert torch.equal(k_state, p_state), (policy, B, j)
+            state, p_state = p_state, state
+        got = fns.finalize(k_state[..., :21, :])
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_pair_kernel_default_fleet_past_a_block(cuda):
+    """The main path's instantiation (default preset, rule, stochastic)
+    on B = 4097 x T = 64: one pair in the last block, bitwise the plain
+    rollout."""
+    cfg = PRESETS["default"]()
+    params = SimParams.from_config(cfg, device=cuda)
+    T, B = 64, 4097
+    packed = SyntheticSignalSource(
+        cfg.cluster, cfg.workload, cfg.sim, cfg.signals).packed_trace_device(
+        T, 6, B, device=cuda)
+    got = mk.packed_mode_summary(params, cfg.cluster, "rule", packed, T, 4,
+                                 stochastic=True)
+    want = _lane_plain(cuda, cfg, params, "rule", packed, T, True)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
