@@ -93,6 +93,26 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
+# The standard deviation of a standard normal truncated to [-2, 2]: flax's
+# variance-scaling initialisers divide by it so the truncated draw keeps
+# the asked-for variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(layer: nn.Linear, generator) -> None:
+    """``nn.initializers.lecun_normal()`` on ``layer.weight`` ([out, in]:
+    fan_in is ``in``) by inverse-CDF sampling of the truncated normal, and
+    a zero bias."""
+    w = layer.weight
+    lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2, 2))
+    u = torch.rand(w.shape, generator=generator, dtype=torch.float32,
+                   device=w.device)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + (hi - lo) * u) - 1.0)
+    std = math.sqrt(1.0 / w.shape[1]) / _TRUNC_STD
+    w.copy_(torch.clamp(z, -2.0, 2.0) * std)
+    nn.init.zeros_(layer.bias)
+
+
 def _normalize_obs(obs: torch.Tensor) -> torch.Tensor:
     """Fixed normalization that keeps the net scale-free without running
     statistics (nodes O(10), pods O(60), $/hr O(0.1), gCO2/kWh O(500))."""
@@ -150,13 +170,29 @@ class ActorCritic(_Torso):
 
     def __init__(self, obs_dim: int, act_dim: int,
                  hidden: Sequence[int] = (128, 128),
-                 init_log_std: float = -0.5):
+                 init_log_std: float = -0.5,
+                 generator: torch.Generator | None = None):
         super().__init__(obs_dim, hidden)
+        self.init_log_std = init_log_std
         self.actor_mean = nn.Linear(hidden[-1], act_dim)
+        self.log_std = nn.Parameter(torch.empty(act_dim))
+        self.critic = nn.Linear(hidden[-1], 1)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """flax's initialisation of the module: every torso layer and the
+        critic ``lecun_normal`` (a normal truncated at two standard
+        deviations, scaled to variance 1 / fan_in) with zero biases, the
+        actor-mean head zero, ``log_std`` the constant ``init_log_std``.
+        Draws come from ``generator`` (the default generator when None),
+        layer by layer in the modules' order."""
+        for i in range(self.n_layers):
+            _lecun_normal_(getattr(self, f"Dense_{i}"), generator)
+        _lecun_normal_(self.critic, generator)
         nn.init.zeros_(self.actor_mean.weight)
         nn.init.zeros_(self.actor_mean.bias)
-        self.log_std = nn.Parameter(torch.full((act_dim,), init_log_std))
-        self.critic = nn.Linear(hidden[-1], 1)
+        self.log_std.fill_(self.init_log_std)
 
     def forward(self, obs: torch.Tensor):
         x = super().forward(obs)

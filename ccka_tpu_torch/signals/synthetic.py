@@ -179,6 +179,7 @@ class SyntheticSignalSource(SignalSource):
 
     def packed_trace_device(self, steps: int, seed: int, batch: int, *,
                             t_pad: int | None = None,
+                            out: torch.Tensor | None = None,
                             device=None) -> torch.Tensor:
         """The packed ``[T_pad, packed_rows(), B]`` stream the rollout
         kernels read (rows: spot, od, carbon, demand, is_peak, padding,
@@ -187,9 +188,15 @@ class SyntheticSignalSource(SignalSource):
         noise is a log-depth doubling scan (:func:`_ar1_scan`). The same
         generative family as :meth:`batch_trace_device`, another random
         stream. ``t_pad`` (default ``steps``) pads the horizon with
-        zero ticks."""
-        return self.packed_generate_fn(steps, batch, t_pad=t_pad,
-                                       device=device)(int(seed))
+        zero ticks. ``out`` takes a dead stream of the same shape and
+        writes the stream into it (the port's counterpart of JAX's
+        ``recycle=`` donation)."""
+        if out is None:
+            return self.packed_generate_fn(steps, batch, t_pad=t_pad,
+                                           device=device)(int(seed))
+        t_pad = steps if t_pad is None else int(t_pad)
+        return self._synthesize(int(seed), steps, t_pad, batch, out.device,
+                                out=out)
 
     def packed_block_generate_fn(self, block_T: int, batch: int, *,
                                  t_chunk: int = 64, device=None):

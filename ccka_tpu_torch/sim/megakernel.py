@@ -475,12 +475,14 @@ def _pack_mlp_tensors(net_params: dict, device) -> tuple:
     """Stacked ActorCritic params -> the kernel's weight tensors on
     ``device``: (w1 [NP, F, H], b1 [NP, H], w2 [NP, H, H], b2 [NP, H])
     bfloat16 and (w3 [NP, H, A], b3 [NP, A]) float32, contiguous. Weights
-    keep the tree's [in, out] layout; a single tree gets NP = 1."""
+    keep the tree's [in, out] layout; a single tree gets NP = 1. Leaves
+    may be numpy arrays or tensors on any device."""
     pp = net_params["params"]
 
     def leaf(layer, name, dtype):
-        x = torch.as_tensor(np.asarray(pp[layer][name], np.float32),
-                            device=device)
+        x = pp[layer][name]
+        x = (x.to(device, torch.float32) if isinstance(x, torch.Tensor)
+             else torch.as_tensor(np.asarray(x, np.float32), device=device))
         if x.dim() == (1 if name == "bias" else 2):
             x = x[None]
         return x.to(dtype).contiguous()
@@ -495,11 +497,12 @@ def _chained_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[B, IN] x [IN, OUT] in float32 as one chain over k in ascending
     order, ``acc = acc + x[:, k] * w[k]`` from zero: the order in which the
     CUDA kernel's head adds, and the torso sums whose rounding to bfloat16
-    the kernel's tensor-core sums reproduce."""
-    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+    the kernel's tensor-core sums reproduce. A leading member axis on both
+    ([NP, B, IN] x [NP, IN, OUT]) gives each member its own chain."""
+    acc = torch.zeros((*x.shape[:-1], w.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    for k in range(w.shape[0]):
-        acc = torch.addcmul(acc, x[:, k:k + 1], w[k:k + 1])
+    for k in range(w.shape[-2]):
+        acc = torch.addcmul(acc, x[..., k:k + 1], w[..., k:k + 1, :])
     return acc
 
 
@@ -681,6 +684,62 @@ def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
         return latent_to_action(mlp_stages(obs, weights).u, cluster)
 
     return action_fn
+
+
+def population_plain_summary(params: SimParams, cluster: ClusterConfig,
+                             net_params: dict, exo_packed: torch.Tensor,
+                             T: int, seed: int = 0, *,
+                             stochastic: bool = True) -> EpisodeSummary:
+    """The population MLP launch's plain version in one rollout: the NP
+    members' B clusters as NP x B rows (member-major) of `sim/rollout.py`'s
+    loop on the stream's worlds repeated per member, row ``m * B + b``
+    drawing cluster b's interruptions, so every member sees the worlds it
+    sees in the kernel. Fields come back [NP, B] (a single tree is a
+    population of one). It runs the operations of
+    :func:`kernel_numerics_action_fn` member by member at the cost of one
+    member's loop; on the CPU a vectorized and a scalar loop may round a
+    transcendental function one unit apart, so there it agrees with the
+    member loop to float rounding, not bit for bit."""
+    from ccka_tpu_torch.models.nets import latent_to_action
+    from ccka_tpu_torch.policy.base import observe
+    from ccka_tpu_torch.sim.metrics import finalize_summary
+    from ccka_tpu_torch.sim.rollout import (Carry, fresh_state,
+                                            resume_rollout_summary)
+
+    P, Z = cluster.n_pools, cluster.n_zones
+    K = int(params.provision_pipeline_k)
+    lanes = _check_packed(exo_packed, T, P, Z, K, params)
+    (_, _, _), was_single = _mlp_dims(net_params, P=P, Z=Z)
+    stacked = net_params if not was_single else _tree_map(
+        lambda x: x[None], net_params)
+    n_members = stacked["params"]["Dense_0"]["kernel"].shape[0]
+    B = exo_packed.shape[2]
+    dev = exo_packed.device
+
+    def rep(tup):
+        return None if tup is None else type(tup)(*(
+            x.repeat(n_members, *([1] * (x.dim() - 1))) for x in tup))
+
+    w1, b1, w2, b2, w3, b3 = _pack_mlp_tensors(stacked, dev)
+    weights = (w1, b1[:, None], w2, b2[:, None], w3, b3[:, None])
+
+    def action_fn(state, exo, t):
+        # Each member's chains over its own B rows.
+        obs = observe(params, state, exo).flatten()
+        u = mlp_stages(obs.reshape(n_members, B, -1), weights).u
+        return latent_to_action(u.reshape(n_members * B, -1), cluster)
+
+    extra = {k: rep(v) for k, v in _unpack_lanes(exo_packed, T, Z,
+                                                 lanes).items()}
+    states0 = fresh_state(P, Z, K, n_members * B, dev)
+    carry = resume_rollout_summary(
+        params, Carry(states0, SummaryAcc.zero(n_members * B, dev), None,
+                      None),
+        action_fn, rep(unpack_exo(exo_packed, T, Z)), seed, tick0=0,
+        cluster0=torch.arange(B, device=dev).repeat(n_members),
+        stochastic=stochastic, **extra)
+    summary = finalize_summary(params, states0, carry.state, carry.acc, T)
+    return EpisodeSummary(*(x.reshape(n_members, B) for x in summary))
 
 
 def neural_megakernel_rollout_summary(params: SimParams,

@@ -93,7 +93,9 @@ def _ticks(params: SimParams, states0: ClusterState, decide, traces,
     t's action (t counts from the loop's first tick); with ``observe``
     False (a plan, which observes nothing) the held observation of a
     fault outage is not formed. Interruption draws are addressed by the
-    global tick ``tick0 + t`` and the global cluster ``cluster0 + b``.
+    global tick ``tick0 + t`` and the global cluster ``cluster0 + b``;
+    ``cluster0`` may instead be a [B] tensor of each row's own global
+    cluster (rows that share one share their draws).
 
     A resumed loop (one time block of a longer run) starts from the
     carried workload queues ``wl_state0`` (empty when None) and the held
@@ -103,7 +105,9 @@ def _ticks(params: SimParams, states0: ClusterState, decide, traces,
     B, T = traces.is_peak.shape
     P, Z = states0.nodes.shape[1:3]
     dev = states0.nodes.device
-    clusters = cluster0 + torch.arange(B, device=dev)[:, None]
+    clusters = (cluster0.to(dev)[:, None]
+                if isinstance(cluster0, torch.Tensor)
+                else cluster0 + torch.arange(B, device=dev)[:, None])
     rows = torch.arange(P * Z, device=dev)[None, :]
     state = states0
     wl_state = wl_state0

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ccka_tpu_torch import resolve_device
@@ -41,49 +40,12 @@ from ccka_tpu_torch.sim.rollout import rollout_actions
 from ccka_tpu_torch.sim.types import (Action, ClusterState, SimParams,
                                       StepMetrics)
 from ccka_tpu_torch.train.objective import episode_objective
+from ccka_tpu_torch.train.optim import Adam
 
 
 class PlanResult(NamedTuple):
     plan_latent: torch.Tensor  # [N, H, A] optimized latent plans
     losses: torch.Tensor       # [N, iters] each cluster's objective
-
-
-class Adam:
-    """``optax.adam(lr)``: first and second moments with decay ``b1``,
-    ``b2``, bias-corrected, ``eps`` added after the square root; the
-    update is ``-lr * mu_hat / (sqrt(nu_hat) + eps)``. The bias
-    corrections are rounded as optax rounds them."""
-
-    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-
-    def init(self, x: torch.Tensor):
-        """Fresh moments and step count."""
-        return torch.zeros_like(x), torch.zeros_like(x), 0
-
-    def update(self, g: torch.Tensor, state):
-        """``(updates, state)`` for gradient ``g``; apply as ``x + u``."""
-        mu, nu, count = state
-        mu = (1 - self.b1) * g + self.b1 * mu
-        nu = (1 - self.b2) * g ** 2 + self.b2 * nu
-        count += 1
-        mu_hat = mu / _bias_correction(self.b1, count)
-        nu_hat = nu / _bias_correction(self.b2, count)
-        return (-self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps)),
-                (mu, nu, count))
-
-
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay ** count`` rounded as optax computes it: the power by
-    squaring and multiplying in float32 (XLA's integer power)."""
-    power, base = np.float32(1.0), np.float32(decay)
-    while count:
-        if count & 1:
-            power = np.float32(power * base)
-        base = np.float32(base * base)
-        count >>= 1
-    return float(np.float32(1.0) - power)
 
 
 def plan_objective(params: SimParams, cluster: ClusterConfig,

@@ -131,7 +131,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    B = 262144 (8 chunks of 32768): wall, peak memory against two blocks
    and against the whole stream, the last chunk bitwise a single-chunk
    run;
-11. one JSON line listing every kernel and lane instantiation, the
+11. the training path (the main path of the eighth slice), multiregion
+   with the shipped net's widths (36 -> 128 -> 128 -> 18): (a) the carbon
+   teacher distilled (`collect_dataset` at B = 256 x T = 256, `imitate`
+   300 iterations at minibatch 4096; both losses finite and falling);
+   (b) two CEM generations on the mega engine from (a)'s params, NP = 64
+   members x G = 256 traces x T = 2880, the counters zeroed just before
+   and read just after: one rule, one carbon and one population launch a
+   generation; generation 0's population launch held member by member
+   against `population_plain_summary` (the batched
+   `kernel_numerics_action_fn`) at T = 720 by
+   NEURAL_MEAN_PARITY_TOLERANCES, its rule and carbon bars at phase 4's
+   stochastic standard; the generation's stages timed alone (synthesis,
+   the three launches, the host's rest) and the population launch's
+   bound; (c) three PPO iterations at B = 256 x T = 64, diagnostics
+   finite, seconds each; (d) one `produce_cell` at its defaults (64 pairs
+   x 96 ticks in blocks of 48, diurnal-inference under moderate faults):
+   its CARRY playback and rule column bitwise
+   `unblocked_reference_summary`, its pairs/s against
+   `naive_lax_pair_rate` (one pair); a selection evaluation timed (5 x
+   2880 eager ticks); (e) `train_flagship` through `main`
+   (distill:carbon, cem on the mega engine, 2 generations, selection on
+   5 x 2880) with the counters around it, the npz loaded back and its
+   digest checked. `--training-only` runs phases 1-3 and 11 alone and
+   prints no result;
+12. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -159,6 +183,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1605,6 +1630,340 @@ def carry_kernel_rows(found: dict, stream_rec: dict) -> list:
     return rows
 
 
+# ---- the training path (phase 11)
+
+TRAIN_SEED = 11
+TRAIN_G, TRAIN_POP = 256, 64        # the mega engine's generation
+DISTILL_B, DISTILL_T = 256, 256     # collect_dataset's batch and ticks
+DISTILL_ITERS, DISTILL_MB = 300, 4096
+CEM_GENS = 2
+PPO_ITERS = 3                       # at the config's 256 x 64
+FACTORY_SCENARIO, FACTORY_INTENSITY = "diurnal-inference", "moderate"
+NAIVE_PAIRS = 1
+FLAGSHIP_GENS, FLAGSHIP_DISTILL = 2, 200
+N_SELECT = 5                        # selection traces of a full day
+
+
+def synced(fn):
+    """``(fn(), seconds)`` on the host clock between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
+                   zero_counters, read_counters) -> dict:
+    """Phase 11, the training path at multiregion with the shipped net's
+    widths: (a) the carbon teacher distilled; (b) two CEM generations on
+    the mega engine from (a)'s params, each one rule, one carbon and one
+    64-member population launch, generation 0's launches held against
+    their plain versions on the stream's first T_PARITY ticks; (c) three
+    PPO iterations; (d) one factory cell, its CARRY playback and rule
+    column bitwise the unblocked references, its pairs/s against the
+    naive per-pair loop; (e) `train_flagship` through `main` with the
+    mega engine, the npz loaded back and its digest checked. Returns the
+    phase's record."""
+    import contextlib
+    import io
+
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.models.nets import latent_to_action
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+    from ccka_tpu_torch.train import cem, factory, flagship, imitate
+    from ccka_tpu_torch.train.checkpoint import (PARAMS_DIGEST_KEY,
+                                                 load_params_npz,
+                                                 params_digest)
+    from ccka_tpu_torch.obs.runlog import read_runlog
+    from ccka_tpu_torch.train.ppo import PPOTrainer
+    from ccka_tpu_torch.workloads.scenarios import resolve_scenarios
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, src, params, off, peak, _ = setup("multiregion")
+    Zm = cfg.cluster.n_zones
+    teacher = CarbonAwarePolicy(cfg.cluster, device=dev)
+    rec: dict = {}
+
+    # 11a: distil the carbon teacher.
+    data, collect_s = synced(lambda: imitate.collect_dataset(
+        cfg, teacher, src, batch_clusters=DISTILL_B, steps=DISTILL_T,
+        seed=TRAIN_SEED, device=dev))
+    (net, hist), imitate_s = synced(lambda: imitate.imitate(
+        cfg, teacher, src, iterations=DISTILL_ITERS, minibatch=DISTILL_MB,
+        dataset=data, seed=TRAIN_SEED, device=dev))
+    for k in ("actor_mse", "critic_mse"):
+        vals = [h[k] for h in hist]
+        if not np.isfinite(vals).all() or not vals[-1] < vals[0]:
+            fail(f"11a: {k} not finite and falling: {vals}")
+    rec["distill"] = {"collect_s": collect_s, "imitate_s": imitate_s,
+                      "rows": int(data.obs.shape[0]), "history": hist}
+    log(f"# 11a distil: collect_dataset B={DISTILL_B} x T={DISTILL_T} "
+        f"{collect_s:.3f} s ({data.obs.shape[0]} rows), imitate "
+        f"{DISTILL_ITERS} iterations at minibatch {DISTILL_MB} "
+        f"{imitate_s:.3f} s; actor_mse {hist[0]['actor_mse']:.4f} -> "
+        f"{hist[-1]['actor_mse']:.4f}, critic_mse "
+        f"{hist[0]['critic_mse']:.4f} -> {hist[-1]['critic_mse']:.4f}")
+    del data
+
+    # 11b: CEM on the mega engine, its draws kept for the checks.
+    ccfg = cem.CEMConfig(generations=CEM_GENS, popsize=TRAIN_POP,
+                         traces_per_gen=TRAIN_G, eval_steps=T_DAY,
+                         sigma_min=1e-3)
+    flat0, spec = cem._flatten(net, dev)
+    rng = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    draws = []
+
+    def draw(g):
+        seed_g = int(torch.randint(2 ** 30, (1,), generator=rng, device=dev))
+        d = cem.CEMDraws(
+            src.packed_trace_device(T_DAY, seed_g, TRAIN_G, device=dev),
+            int(torch.randint(2 ** 30, (1,), generator=rng, device=dev)),
+            torch.randn((TRAIN_POP - 1, flat0.shape[0]), generator=rng,
+                        device=dev))
+        draws.append(d)
+        return d
+
+    zero_counters()
+    (best, chist, info), cem_s = synced(lambda: cem.cem_refine(
+        cfg, net, src, cem=ccfg, engine="mega", teacher_policy=teacher,
+        draws=draw, device=dev))
+    cem_launches = read_counters()
+    for name in ("rollout_profiles_kernel", "rollout_profiles_kernel<CARBON>",
+                 "rollout_mlp_kernel"):
+        if cem_launches[name] != CEM_GENS:
+            fail(f"11b: {CEM_GENS} generations launched {name} "
+                 f"{cem_launches[name]} times, not once a generation")
+    for r in chist:
+        if not np.isfinite(r["incumbent_fitness"]):
+            fail(f"11b: generation {r['generation']} fitness not finite")
+    gens = [(r["incumbent_fitness"], r["best_fitness"], r["improved"])
+            for r in chist]
+    log(f"# 11b CEM mega engine NP={TRAIN_POP} x G={TRAIN_G} x T={T_DAY}: "
+        f"{CEM_GENS} generations {cem_s:.3f} s; launches {cem_launches}; "
+        f"(incumbent, best, improved) by generation {gens}")
+
+    d0 = draws[0]
+    mask = cem.perturbation_mask(net, ccfg, cfg.cluster, dev)
+    cand = cem.candidates(flat0, torch.tensor(ccfg.sigma0,
+                                              dtype=torch.float32,
+                                              device=dev), d0.noise, mask)
+    stacked = cem._unflatten(cand, spec)
+    k_pop = mk.neural_megakernel_summary_from_packed(
+        params, cfg.cluster, stacked, d0.worlds, T_PARITY, d0.world_seed)
+    p_pop, pop_plain_s = synced(lambda: mk.population_plain_summary(
+        params, cfg.cluster, stacked, d0.worlds, T_PARITY, d0.world_seed))
+    pop_abs, worst, n_bitwise = 0.0, {}, 0
+    for m in range(TRAIN_POP):
+        km = type(k_pop)(*(x[m] for x in k_pop))
+        pm = type(p_pop)(*(x[m] for x in p_pop))
+        viol = mk.mean_parity_violations(km, pm,
+                                         mk.NEURAL_MEAN_PARITY_TOLERANCES)
+        if viol:
+            fail(f"11b: member {m} of the population launch and its plain "
+                 f"version disagree: {viol}")
+        n_bitwise += bitwise(km, pm)
+        pop_abs = max(pop_abs, per_cluster_share(km, pm)[3])
+        rel = mean_rel(km, pm)
+        for f, v in rel.items():
+            worst[f] = max(worst.get(f, 0.0), v)
+    f_max = max(worst, key=worst.get)
+    log(f"#   population launch vs population_plain_summary at "
+        f"T={T_PARITY} ({pop_plain_s:.3f} s plain): {TRAIN_POP} members "
+        f"within NEURAL_MEAN_PARITY_TOLERANCES, {n_bitwise} bitwise; "
+        f"largest batch-mean rel diff {f_max} {worst[f_max]:.3g}; max abs "
+        f"diff {pop_abs:.4g}")
+    views = mk.unpack_exo(d0.worlds, T_PARITY, Zm)
+    bars = {}
+    for name, entry, fn in (
+            ("rule", lambda: mk.megakernel_summary_from_packed(
+                params, off, peak, d0.worlds, T_PARITY, d0.world_seed),
+             rule_fn(cfg)),
+            ("carbon", lambda: mk.carbon_megakernel_summary_from_packed(
+                params, off, peak, d0.worlds, T_PARITY, d0.world_seed),
+             carbon_fn(cfg))):
+        p, p_s = synced(lambda: plain(cfg, params, views, d0.world_seed,
+                                      True, fn))
+        same, max_abs = hold(f"11b {name} bar G={TRAIN_G} T={T_PARITY}",
+                             entry(), p, True)
+        bars[name] = {"bitwise": same, "max_abs_err": max_abs,
+                      "plain_s": p_s}
+    del views, k_pop, p_pop
+
+    # The generation's stages on the card, timed alone.
+    buf = torch.empty_like(d0.worlds)
+    synth_ms = float(np.median(cuda_ms(lambda: src.packed_trace_device(
+        T_DAY, 7, TRAIN_G, out=buf, device=dev), N_TIMED)))
+    rule_ms = median_ms(lambda: mk.megakernel_summary_from_packed(
+        params, off, peak, d0.worlds, T_DAY, d0.world_seed))
+    carbon_ms = median_ms(lambda: mk.carbon_megakernel_summary_from_packed(
+        params, off, peak, d0.worlds, T_DAY, d0.world_seed))
+    pop_ms = median_ms(lambda: mk.neural_megakernel_summary_from_packed(
+        params, cfg.cluster, stacked, d0.worlds, T_DAY, d0.world_seed))
+    F, H, A = mk._mlp_dims(net, P=cfg.cluster.n_pools, Z=Zm)[0]
+    weight_bytes = (F * H + H * H + 2 * H) * 2 + (H * A + A) * 4
+    cells = TRAIN_POP * TRAIN_G * T_DAY
+    pop_bound = bound(
+        rollout_bytes(Zm, TRAIN_G, T_DAY) + (TRAIN_POP - 1) * OUT_ROWS
+        * TRAIN_G * 4 + TRAIN_POP * weight_bytes,
+        {"tick": (float_ops_per_cluster_tick(cfg, True, "mlp", net) * cells,
+                  F32_UNFUSED_OPS_PER_S, "float32"),
+         "torso": (2 * (F * H + H * H) * cells, BF16_TENSOR_OPS_PER_S,
+                   "tensor cores"),
+         "head": (2 * H * A * cells, F32_OPS_PER_S, "float32")})
+    gen_s = cem_s / CEM_GENS
+    host_s = gen_s - (synth_ms + rule_ms + carbon_ms + pop_ms) / 1e3
+    rec["cem"] = {
+        "generations": CEM_GENS, "wall_s": cem_s, "generation_s": gen_s,
+        "synthesis_ms": synth_ms, "rule_ms": rule_ms,
+        "carbon_ms": carbon_ms, "population_ms": pop_ms,
+        "host_s": host_s, "launches": cem_launches,
+        "population_bound_ms": pop_bound[0],
+        "population_bound_by": pop_bound[1],
+        "population_plain_s": pop_plain_s,
+        "population_max_abs_err": pop_abs,
+        "population_bitwise_members": n_bitwise, "bars": bars,
+        "history": chist}
+    log(f"#   a generation {gen_s:.3f} s: synthesis {synth_ms:.4f} ms, "
+        f"rule {rule_ms:.4f} ms, carbon {carbon_ms:.4f} ms, population "
+        f"{pop_ms:.4f} ms (median of {N_TIMED}; bound {pop_bound[0]:.4f} ms,"
+        f" {pop_bound[1]}; terms in ms {pop_bound[2]}; {TRAIN_POP} x "
+        f"{TRAIN_G} = {TRAIN_POP * TRAIN_G // 32} warps), host and the "
+        f"rest {host_s:.3f} s")
+    del draws, d0, buf, stacked
+    torch.cuda.empty_cache()
+
+    # 11c: PPO at the config's batch and window.
+    trainer = PPOTrainer(cfg, device=dev)
+    ts = trainer.fresh_state(best, TRAIN_SEED)
+    t_len = cfg.train.unroll_steps
+    windows = trainer.make_windows(src, PPO_ITERS, seed=TRAIN_SEED)
+    ppo_s = []
+    for it in range(PPO_ITERS):
+        (ts, diag), secs = synced(lambda: trainer.iteration(
+            ts, windows.slice_steps(it * t_len, t_len + 1)))
+        ppo_s.append(secs)
+        d = {k: float(v) for k, v in diag._asdict().items()}
+        if not all(np.isfinite(list(d.values()))):
+            fail(f"11c: PPO iteration {it} diagnostics not finite: {d}")
+    rec["ppo"] = {"batch": cfg.train.batch_clusters, "window": t_len,
+                  "iteration_s": ppo_s, "last": d}
+    log(f"# 11c PPO B={cfg.train.batch_clusters} x T={t_len}: iterations "
+        f"{[round(x, 4) for x in ppo_s]} s; last diagnostics {d}")
+    del trainer, ts, windows
+
+    # 11d: one factory cell at its defaults.
+    scen = resolve_scenarios([FACTORY_SCENARIO])[FACTORY_SCENARIO]
+    for counter in (build.launch_rollout_profiles, build.launch_rollout_plan):
+        counter.launches.clear()
+    zero_counters()
+    cell, cell_s = synced(lambda: factory.produce_cell(
+        cfg, scen, FACTORY_INTENSITY, seed=TRAIN_SEED, device=dev))
+    carry = {"rollout_profiles_kernel" + k: v for counter in (
+        build.launch_rollout_profiles, build.launch_rollout_plan)
+        for k, v in counter.launches.items()}
+    if not any("PLAN" in k and "CARRY" in k for k in carry) or not any(
+            "PLAN" not in k and "CARRY" in k for k in carry):
+        fail(f"11d: the factory's playback launched no plan and rule CARRY "
+             f"instantiation: {carry}")
+    rp = cell.report
+    fsrc = factory._cell_source(cfg, scen, FACTORY_INTENSITY)
+    kw = dict(key=TRAIN_SEED, batch=rp["pairs"], T=rp["steps"],
+              block_T=rp["block_T"], seed=TRAIN_SEED, t_chunk=rp["t_chunk"],
+              device=dev)
+    n_blocks = rp["playback"]["n_blocks"]
+    plan_packed = mk.pack_plan(latent_to_action(cell.plan_latents,
+                                                cfg.cluster),
+                               n_blocks * rp["block_T"])
+    ref_play = stm.unblocked_reference_summary(
+        fsrc, params, cfg.cluster, "plan", plan_packed=plan_packed, **kw)
+    ref_rule = stm.unblocked_reference_summary(fsrc, params, cfg.cluster,
+                                               "rule", **kw)
+    if not (bitwise(cell.teacher_summary, ref_play)
+            and bitwise(cell.rule_summary, ref_rule)):
+        fail("11d: the factory's streamed labels differ from the unblocked "
+             "references")
+    for f in ("obs", "target", "returns"):
+        if not torch.isfinite(getattr(cell.dataset, f)).all():
+            fail(f"11d: dataset {f} not finite")
+    naive, naive_s = synced(lambda: factory.naive_lax_pair_rate(
+        cfg, scen, FACTORY_INTENSITY, pairs=NAIVE_PAIRS, steps=rp["steps"],
+        block_T=rp["block_T"], t_chunk=rp["t_chunk"], seed=TRAIN_SEED,
+        warm=False, device=dev))
+    ratio = rp["pairs_per_sec"] / naive["pairs_per_sec"]
+    rec["factory"] = {"report": {k: v for k, v in rp.items()
+                                 if k != "playback_occupancy"},
+                      "wall_s": cell_s, "launches": carry, "naive": naive,
+                      "ratio_to_naive": ratio, "bitwise_references": True}
+    log(f"# 11d factory cell {FACTORY_SCENARIO}/{FACTORY_INTENSITY} "
+        f"{rp['pairs']} pairs x {rp['steps']} ticks in blocks of "
+        f"{rp['block_T']}: {cell_s:.3f} s (gen {rp['gen_s']}, plan "
+        f"{rp['plan_s']}, label {rp['label_s']}, collect "
+        f"{rp['collect_s']}); {rp['pairs_per_sec']} pairs/s against the "
+        f"naive per-pair loop's {naive['pairs_per_sec']} ({NAIVE_PAIRS} "
+        f"pair, {naive_s:.3f} s, no warm-up pair: the planner ran just "
+        f"before): x{ratio:.2f}; CARRY "
+        f"launches {carry}; playback and rule column bitwise the unblocked "
+        f"references")
+    del cell, ref_play, ref_rule
+
+    # 11e: train_flagship end to end through main, saved and loaded back.
+    path = "runs/chip_smoke_flagship_multiregion.npz"
+    runlog = "runs/chip_smoke_flagship_multiregion.jsonl"
+    if os.path.exists(runlog):
+        os.remove(runlog)
+    zero_counters()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, flag_s = synced(lambda: flagship.main([
+            "--preset", "multiregion", "--init-from", "distill:carbon",
+            "--refine", "cem", "--cem-engine", "mega",
+            "--iterations", str(FLAGSHIP_GENS), "--eval-steps", str(T_DAY),
+            "--traces", str(N_SELECT), "--distill-iterations",
+            str(FLAGSHIP_DISTILL), "--seed", str(TRAIN_SEED), "--out", path,
+            "--runlog", runlog]))
+    flag_launches = read_counters()
+    saved = json.loads(out.getvalue())
+    back, meta = load_params_npz(saved["checkpoint"])   # verifies the digest
+    if (rc != 0 or meta["cem_engine"] != "mega"
+            or meta[PARAMS_DIGEST_KEY] != params_digest(back)):
+        fail(f"11e: train_flagship's checkpoint does not check: rc {rc}, "
+             f"meta {meta}")
+    for name in ("rollout_profiles_kernel", "rollout_profiles_kernel<CARBON>",
+                 "rollout_mlp_kernel"):
+        if flag_launches[name] != FLAGSHIP_GENS:
+            fail(f"11e: train_flagship launched {name} "
+                 f"{flag_launches[name]} times in {FLAGSHIP_GENS} "
+                 f"generations")
+    # The run log's clock: the init candidate's selection evaluation (a
+    # PPOBackend on N_SELECT full days, eager) is the span between the
+    # teacher's note and the first "eval" event.
+    recs = read_runlog(runlog)
+    t_teacher = next(r["elapsed_s"] for r in recs
+                     if r["event"] == "note" and r["msg"].startswith(
+                         "teacher"))
+    t_eval0 = next(r["elapsed_s"] for r in recs if r["event"] == "eval")
+    rec["selection_eval_s"] = t_eval0 - t_teacher
+    rec["flagship"] = {"wall_s": flag_s, "launches": flag_launches,
+                       "selected_iteration": meta["selected_iteration"],
+                       "wins_both": meta["wins_both"],
+                       "scoreboard": meta["selection_scoreboard"]}
+    log(f"# 11e train_flagship (distill:carbon {FLAGSHIP_DISTILL} "
+        f"iterations, cem mega {FLAGSHIP_GENS} generations, selection "
+        f"{N_SELECT} x {T_DAY}) through main: {flag_s:.3f} s; launches "
+        f"{flag_launches}; saved and loaded back, digest "
+        f"{meta[PARAMS_DIGEST_KEY][:12]} checks; selected iteration "
+        f"{meta['selected_iteration']}, wins_both {meta['wins_both']}; a "
+        f"selection evaluation ({N_SELECT} x {T_DAY} ticks, eager) "
+        f"{rec['selection_eval_s']:.3f} s by its run log")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 11: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1752,6 +2111,34 @@ def main() -> None:
                 fail(f"deterministic parity ({tag})")
         return same, max_abs
 
+    counters = {
+        "rollout_profiles_kernel": mk.megakernel_summary_from_packed,
+        "rollout_profiles_kernel<CARBON>":
+            mk.carbon_megakernel_summary_from_packed,
+        "rollout_mlp_kernel": mk.neural_megakernel_summary_from_packed,
+        "plan entry": mk.plan_megakernel_summary_from_packed,
+        "philox_uniform_kernel": prandom.uniform_grid,
+    }
+
+    def zero_counters() -> None:
+        for entry in counters.values():
+            entry.launches = 0
+
+    def read_counters() -> dict:
+        return {name: entry.launches for name, entry in counters.items()}
+
+    def train() -> dict:
+        return training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
+                              zero_counters, read_counters)
+
+    if "--training-only" in sys.argv[1:]:
+        # A quick look at phase 11 alone (after the build and the Philox
+        # check): no kernel line and no result line, so it cannot pass for
+        # a whole run.
+        train()
+        log(f"# --training-only: {time.perf_counter() - t_start:.1f} s")
+        return
+
     # ---- 4. rule and carbon kernels against their plain versions
     def parity(preset: str, B: int, modes, T: int = T_DAY) -> None:
         cfg, src, params, off, peak, _ = setup(preset)
@@ -1870,22 +2257,6 @@ def main() -> None:
 
     # ---- 5e. the MLP kernel's forward layer by layer: see forward_phase.
     forward_rec = forward_phase(dev, setup)
-
-    counters = {
-        "rollout_profiles_kernel": mk.megakernel_summary_from_packed,
-        "rollout_profiles_kernel<CARBON>":
-            mk.carbon_megakernel_summary_from_packed,
-        "rollout_mlp_kernel": mk.neural_megakernel_summary_from_packed,
-        "plan entry": mk.plan_megakernel_summary_from_packed,
-        "philox_uniform_kernel": prandom.uniform_grid,
-    }
-
-    def zero_counters() -> None:
-        for entry in counters.values():
-            entry.launches = 0
-
-    def read_counters() -> dict:
-        return {name: entry.launches for name, entry in counters.items()}
 
     # ---- 6. the rule path at full size
     cfg, src, params, off, peak, _ = setup("default")
@@ -2132,7 +2503,16 @@ def main() -> None:
     carry_found = carry_phase(dev, setup)
     stream_rec = streaming_phase(dev, setup, carry_found)
 
-    # ---- 11. the kernels, the card, the result
+    # ---- 11. the training path: see training_phase.
+    train_rec = train()
+
+    # ---- 12. the kernels, the card, the result
+    def train_paths(name: str) -> dict:
+        return {"CEM generations (phase 11b)":
+                    train_rec["cem"]["launches"][name],
+                "train_flagship (phase 11e)":
+                    train_rec["flagship"]["launches"][name]}
+
     kernels = [
         {"name": "rollout_profiles_kernel", "route": "cuda",
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
@@ -2141,7 +2521,8 @@ def main() -> None:
          "launches_by_path": {
              "rule path (phase 6)": rule_launches["rollout_profiles_kernel"],
              "three-policy path (phase 7)":
-                 launches["rollout_profiles_kernel"]},
+                 launches["rollout_profiles_kernel"],
+             **train_paths("rollout_profiles_kernel")},
          "max_abs_err": main_abs, "ms": k_ms, "plain_ms": plain_ms,
          "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
          "issue_floor_ms": k_floor,
@@ -2174,6 +2555,10 @@ def main() -> None:
          "source": "ccka_tpu_torch/csrc/rollout_profiles.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:456",
          "launches": launches["rollout_profiles_kernel<CARBON>"],
+         "launches_by_path": {
+             "three-policy path (phase 7)":
+                 launches["rollout_profiles_kernel<CARBON>"],
+             **train_paths("rollout_profiles_kernel<CARBON>")},
          "max_abs_err": checks7["carbon"][1], "ms": main_ms["carbon"][0],
          "plain_ms": checks7["carbon"][0], "bound_ms": main_ms["carbon"][1],
          "bound_by": main_ms["carbon"][2], "library_ms": None,
@@ -2184,6 +2569,20 @@ def main() -> None:
          "source": "ccka_tpu_torch/csrc/rollout_mlp.cu",
          "replaces": "ccka_tpu/sim/megakernel.py:1144",
          "launches": launches["rollout_mlp_kernel"],
+         "launches_by_path": {
+             "three-policy path (phase 7)": launches["rollout_mlp_kernel"],
+             **train_paths("rollout_mlp_kernel")},
+         "population_launch": {
+             "shape": f"multiregion NP={TRAIN_POP} members x G={TRAIN_G} "
+                      f"traces x T={T_DAY} stochastic, a CEM generation "
+                      f"(phase 11b)",
+             "launches": train_rec["cem"]["launches"]["rollout_mlp_kernel"],
+             "ms": train_rec["cem"]["population_ms"],
+             "bound_ms": train_rec["cem"]["population_bound_ms"],
+             "bound_by": train_rec["cem"]["population_bound_by"],
+             "plain_ms": train_rec["cem"]["population_plain_s"] * 1e3,
+             "plain_shape": f"NP={TRAIN_POP} x G={TRAIN_G} x T={T_PARITY}",
+             "max_abs_err": train_rec["cem"]["population_max_abs_err"]},
          "max_abs_err": checks7["flagship"][1],
          "ms": main_ms["flagship"][0], "plain_ms": checks7["flagship"][0],
          "bound_ms": main_ms["flagship"][1],
@@ -2198,7 +2597,12 @@ def main() -> None:
          "launches": plan_rec["launches"],
          "launches_from": "phase 4b, its checks: the boards' streams carry "
                           "lanes, so their mpc rows run the lane "
-                          "instantiations below",
+                          "instantiations below, and the factory's "
+                          "playback (phase 11d) the CARRY ones",
+         "launches_by_path": {
+             "factory playback (phase 11d), by instantiation":
+                 {k: v for k, v in train_rec["factory"]["launches"].items()
+                  if "PLAN" in k}},
          "max_abs_err": plan_rec["max_abs_err"], "ms": plan_rec["ms"],
          "plain_ms": plan_rec["plain_ms"], "bound_ms": plan_rec["bound_ms"],
          "bound_by": plan_rec["bound_by"], "library_ms": None,

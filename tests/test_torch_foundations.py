@@ -163,6 +163,12 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
+    from ccka_tpu_torch.train.cem import cem_refine
+    from ccka_tpu_torch.train.factory import produce_cell
+    from ccka_tpu_torch.train.flagship import train_flagship
+    from ccka_tpu_torch.train.imitate import imitate
+    from ccka_tpu_torch.train.ppo import PPOTrainer
+
     cfg = tcfg.default_config()
     _, src = _sources("default")
     calls = [
@@ -179,6 +185,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
         lambda: bridge.sim_params({}),
         lambda: CarbonAwarePolicy(cfg.cluster),
         lambda: PPOBackend(cfg, {"params": {}}),
+        lambda: PPOTrainer(cfg),
+        lambda: imitate(cfg, None, None),
+        lambda: cem_refine(cfg, {}, None),
+        lambda: produce_cell(cfg, None, "off"),
+        lambda: train_flagship(cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -237,7 +248,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "workloads.scoreboard", "train.objective", "train.mpc",
              "train.evaluate", "forecast.base", "forecast.backends",
              "forecast.metrics", "sim.streaming", "obs.trace",
-             "obs.occupancy"):
+             "obs.occupancy", "obs.runlog", "train.optim", "train.imitate",
+             "train.cem", "train.factory"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -303,6 +315,33 @@ board = compare_backends(
                             device="cpu")},
     heldout_traces(src, steps=8, n=2, device="cpu"))
 assert board["mpc"]["vs_rule_objective"] > 0
+
+# The trainers, each a step at a tiny size (their imports are lazy).
+from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+from ccka_tpu_torch.train.cem import CEMConfig, cem_refine
+from ccka_tpu_torch.train.factory import produce_cell
+from ccka_tpu_torch.train.flagship import train_flagship
+from ccka_tpu_torch.train.imitate import collect_dataset, imitate
+from ccka_tpu_torch.train.ppo import PPOTrainer
+from ccka_tpu_torch.workloads.scenarios import resolve_scenarios
+
+small = cfg.with_overrides(**{"train.batch_clusters": 4,
+                              "train.unroll_steps": 4})
+trainer = PPOTrainer(small, device="cpu")
+ts, diag = trainer.iteration(trainer.init_state(0),
+                             trainer.make_windows(src, 1))
+assert bool(torch.isfinite(diag.value_loss))
+data = collect_dataset(small, CarbonAwarePolicy(cfg.cluster, device="cpu"),
+                       src, steps=8, device="cpu")
+net, _ = imitate(small, None, None, dataset=data, iterations=2,
+                 minibatch=8, device="cpu")
+cem_refine(small, net, src, cem=CEMConfig(generations=1, popsize=2,
+                                          traces_per_gen=2, eval_steps=8),
+           device="cpu")
+produce_cell(small, resolve_scenarios(["mixed"])["mixed"], "off", pairs=2,
+             steps=16, block_T=16, t_chunk=16, iters=1, device="cpu")
+train_flagship(small, iterations=1, eval_every=1, eval_steps=8,
+               n_eval_traces=1, log=lambda s: None, device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

@@ -686,3 +686,48 @@ def test_pair_kernel_default_fleet_past_a_block(cuda):
     want = _lane_plain(cuda, cfg, params, "rule", packed, T, True)
     for f in want._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# ---- the trainers (slice 8) -------------------------------------------------
+
+
+def test_trainer_entry_points_default_to_cuda(cuda):
+    """With no device named, the trainers run on the card."""
+    from ccka_tpu_torch.train.imitate import collect_dataset
+    from ccka_tpu_torch.train.ppo import PPOTrainer
+
+    cfg = PRESETS["multiregion"]()
+    ts = PPOTrainer(cfg).init_state(0)
+    assert ts.params["Dense_0.weight"].device.type == "cuda"
+    assert ts.env_states.nodes.device.type == "cuda"
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    data = collect_dataset(cfg, CarbonAwarePolicy(cfg.cluster), src,
+                           batch_clusters=4, steps=8)
+    assert data.obs.device.type == "cuda"
+
+
+def test_population_launch_bitwise_member_by_member(cuda):
+    """A CEM generation's shape of population: 64 members in one MLP
+    launch against each member launched alone on the same stream and
+    seed, every field bitwise (the members share the worlds and the
+    interruption draws)."""
+    from ccka_tpu_torch.train.cem import _flatten, _unflatten
+
+    cfg = PRESETS["multiregion"]()
+    net = load_flagship_backend(cfg, device=cuda)[0].params
+    flat, spec = _flatten(net, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    pop = flat[None] + 5e-3 * torch.randn((64, flat.shape[0]), device=cuda,
+                                          generator=gen)
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    stream = src.packed_trace_device(288, 3, 256, device=cuda)
+    params = SimParams.from_config(cfg, device=cuda)
+    both = mk.neural_megakernel_summary_from_packed(
+        params, cfg.cluster, _unflatten(pop, spec), stream, 288, 9)
+    for m in range(64):
+        one = mk.neural_megakernel_summary_from_packed(
+            params, cfg.cluster, _unflatten(pop[m], spec), stream, 288, 9)
+        for f in one._fields:
+            assert torch.equal(getattr(both, f)[m], getattr(one, f)), (m, f)

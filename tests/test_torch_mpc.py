@@ -42,7 +42,7 @@ from ccka_tpu_torch.models.nets import latent_dim, latent_to_action
 from ccka_tpu_torch.policy.rule import RulePolicy
 from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
 from ccka_tpu_torch.sim.rollout import initial_state, rollout_actions
-from ccka_tpu_torch.train import evaluate, mpc
+from ccka_tpu_torch.train import evaluate, mpc, optim
 from ccka_tpu_torch.train.objective import episode_objective
 
 PRESET_NAMES = ("default", "multiregion")
@@ -145,7 +145,7 @@ def test_adam_matches_optax():
         mu, nu = np.asarray(jstate[0].mu), np.asarray(jstate[0].nu)
         np.testing.assert_array_equal(tstate[0].numpy(), mu)
         np.testing.assert_array_equal(tstate[1].numpy(), nu)
-        bc1, bc2 = (mpc._bias_correction(d, i + 1) for d in (0.9, 0.999))
+        bc1, bc2 = (optim._bias_correction(d, i + 1) for d in (0.9, 0.999))
         exact = -lr * (mu / bc1) / (
             np.sqrt(nu.astype(np.float64) / bc2) + 1e-8)
         np.testing.assert_allclose(tu.numpy(), exact, rtol=1e-6, atol=0,
