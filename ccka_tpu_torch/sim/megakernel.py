@@ -697,9 +697,7 @@ def population_plain_summary(params: SimParams, cluster: ClusterConfig,
     sees in the kernel. Fields come back [NP, B] (a single tree is a
     population of one). It runs the operations of
     :func:`kernel_numerics_action_fn` member by member at the cost of one
-    member's loop; on the CPU a vectorized and a scalar loop may round a
-    transcendental function one unit apart, so there it agrees with the
-    member loop to float rounding, not bit for bit."""
+    member's loop."""
     from ccka_tpu_torch.models.nets import latent_to_action
     from ccka_tpu_torch.policy.base import observe
     from ccka_tpu_torch.sim.metrics import finalize_summary
@@ -776,7 +774,7 @@ def neural_megakernel_summary_from_packed(params: SimParams,
     """Population-MLP EpisodeSummary from a packed stream: the packed
     analog of :func:`neural_megakernel_rollout_summary`. A CUDA stream
     launches the kernel once for the whole population and horizon; a CPU
-    stream runs :func:`kernel_numerics_action_fn` member by member."""
+    stream runs its plain version, :func:`population_plain_summary`."""
     from ccka_tpu_torch.models.nets import (AFTER_MAX_S, HPA_BIAS, HPA_HI,
                                             HPA_LO)
     from ccka_tpu_torch.policy.constraints import slo_pool_mask
@@ -790,17 +788,9 @@ def neural_megakernel_summary_from_packed(params: SimParams,
     dev = exo_packed.device
     B = exo_packed.shape[2]
     if dev.type == "cpu":
-        stacked = net_params if not was_single else _tree_map(
-            lambda x: np.asarray(x)[None], net_params)
-        n_members = stacked["params"]["Dense_0"]["kernel"].shape[0]
-        traces = unpack_exo(exo_packed, T, Z)
-        extra = _unpack_lanes(exo_packed, T, Z, lanes)
-        members = [_plain_rollout(
-            params, P, Z, kernel_numerics_action_fn(
-                _tree_map(lambda x: np.asarray(x)[i], stacked), cluster,
-                params), traces, seed, stochastic, **extra)
-            for i in range(n_members)]
-        summary = EpisodeSummary(*(torch.stack(xs) for xs in zip(*members)))
+        summary = population_plain_summary(params, cluster, net_params,
+                                           exo_packed, T, seed,
+                                           stochastic=stochastic)
     else:
         if H != 128:
             raise ValueError(f"the MLP rollout kernel is built for hidden "

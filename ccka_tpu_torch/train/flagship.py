@@ -91,7 +91,7 @@ def train_flagship(cfg: FrameworkConfig | None = None, *,
                    eval_steps: int = 2880, n_eval_traces: int = 5,
                    seed: int = 0, init_from: str = "scratch",
                    distill_iterations: int = 2000, refine: str = "ppo",
-                   cem_engine: str = "auto", cem_overrides: dict | None = None,
+                   cem_engine: str = "auto",
                    log: Callable[[str], None] | None = None, runlog=None,
                    device=None) -> dict:
     """Train and select. Returns ``{params, meta, history}``: the params a
@@ -110,9 +110,7 @@ def train_flagship(cfg: FrameworkConfig | None = None, *,
     (`train/cem.py`, which needs a distilled teacher init; ``iterations``
     then counts generations). ``cem_engine``: "auto" (the rollout kernels'
     population launch when the device is CUDA and the teacher is the rule
-    or the carbon policy, else "lax"), "mega" or "lax";
-    ``cem_overrides`` (CEMConfig fields) replaces the driver's CEM
-    settings, for example a shorter ``eval_steps`` in a smoke run."""
+    or the carbon policy, else "lax"), "mega" or "lax"."""
     from ccka_tpu_torch.obs.runlog import RunLog
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import RulePolicy
@@ -267,8 +265,7 @@ def train_flagship(cfg: FrameworkConfig | None = None, *,
             raise ValueError("cem_engine='mega' needs a CUDA device, a "
                              "packed-stream source and a rule/carbon "
                              "teacher")
-        traces_per_gen = (cem_overrides or {}).get(
-            "traces_per_gen", 256 if use_mega else CEMConfig().traces_per_gen)
+        traces_per_gen = 256 if use_mega else CEMConfig().traces_per_gen
         rl.note(f"cem engine: {'mega' if use_mega else 'lax'} "
                 f"({traces_per_gen} traces/gen)")
         gens_per_eval = max(5, eval_every // 5)
@@ -283,7 +280,6 @@ def train_flagship(cfg: FrameworkConfig | None = None, *,
             # into a frozen search.
             extra = ({"popsize": 64, "sigma_min": 1e-3} if use_mega
                      else {})
-            extra.update(cem_overrides or {})
             params_cur, _, info = cem_refine(
                 cfg, params_cur, src,
                 cem=CEMConfig(**{"generations": n, "sigma0": sigma,

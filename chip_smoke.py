@@ -31,7 +31,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 3. philox_uniform_kernel against `sim/random.uniforms`, bitwise. This
    kernel is on no rollout path (the rollout kernels inline the same
    device function); its launch count is this phase's;
-4. default preset B = 8192 and multiregion B = 1024, T = 720, both
+4. default preset B = 8192 and multiregion B = 1024, T = 360, both
    modes: the rule kernel and the carbon kernel, each against its plain
    version (deterministic: batch means within 1e-4 relative, at least
    99.9 % of clusters within 2e-3 on every field; stochastic:
@@ -42,7 +42,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    change `carbon_kg`;
 4b. the plan kernel (the profile kernel's PLAN instantiation) against its
    plain version (`rollout_actions`' loop under the plan): default
-   B = 8192 and multiregion B = 1024, T = 720, both modes, a random
+   B = 8192 and multiregion B = 1024, T = 360, both modes, a random
    decoded plan per cluster and one broadcast to every cluster, at phase
    4's standard; a rule-equivalent plan bitwise the rule kernel; its time
    at multiregion B = 32768 x T = 2880 on a random plan;
@@ -52,7 +52,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    multiregion flagship, B = 1024 x T = 32, deterministic, every field's
    largest per-cluster relative difference within 1e-3 (five near-zero-
    denominator fields 2e-2); (d) the same with the replay checkpoint on
-   the default preset; (b) multiregion B = 8192 x T = 720, both modes,
+   the default preset; (b) multiregion B = 8192 x T = 360, both modes,
    `mean_parity_violations(..., NEURAL_MEAN_PARITY_TOLERANCES)` empty;
    (c) two stacked members: member 0 bitwise the single run, member 1
    (weights halved) another policy;
@@ -63,10 +63,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 5c. each lane instantiation against its plain version (the plain rollout
    with the lanes threaded through): rule, carbon and the plan (a random
    decoded plan per cluster) on the severe, flash-crowd and mixed streams,
-   multiregion B = 8192 x T = 720, both modes, at phase 4's standard; the
+   multiregion B = 8192 x T = 360, both modes, at phase 4's standard; the
    MLP on the same streams at B = 1024 x T = 32 per cluster (phase 5's
    standard; denials, stale ticks, shed load and deadline misses among
-   the near-zero fields) and at B = 8192 x T = 720 by
+   the near-zero fields) and at B = 8192 x T = 360 by
    NEURAL_MEAN_PARITY_TOLERANCES;
 5e. the MLP kernel's forward layer by layer (`mlp_forward`, the C entry
    `ccka_mlp_forward` running the rollout kernel's device functions):
@@ -83,10 +83,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 6. the rule path at default B = 32768 x T = 2880, stochastic: trace
    synthesis and `megakernel_rollout_summary`, with the launch counters
    zeroed just before and read just after; then the plain version on the
-   same traces, held against it; the pack's and the kernel's time, its
-   bound and its issue floor (the tick loop's SASS instructions x T x
-   the launch's warps over the card's 4 x 132 warp schedulers at the SM
-   clock nvidia-smi reads under load; also in phases 4b, 7 and 8);
+   same traces, held against it (the one plain check whose horizon
+   reaches the peak hours, 09:00-21:00); the pack's and the kernel's
+   time, its bound and its issue floor (the tick loop's SASS
+   instructions x T x the launch's warps over the card's 4 x 132 warp
+   schedulers at the SM clock nvidia-smi reads under load; also in
+   phases 4b, 7 and 8);
 7. the three-policy path at multiregion B = 32768 x T = 2880, stochastic:
    trace synthesis, one `_pack_exo`, then the rule, carbon and neural
    `*_summary_from_packed` entries on that stream and seed, with all
@@ -94,7 +96,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    plain version runs; then all three results held against their plain
    versions on the same stream; the three policies' fleet means;
    each kernel's median time of 5 launches, its bound and cluster-days/s
-   (the plain versions at T = 720 on the stream's first ticks, the kernels
+   (the plain versions at T = 360 on the stream's first ticks, the kernels
    re-run there);
 8. the rule kernel's time across fleet sizes B = 8192 ... 65536, both
    modes, against its bound and issue floor, with the lanes a cluster,
@@ -109,7 +111,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    synthesis, each entry, each kernel as the median of 5 (the plan kernel
    on the board's plan, made again from the same calm rows); on severe
    and mixed each policy's result
-   held against its plain version at T = 720 on the stream's first ticks
+   held against its plain version at T = 360 on the stream's first ticks
    (stochastic standard; the flagship's by
    NEURAL_MEAN_PARITY_TOLERANCES);
 10. carried-state streaming (the main path of the fifth slice): (a)
@@ -149,19 +151,24 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    x 96 ticks in blocks of 48, diurnal-inference under moderate faults):
    its CARRY playback and rule column bitwise
    `unblocked_reference_summary`, its pairs/s against
-   `naive_lax_pair_rate` (one pair); a selection evaluation timed (5 x
-   2880 eager ticks); (e) `train_flagship` through `main`
-   (distill:carbon, cem on the mega engine, 2 generations, selection on
+   `naive_lax_pair_rate`, one pair timed on its first 4 of 12 plan
+   segments (32 ticks; each segment plans the same horizon of 32 at the
+   same iterations, so a 96-tick pair takes 3 times as long); a
+   selection evaluation timed (5 x 2880 eager ticks); (e)
+   `train_flagship` through `main` (distill:carbon, cem on the mega engine, 2 generations, selection on
    5 x 2880) with the counters around it, the npz loaded back and its
-   digest checked. `--training-only` runs phases 1-3 and 11 alone and
-   prints no result;
+   digest checked;
 12. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
-Cut for time (the planner of the mpc rows takes about a minute a board):
-phases 7 and 9 hold their kernels against the plain versions at T = 720
-on the full-size streams' first ticks (they held all 2880 ticks before).
+Cut for time (the plain version's eager tick and the planner of the mpc
+rows set most of the run): phases 7 and 9 hold their kernels against
+the plain versions on the full-size streams' first ticks (they held all
+2880 ticks before); phases 4-5c, 7 and 9 hold them over 360 ticks from
+midnight (720 before; neither reaches the peak hours, which phase 6's
+full day covers); phase 11d times the naive pair on a third of its
+segments.
 
 The bound of a call is the larger of its bytes (each input row the kernel
 reads, once, its weights, the plan rows it reads and its output) over
@@ -203,7 +210,11 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 T_DAY = 2880
 T_SHORT = 32
-T_PARITY = 720   # the depth of the parity phases 4, 5 and 5c
+# The depth of the plain versions held from midnight in phases 4-5c, 7
+# and 9 (the plain version's eager tick sets their time).
+T_PARITY = 360
+T_BLOCKED = 720  # phase 10a's blocked day (4 blocks of 180)
+T_POP = 720      # phase 11b's population held member by member
 B_PARITY = 8192
 B_MULTI = 1024
 B_MAIN = 32768
@@ -610,10 +621,10 @@ def lane_phases(dev, setup, hold) -> dict:
     lanes every lane instantiation gives, bitwise, what the plain-stream
     kernel gives (both presets, both modes). 5c: each lane instantiation
     against its plain version: rule, carbon and a random per-cluster plan
-    on severe, flash-crowd and mixed (multiregion B = 8192 x T = 720, both
+    on severe, flash-crowd and mixed (multiregion B = 8192 x T = 360, both
     modes); the MLP on the
     same streams per cluster at B = 1024 x T = 32 and by
-    NEURAL_MEAN_PARITY_TOLERANCES at B = 8192 x T = 720, deterministic.
+    NEURAL_MEAN_PARITY_TOLERANCES at B = 8192 x T = 360, deterministic.
     Returns {instantiation: parity record}."""
     from ccka_tpu_torch.config import FAULT_PRESETS, WorkloadsConfig
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
@@ -722,7 +733,7 @@ def lane_phases(dev, setup, hold) -> dict:
 
 def plan_phase(dev, setup, hold, profiles) -> dict:
     """4b: the plan kernel against its plain version: default B = 8192 and
-    multiregion B = 1024 at T = 720, both modes, a random decoded plan per
+    multiregion B = 1024 at T = 360, both modes, a random decoded plan per
     cluster and the same plan's first cluster broadcast to every cluster;
     a rule-equivalent per-cluster plan bitwise the rule kernel. Then the
     plain-stream PLAN instantiation's time and issue floor at multiregion
@@ -983,7 +994,7 @@ def stage_times(dev, cfg, net, out: dict, board_name: str, names,
     synthesis, each entry, each kernel as the median of 5 (the plan
     kernel on the packed plan the board made; each row, the mpc row
     included, is checked to reproduce the board's); on severe and mixed
-    each row held against its plain version at T = 720."""
+    each row held against its plain version at T = 360."""
     from ccka_tpu_torch.faults.scoreboard import summary_mean
     from ccka_tpu_torch.sim import megakernel as mk
 
@@ -1210,7 +1221,7 @@ def forward_phase(dev, setup) -> dict:
 
 STREAM_KEY, STREAM_SEED = 83, 41    # the blocked stream's seed; Philox's
 BLOCK_DAY = 360                     # 8 blocks a day (phase 10c, 10d)
-BLOCK_PARITY = 180                  # 4 blocks of T_PARITY (phase 10a)
+BLOCK_PARITY = 180                  # 4 blocks of T_BLOCKED (phase 10a)
 HELD_BLOCKS = 2                     # full-width blocks held to plain (10c)
 # The port's kernels have no time chunk; 20 ticks divide every block here,
 # so the splits pass the JAX package's own checks.
@@ -1323,26 +1334,26 @@ def carry_phase(dev, setup) -> dict:
     t_phase = time.perf_counter()
     cfg, _, _, _, _, net = setup("multiregion")
     found: dict = {}
-    plan = random_plan(cfg, B_PARITY, T_PARITY, T_PARITY, dev)
+    plan = random_plan(cfg, B_PARITY, T_BLOCKED, T_BLOCKED, dev)
     n_bitwise = 0
     for name in STREAM_NAMES:
         source, wl = stream_source(cfg, name)
         params = lane_params(cfg, wl, dev)
         blocks = [source.packed_block_trace_device(
             BLOCK_PARITY, STREAM_KEY, B_PARITY, j, t_chunk=T_CHUNK_STREAM,
-            device=dev) for j in range(T_PARITY // BLOCK_PARITY)]
+            device=dev) for j in range(T_BLOCKED // BLOCK_PARITY)]
         full = torch.cat(blocks)
         for route in ROUTES:
             label = carry_label(route, name)
             rec = found.setdefault(label, {"route": route, "stream": name})
             for st in (False, True):
-                fns = block_fns(cfg, params, route, T_PARITY, BLOCK_PARITY,
+                fns = block_fns(cfg, params, route, T_BLOCKED, BLOCK_PARITY,
                                 st, net, plan)
 
                 def noncarry():
                     return mk.packed_mode_summary(
                         params, cfg.cluster, BLOCK_MODE[route], full,
-                        T_PARITY, STREAM_SEED, stochastic=st,
+                        T_BLOCKED, STREAM_SEED, stochastic=st,
                         net_params=net if route == "mlp" else None,
                         plan_packed=plan)
 
@@ -1359,14 +1370,14 @@ def carry_phase(dev, setup) -> dict:
                     rec["a_ms"] = median_ms(lambda: carry_day(fns, blocks))
                     rec["a_noncarry_ms"] = median_ms(noncarry)
                     rec["a_bound"] = lane_bound(
-                        cfg, route, name, net, B_PARITY, T_PARITY,
+                        cfg, route, name, net, B_PARITY, T_BLOCKED,
                         state_bytes(cfg, params, route, full.shape[1],
                                     B_PARITY, len(blocks)))
         del blocks, full
         torch.cuda.empty_cache()
     log(f"# 10a carry: {n_bitwise} blocked days (4 routes x "
         f"{len(STREAM_NAMES)} streams x 2 modes, multiregion B={B_PARITY} "
-        f"T={T_PARITY}, blocks of {BLOCK_PARITY}), every one bitwise the "
+        f"T={T_BLOCKED}, blocks of {BLOCK_PARITY}), every one bitwise the "
         f"non-carry kernel on the concatenated stream "
         f"({time.perf_counter() - t_phase:.1f} s)")
     for label, rec in found.items():
@@ -1600,7 +1611,7 @@ def carry_kernel_rows(found: dict, stream_rec: dict) -> list:
     mixed stream (the streaming path's), times at full size; on the
     others, at phase 10a's B = 8192 x T = 720."""
     rows = []
-    n_day, n_parity = T_DAY // BLOCK_DAY, T_PARITY // BLOCK_PARITY
+    n_day, n_parity = T_DAY // BLOCK_DAY, T_BLOCKED // BLOCK_PARITY
     for label, rec in found.items():
         main = rec["stream"] == "mixed"
         b_ms, b_by, _, _ = rec["bound"] if main else rec["a_bound"]
@@ -1623,7 +1634,7 @@ def carry_kernel_rows(found: dict, stream_rec: dict) -> list:
             "library_ms": None, "bitwise": True,
             "shape": (f"{rec['stream']} multiregion B="
                       f"{B_MAIN if main else B_PARITY} T="
-                      f"{T_DAY if main else T_PARITY} stochastic, a day of "
+                      f"{T_DAY if main else T_BLOCKED} stochastic, a day of "
                       f"{n_day if main else n_parity} CARRY launches (ms) "
                       f"against one non-carry launch (noncarry_ms)"),
             "plain_shape": rec["plain_shape"]})
@@ -1640,6 +1651,7 @@ CEM_GENS = 2
 PPO_ITERS = 3                       # at the config's 256 x 64
 FACTORY_SCENARIO, FACTORY_INTENSITY = "diurnal-inference", "moderate"
 NAIVE_PAIRS = 1
+NAIVE_STEPS = 32                    # 4 of a 96-tick pair's 12 segments
 FLAGSHIP_GENS, FLAGSHIP_DISTILL = 2, 200
 N_SELECT = 5                        # selection traces of a full day
 
@@ -1659,7 +1671,7 @@ def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
     widths: (a) the carbon teacher distilled; (b) two CEM generations on
     the mega engine from (a)'s params, each one rule, one carbon and one
     64-member population launch, generation 0's launches held against
-    their plain versions on the stream's first T_PARITY ticks; (c) three
+    their plain versions on the stream's first T_POP ticks; (c) three
     PPO iterations; (d) one factory cell, its CARRY playback and rule
     column bitwise the unblocked references, its pairs/s against the
     naive per-pair loop; (e) `train_flagship` through `main` with the
@@ -1753,9 +1765,9 @@ def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
                                               device=dev), d0.noise, mask)
     stacked = cem._unflatten(cand, spec)
     k_pop = mk.neural_megakernel_summary_from_packed(
-        params, cfg.cluster, stacked, d0.worlds, T_PARITY, d0.world_seed)
+        params, cfg.cluster, stacked, d0.worlds, T_POP, d0.world_seed)
     p_pop, pop_plain_s = synced(lambda: mk.population_plain_summary(
-        params, cfg.cluster, stacked, d0.worlds, T_PARITY, d0.world_seed))
+        params, cfg.cluster, stacked, d0.worlds, T_POP, d0.world_seed))
     pop_abs, worst, n_bitwise = 0.0, {}, 0
     for m in range(TRAIN_POP):
         km = type(k_pop)(*(x[m] for x in k_pop))
@@ -1772,22 +1784,22 @@ def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
             worst[f] = max(worst.get(f, 0.0), v)
     f_max = max(worst, key=worst.get)
     log(f"#   population launch vs population_plain_summary at "
-        f"T={T_PARITY} ({pop_plain_s:.3f} s plain): {TRAIN_POP} members "
+        f"T={T_POP} ({pop_plain_s:.3f} s plain): {TRAIN_POP} members "
         f"within NEURAL_MEAN_PARITY_TOLERANCES, {n_bitwise} bitwise; "
         f"largest batch-mean rel diff {f_max} {worst[f_max]:.3g}; max abs "
         f"diff {pop_abs:.4g}")
-    views = mk.unpack_exo(d0.worlds, T_PARITY, Zm)
+    views = mk.unpack_exo(d0.worlds, T_POP, Zm)
     bars = {}
     for name, entry, fn in (
             ("rule", lambda: mk.megakernel_summary_from_packed(
-                params, off, peak, d0.worlds, T_PARITY, d0.world_seed),
+                params, off, peak, d0.worlds, T_POP, d0.world_seed),
              rule_fn(cfg)),
             ("carbon", lambda: mk.carbon_megakernel_summary_from_packed(
-                params, off, peak, d0.worlds, T_PARITY, d0.world_seed),
+                params, off, peak, d0.worlds, T_POP, d0.world_seed),
              carbon_fn(cfg))):
         p, p_s = synced(lambda: plain(cfg, params, views, d0.world_seed,
                                       True, fn))
-        same, max_abs = hold(f"11b {name} bar G={TRAIN_G} T={T_PARITY}",
+        same, max_abs = hold(f"11b {name} bar G={TRAIN_G} T={T_POP}",
                              entry(), p, True)
         bars[name] = {"bitwise": same, "max_abs_err": max_abs,
                       "plain_s": p_s}
@@ -1890,22 +1902,29 @@ def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
         if not torch.isfinite(getattr(cell.dataset, f)).all():
             fail(f"11d: dataset {f} not finite")
     naive, naive_s = synced(lambda: factory.naive_lax_pair_rate(
-        cfg, scen, FACTORY_INTENSITY, pairs=NAIVE_PAIRS, steps=rp["steps"],
+        cfg, scen, FACTORY_INTENSITY, pairs=NAIVE_PAIRS, steps=NAIVE_STEPS,
         block_T=rp["block_T"], t_chunk=rp["t_chunk"], seed=TRAIN_SEED,
         warm=False, device=dev))
-    ratio = rp["pairs_per_sec"] / naive["pairs_per_sec"]
+    if naive["mpc_horizon"] != min(cfg.train.mpc_horizon, rp["steps"]):
+        fail(f"11d: the shortened naive pair plans another horizon: {naive}")
+    # A pair of rp["steps"] ticks runs steps/NAIVE_STEPS times the
+    # segments timed, each the same plan over the same horizon.
+    naive_pair_s = naive["wall_s"] / NAIVE_PAIRS * rp["steps"] / NAIVE_STEPS
+    ratio = rp["pairs_per_sec"] * naive_pair_s
     rec["factory"] = {"report": {k: v for k, v in rp.items()
                                  if k != "playback_occupancy"},
                       "wall_s": cell_s, "launches": carry, "naive": naive,
-                      "ratio_to_naive": ratio, "bitwise_references": True}
+                      "naive_pair_s": naive_pair_s, "ratio_to_naive": ratio,
+                      "bitwise_references": True}
     log(f"# 11d factory cell {FACTORY_SCENARIO}/{FACTORY_INTENSITY} "
         f"{rp['pairs']} pairs x {rp['steps']} ticks in blocks of "
         f"{rp['block_T']}: {cell_s:.3f} s (gen {rp['gen_s']}, plan "
         f"{rp['plan_s']}, label {rp['label_s']}, collect "
         f"{rp['collect_s']}); {rp['pairs_per_sec']} pairs/s against the "
-        f"naive per-pair loop's {naive['pairs_per_sec']} ({NAIVE_PAIRS} "
-        f"pair, {naive_s:.3f} s, no warm-up pair: the planner ran just "
-        f"before): x{ratio:.2f}; CARRY "
+        f"naive per-pair loop's {1 / naive_pair_s:.4f} ({NAIVE_PAIRS} pair "
+        f"of {NAIVE_STEPS} ticks in {naive['wall_s']} s ({naive_s:.3f} s "
+        f"fenced), {naive_pair_s:.3f} s for {rp['steps']} ticks; no "
+        f"warm-up pair: the planner ran just before): x{ratio:.2f}; CARRY "
         f"launches {carry}; playback and rule column bitwise the unblocked "
         f"references")
     del cell, ref_play, ref_rule
@@ -1985,6 +2004,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    def clock(phase: str) -> None:
+        """The run's clock at the start of a phase: where its time goes."""
+        log(f"# clock {time.perf_counter() - t_start:.1f} s: phase {phase}")
+
+    clock("1")
     # ---- 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1997,6 +2021,7 @@ def main() -> None:
         f"{props.major}.{props.minor}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
+    clock("2")
     # ---- 2. build
     t0 = time.perf_counter()
     built = build.build_all()
@@ -2032,6 +2057,7 @@ def main() -> None:
     def gen(seed: int) -> torch.Generator:
         return torch.Generator(device=dev).manual_seed(seed)
 
+    clock("3")
     # ---- 3. Philox: the kernel against the torch stream, bitwise. The
     # first grid is one tick of the rule path's draws (B_MAIN x 6 rows).
     def philox_plain(seed, nb, tick0, nt, nr):
@@ -2127,18 +2153,7 @@ def main() -> None:
     def read_counters() -> dict:
         return {name: entry.launches for name, entry in counters.items()}
 
-    def train() -> dict:
-        return training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
-                              zero_counters, read_counters)
-
-    if "--training-only" in sys.argv[1:]:
-        # A quick look at phase 11 alone (after the build and the Philox
-        # check): no kernel line and no result line, so it cannot pass for
-        # a whole run.
-        train()
-        log(f"# --training-only: {time.perf_counter() - t_start:.1f} s")
-        return
-
+    clock("4")
     # ---- 4. rule and carbon kernels against their plain versions
     def parity(preset: str, B: int, modes, T: int = T_DAY) -> None:
         cfg, src, params, off, peak, _ = setup(preset)
@@ -2164,6 +2179,7 @@ def main() -> None:
     parity("default", B_PARITY, (False, True), T_PARITY)
     parity("multiregion", B_MULTI, (False, True), T_PARITY)
 
+    clock("4b")
     # ---- 4b. the plan kernel: see plan_phase.
     plan_rec = plan_phase(dev, setup, hold, profiles)
 
@@ -2184,6 +2200,7 @@ def main() -> None:
     if moved <= 0:
         fail("the carbon constants do not reach the kernel")
 
+    clock("5")
     # ---- 5. the MLP kernel against its plain version
     def mlp_plain(cfg, params, net, traces, seed, stochastic):
         return plain(cfg, params, traces, seed, stochastic,
@@ -2252,12 +2269,15 @@ def main() -> None:
     del traces, single, pop
     torch.cuda.empty_cache()
 
+    clock("5b")
     # ---- 5b. the zero gates, 5c. the widened kernels: see lane_phases.
     lanes_found = lane_phases(dev, setup, hold)
 
+    clock("5e")
     # ---- 5e. the MLP kernel's forward layer by layer: see forward_phase.
     forward_rec = forward_phase(dev, setup)
 
+    clock("6")
     # ---- 6. the rule path at full size
     cfg, src, params, off, peak, _ = setup("default")
     Z = cfg.cluster.n_zones
@@ -2339,6 +2359,7 @@ def main() -> None:
     del exo
     torch.cuda.empty_cache()
 
+    clock("7")
     # ---- 7. the three-policy path at full size
     cfg, src, params, off, peak, net = setup("multiregion")
     Zm = cfg.cluster.n_zones
@@ -2469,6 +2490,7 @@ def main() -> None:
     del exo, board
     torch.cuda.empty_cache()
 
+    clock("8")
     # ---- 8. the rule kernel across fleet sizes, on prefixes of one stream
     cfg, src, params, off, peak, _ = setup("default")
     traces = src.batch_trace_device(T_DAY, gen(37), max(SWEEP), device=dev)
@@ -2495,17 +2517,22 @@ def main() -> None:
     del exo_all
     torch.cuda.empty_cache()
 
+    clock("9")
     # ---- 9. the fault and workload boards at full size: see board_phase.
     boards = board_phase(dev, setup, zero_counters, read_counters)
     torch.cuda.empty_cache()
 
+    clock("10")
     # ---- 10. carried-state streaming: see carry_phase, streaming_phase.
     carry_found = carry_phase(dev, setup)
     stream_rec = streaming_phase(dev, setup, carry_found)
 
+    clock("11")
     # ---- 11. the training path: see training_phase.
-    train_rec = train()
+    train_rec = training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
+                               zero_counters, read_counters)
 
+    clock("12")
     # ---- 12. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
@@ -2581,7 +2608,7 @@ def main() -> None:
              "bound_ms": train_rec["cem"]["population_bound_ms"],
              "bound_by": train_rec["cem"]["population_bound_by"],
              "plain_ms": train_rec["cem"]["population_plain_s"] * 1e3,
-             "plain_shape": f"NP={TRAIN_POP} x G={TRAIN_G} x T={T_PARITY}",
+             "plain_shape": f"NP={TRAIN_POP} x G={TRAIN_G} x T={T_POP}",
              "max_abs_err": train_rec["cem"]["population_max_abs_err"]},
          "max_abs_err": checks7["flagship"][1],
          "ms": main_ms["flagship"][0], "plain_ms": checks7["flagship"][0],

@@ -37,6 +37,7 @@ move by about ``lr`` a step in either direction in either package
 
 from __future__ import annotations
 
+import functools
 import os
 
 import jax
@@ -430,16 +431,21 @@ def test_selection_rules_match_jax():
 
 
 @pytest.mark.parametrize("refine", ["ppo", "cem"])
-def test_tiny_train_flagship_saves_an_npz_jax_loads(refine, tmp_path):
+def test_tiny_train_flagship_saves_an_npz_jax_loads(refine, tmp_path,
+                                                     monkeypatch):
     """A tiny run of each refinement (scratch + PPO; distilled carbon +
-    CEM on the plain engine), saved as `main` saves it: JAX's
+    CEM on the plain engine, its generations shortened to 32 ticks and 3
+    members through CEMConfig's defaults), saved as `main` saves it: JAX's
     ``load_params_npz`` verifies its digest, and JAX's ActorCritic and the
     port's PPOBackend compute the same mean action from it (1e-5)."""
+    from ccka_tpu_torch.train import cem
+
+    monkeypatch.setattr(cem, "CEMConfig", functools.partial(
+        cem.CEMConfig, eval_steps=32, popsize=3))
     tc = tcfg.PRESETS["default"]().with_overrides(
         **{"train.batch_clusters": B, "train.unroll_steps": 8})
     kw = (dict(init_from="scratch", refine="ppo") if refine == "ppo" else
-          dict(init_from="distill:carbon", refine="cem", distill_iterations=5,
-               cem_overrides={"eval_steps": 32, "popsize": 3}))
+          dict(init_from="distill:carbon", refine="cem", distill_iterations=5))
     out = flagship.train_flagship(
         tc, iterations=2, eval_every=1, eval_steps=32, n_eval_traces=2,
         log=lambda s: None, runlog=str(tmp_path / "run.jsonl"),
@@ -463,12 +469,12 @@ def test_tiny_train_flagship_saves_an_npz_jax_loads(refine, tmp_path):
 
 
 def test_population_plain_summary_matches_the_member_loop():
-    """The population launch's batched plain version (what `chip_smoke.py`
-    holds the 64-member launch against) against the CPU entry's member
-    loop on the same stream and seed: every member within
-    NEURAL_MEAN_PARITY_TOLERANCES, the card's standard (on the CPU a
-    vectorised and a scalar loop may round a sigmoid one unit apart; on
-    this shape they agree bitwise)."""
+    """The population launch's plain version (what `chip_smoke.py` holds
+    the 64-member launch against, and what the CPU entry runs) against a
+    member loop of `kernel_numerics_action_fn` rollouts on the same stream
+    and seed: every member within NEURAL_MEAN_PARITY_TOLERANCES, the
+    card's standard; the CPU entry returns the plain version bit for
+    bit."""
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
     from ccka_tpu_torch.sim import megakernel as mk
     from ccka_tpu_torch.sim.types import SimParams
@@ -483,12 +489,19 @@ def test_population_plain_summary_matches_the_member_loop():
     src = SyntheticSignalSource(tc.cluster, tc.workload, tc.sim, tc.signals)
     stream = src.packed_trace_device(96, 3, 16, device="cpu")
     params = SimParams.from_config(tc, device="cpu")
+    P, Z = tc.cluster.n_pools, tc.cluster.n_zones
     got = mk.population_plain_summary(params, tc.cluster, pop, stream, 96, 7)
-    want = mk.neural_megakernel_summary_from_packed(params, tc.cluster, pop,
-                                                    stream, 96, 7)
     assert tuple(got.cost_usd.shape) == (4, 16)
+    entry = mk.neural_megakernel_summary_from_packed(params, tc.cluster, pop,
+                                                     stream, 96, 7)
+    assert all(torch.equal(a, b) for a, b in zip(got, entry))
+    traces = mk.unpack_exo(stream, 96, Z)
     for m in range(4):
+        want = mk._plain_rollout(
+            params, P, Z, mk.kernel_numerics_action_fn(
+                mk._tree_map(lambda x: x[m], pop), tc.cluster, params),
+            traces, 7, True)
         assert not mk.mean_parity_violations(
-            type(got)(*(x[m] for x in got)), type(want)(*(x[m] for x in want)),
+            type(got)(*(x[m] for x in got)), want,
             mk.NEURAL_MEAN_PARITY_TOLERANCES)
     assert float((got.cost_usd[1] - got.cost_usd[0]).abs().max()) > 0
