@@ -96,3 +96,25 @@ def actor_critic_to_flax(state_dict: dict) -> dict:
         else:
             params.setdefault(name, {})["bias"] = arr.numpy()
     return {"params": params}
+
+
+def cluster_state(d: dict, device=None):
+    """``ClusterState`` from a dict of numpy arrays (the JAX package's
+    one-cluster state carries no batch axis; add one with ``[None]``)."""
+    from ccka_tpu_torch.sim.types import ClusterState
+
+    dev = resolve_device(device)
+    return ClusterState(**{k: _tensor(v, dev) for k, v in d.items()})
+
+
+def workload_state(d: dict, device=None):
+    """``WorkloadState`` from a dict of numpy arrays."""
+    from ccka_tpu_torch.workloads.types import WorkloadState
+
+    dev = resolve_device(device)
+    return WorkloadState(**{k: _tensor(v, dev) for k, v in d.items()})
+
+
+def plan_latent(x, device=None) -> torch.Tensor:
+    """An MPC plan latent ([H, A], or [N, H, A]) from a numpy array."""
+    return _tensor(x, resolve_device(device))

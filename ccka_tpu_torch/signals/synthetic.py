@@ -70,6 +70,13 @@ class SyntheticSignalSource(SignalSource):
         self.workloads = (workloads if workloads is not None
                           and workloads.enabled else None)
         self._zp = self._zone_params()
+        # Longest trace assembled so far per seed, on the CPU. Generation
+        # is prefix-stable (numpy's per-seed streams draw step by step),
+        # so a shorter request is a slice of it, and a tick costs O(1)
+        # amortized instead of regenerating O(t) every scrape.
+        self._cache: dict[int, ExogenousTrace] = {}
+
+    supports_device_traces = True
 
     def meta(self) -> TraceMeta:
         return TraceMeta(
@@ -80,6 +87,34 @@ class SyntheticSignalSource(SignalSource):
             description="sinusoidal diurnal spot price + duck-curve carbon "
                         "+ bursty demand",
         )
+
+    def trace(self, steps: int, *, seed: int = 0,
+              device=None) -> ExogenousTrace:
+        """[T, ...]: one seed's trace, a slice of the cached one; the
+        same numbers as ``batch_trace(steps, [seed], device="cpu")[0]``
+        on every device."""
+        return self.forecast(0, steps, seed=seed, device=device)
+
+    def tick(self, t_index: int, *, seed: int = 0,
+             device=None) -> ExogenousTrace:
+        """Tick ``t_index`` as a one-step trace, sliced out of the cache."""
+        return self.forecast(t_index, 1, seed=seed, device=device)
+
+    def forecast(self, t_index: int, steps: int, *, seed: int = 0,
+                 device=None) -> ExogenousTrace:
+        dev = resolve_device(device)
+        self._ensure_cached(t_index + steps, seed)
+        return self._cache[seed].slice_steps(t_index, steps).to(dev)
+
+    def _ensure_cached(self, steps: int, seed: int) -> None:
+        cached = self._cache.get(seed)
+        if cached is not None and cached.steps >= steps:
+            return
+        # Geometric growth: a tick-by-tick caller regenerates rarely.
+        gen_steps = max(steps, 2 * cached.steps if cached is not None
+                        else 0, 128)
+        self._cache[seed] = ExogenousTrace(*(x[0] for x in self.batch_trace(
+            gen_steps, [seed], device="cpu")))
 
     def batch_trace(self, steps: int, seeds, device=None) -> ExogenousTrace:
         """[B, T, ...] traces for a batch of seeds: numpy's per-seed noise

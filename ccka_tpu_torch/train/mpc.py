@@ -18,9 +18,12 @@ the boards' mpc rows); :func:`receding_horizon_rollout` executes on the
 true trace, stochastic if asked, and returns per-tick metrics.
 
 On a CUDA device the planner replays one segment (its optimization and
-its execution) as a CUDA graph: the step is a few hundred small kernels a
+its execution) as a CUDA graph, and :meth:`MPCBackend.replan` its
+optimization as another: the step is a few hundred small kernels a
 tick, so launching them one by one from the host would set its speed.
-The graphed planner computes what the eager one does, bit for bit.
+The graphed planner computes what the eager one does, bit for bit. The
+captures are counted (`obs/compile.py`) under "mpc.segment_graph" and
+"mpc.replan".
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import ClusterConfig, FrameworkConfig, TrainConfig
 from ccka_tpu_torch.models.nets import action_to_latent, latent_to_action
+from ccka_tpu_torch.obs.compile import watch_jit
 from ccka_tpu_torch.policy.base import PolicyBackend
 from ccka_tpu_torch.policy.rule import neutral_action
 from ccka_tpu_torch.signals.base import ExogenousTrace
@@ -169,24 +173,12 @@ def _segment(params, cluster, tcfg, states, plan, window, seg, iters,
         return _execute(params, cluster, states, plan, seg, replan_every)
 
 
-class _SegmentGraph:
-    """:func:`_segment` captured once as a CUDA graph and replayed for
-    every segment. Inputs live in static tensors that each segment's
-    window, state and plan are copied into before a replay; the body is
-    functional, so warm-up runs change nothing."""
+class _Graph:
+    """``body()`` captured once as a CUDA graph, replayed on demand. Its
+    inputs live in static tensors that callers copy into before a
+    replay; the body is functional, so warm-up runs change nothing."""
 
-    def __init__(self, params, cluster, tcfg, states, plan, window, seg,
-                 iters, replan_every):
-        def static(tup):
-            return type(tup)(*(x.clone() for x in tup))
-
-        self.states, self.plan = static(states), plan.clone()
-        self.window, self.seg = static(window), static(seg)
-
-        def body():
-            return _segment(params, cluster, tcfg, self.states, self.plan,
-                            self.window, self.seg, iters, replan_every)
-
+    def __init__(self, body):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -197,14 +189,71 @@ class _SegmentGraph:
         with torch.cuda.graph(self.graph):
             self.out = body()
 
+
+def _static(tup):
+    return type(tup)(*(x.clone() for x in tup))
+
+
+def _copy_in(dst, src) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+class _SegmentGraph:
+    """:func:`_segment` captured as a CUDA graph at its first call and
+    replayed for every segment. ``captures`` counts the captures (one)."""
+
+    def __init__(self, params, cluster, tcfg, iters, replan_every):
+        self._args = (params, cluster, tcfg)
+        self._iters, self._replan_every = iters, replan_every
+        self._graph = None
+        self.captures = 0
+
     def __call__(self, states, plan, window, seg):
+        if self._graph is None:
+            self.states, self.plan = _static(states), plan.clone()
+            self.window, self.seg = _static(window), _static(seg)
+            self._graph = _Graph(lambda: _segment(
+                *self._args, self.states, self.plan, self.window, self.seg,
+                self._iters, self._replan_every))
+            self.captures += 1
         for dst, src in ((self.states, states), (self.window, window),
                          (self.seg, seg)):
-            for d, s in zip(dst, src):
-                d.copy_(s)
+            _copy_in(dst, src)
         self.plan.copy_(plan)
-        self.graph.replay()
-        return self.out
+        self._graph.graph.replay()
+        return self._graph.out
+
+
+class _PlanGraphs:
+    """:func:`optimize_plan_batch` captured as a CUDA graph per input
+    geometry (the clusters, the window, the plan), replayed for every
+    replan of that geometry; returns copies of the outputs. ``captures``
+    counts the captures."""
+
+    def __init__(self, params, cluster, tcfg, iters):
+        self._args = (params, cluster, tcfg)
+        self._iters = iters
+        self._graphs: dict = {}
+        self.captures = 0
+
+    def __call__(self, states, window, init) -> PlanResult:
+        key = (tuple(states.nodes.shape), tuple(window.is_peak.shape),
+               tuple(init.shape))
+        entry = self._graphs.get(key)
+        if entry is None:
+            st, win, lat = _static(states), _static(window), init.clone()
+            graph = _Graph(lambda: optimize_plan_batch(
+                *self._args, st, win, lat, iters=self._iters))
+            entry = self._graphs[key] = (st, win, lat, graph)
+            self.captures += 1
+        st, win, lat, graph = entry
+        _copy_in(st, states)
+        _copy_in(win, window)
+        lat.copy_(init)
+        graph.graph.replay()
+        return PlanResult(graph.out.plan_latent.clone(),
+                          graph.out.losses.clone())
 
 
 def receding_horizon_plan_batch(params: SimParams, cluster: ClusterConfig,
@@ -233,8 +282,9 @@ def receding_horizon_plan_batch(params: SimParams, cluster: ClusterConfig,
     for s, (window, seg) in enumerate(_segment_windows(
             traces, horizon, replan_every, forecaster, history_steps)):
         if graph and run is None:
-            run = _SegmentGraph(params, cluster, tcfg, states, plan, window,
-                                seg, iters, replan_every)
+            run = watch_jit(_SegmentGraph(params, cluster, tcfg, iters,
+                                          replan_every),
+                            "mpc.segment_graph", shared_stats=True)
         if graph:
             states, exec_lat, plan = run(states, plan, window, seg)
         else:
@@ -302,7 +352,8 @@ class MPCBackend(PolicyBackend):
 
     ``decide`` executes the current plan position (the host-side live
     loop), :meth:`replan` refreshes the plan from the latest state and
-    window, :meth:`evaluate` runs the closed loop
+    window (on a CUDA device through a graph of the optimization, the
+    hot entry "mpc.replan"), :meth:`evaluate` runs the closed loop
     (:func:`receding_horizon_rollout`). ``forecaster`` None plans against
     the true future (the oracle reference); a `forecast` backend plans
     against predictions while execution bills against the true trace."""
@@ -328,6 +379,10 @@ class MPCBackend(PolicyBackend):
                   if forecaster is not None else 0))
         base = zero_latent(self.cluster, dev)
         self._plan = base.expand(self.horizon, *base.shape).clone()
+        self._graphs = (watch_jit(
+            _PlanGraphs(self.params, self.cluster, self.tcfg, self.iters),
+            "mpc.replan", hot=True, shared_stats=True)
+            if dev.type == "cuda" else None)
 
     def replan(self, state: ClusterState, window: ExogenousTrace
                ) -> PlanResult:
@@ -337,8 +392,12 @@ class MPCBackend(PolicyBackend):
         n = state.nodes.shape[0]
         init = (self._plan if self._plan.dim() == 3
                 else self._plan.expand(n, *self._plan.shape))
-        result = optimize_plan_batch(self.params, self.cluster, self.tcfg,
-                                     state, window, init, iters=self.iters)
+        if self._graphs is not None:
+            result = self._graphs(state, window, init)
+        else:
+            result = optimize_plan_batch(self.params, self.cluster,
+                                         self.tcfg, state, window, init,
+                                         iters=self.iters)
         self._plan = result.plan_latent
         return result
 

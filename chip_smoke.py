@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Four main paths. The rule-profile fleet rollout: a batch of clusters
+Five main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -15,7 +15,9 @@ workload-family lanes (four scenarios). The streaming path: the same
 policies and a plan over a day synthesized block by block beside the
 kernels, the rollout resumed at each block from its carried state, and a
 fleet of 262144 clusters in chunks whose whole stream would not fit the
-card.
+card. The closed control loop: one cluster's scrape, decide, render,
+apply, verify and estimate a tick, on the card, under four backends,
+killed and resumed.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -158,7 +160,32 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    `train_flagship` through `main` (distill:carbon, cem on the mega engine, 2 generations, selection on
    5 x 2880) with the counters around it, the npz loaded back and its
    digest checked;
-12. one JSON line listing every kernel and lane instantiation, the
+12. the closed control loop (the main path of the ninth slice; no
+   kernel on it: the controller's step is the eager plain step), the
+   multiregion preset with the shipped flagship: (a) `controller_from_
+   config(device="cuda")` drives 96 ticks from the synthetic source
+   started at 08:36 (ticks 0-47 off-peak, 48-95 peak) for rule, carbon,
+   ppo and mpc (oracle windows, replan every 8), each through dry-run
+   sinks, one shared SpanTracer, a MetricsExporter on port 0 scraped once
+   over 127.0.0.1, JSONL telemetry and a snapshot every tick; each
+   stage's median and p99 ms (scrape, decide, render, apply, verify,
+   estimate, the whole tick, the mpc replan ticks' decide); the Chrome
+   trace through `validate_chrome_trace` (must be empty);
+   `compile_report()`, failing on a hot entry captured again after its
+   warm-up; (b) the same four sessions on the CPU: rule and carbon must
+   give byte-identical command streams and every report float within
+   1e-5 relative (pending pods at the demand's scale); ppo and mpc print
+   the ticks whose patches differ and the largest field difference; (c)
+   each card run killed at three seeded ticks and resumed from its
+   snapshot in a fresh Controller with a fresh backend (mpc's sharing
+   (a)'s captured planner graph, a pure function): fingerprints
+   (`harness/recovery.py::_fingerprint`) and command streams bitwise the
+   uninterrupted run's; (d) `recovery_scoreboard` at bench_recovery's
+   size cut to 4 runs a cell (rule and flagship x off, mild, moderate,
+   severe x 4 runs x 32 ticks, seed 101; 8 runs there) on the card: 0 duplicate and 0 lost patches, a
+   bitwise-resume share of 1.0, every usd_per_slo_hr_vs_baseline 1.0; its
+   wall. It writes `runs/chip_smoke_loop/`;
+13. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -1983,6 +2010,275 @@ def training_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
     return rec
 
 
+LOOP_TICKS = 96
+LOOP_START_S = 8 * 3600 + 36 * 60   # 08:36: ticks 0-47 off-peak, 48+ peak
+LOOP_SEED = 7
+LOOP_KILLS = 3
+LOOP_STAGES = ("scrape", "decide", "render", "apply", "verify", "estimate")
+LOOP_FLOATS = ("cost_usd_hr", "carbon_g_hr", "nodes_spot", "nodes_od",
+               "pending_pods", "latency_p95_ms", "usd_per_kreq",
+               "g_co2_per_kreq", "waste_frac")
+# bench.py::bench_recovery's size is 8 runs a cell; cut to 4 for time
+# (phase 12 took 171 s with 8, the board 42 s of it; PERF.md §4).
+RECOVERY_RUNS = 4
+RECOVERY_TICKS = 32
+
+
+def loop_backend(cfg, name: str, device):
+    """The phase's backends: the rule, the carbon teacher, the shipped
+    flagship and diff-MPC at its defaults (oracle windows)."""
+    from ccka_tpu_torch.cli import make_backend
+
+    return make_backend(cfg, {"flagship": "ppo"}.get(name, name),
+                        device=device)
+
+
+def loop_source(cfg):
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+
+    return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                 cfg.signals, start_unix_s=LOOP_START_S)
+
+
+def drive_loop(ctrl, t0: int, t1: int, sinks: dict) -> tuple[list, list]:
+    """Ticks t0..t1-1 of ``ctrl``; returns the reports and each tick's
+    rendered commands (every region's, in region order)."""
+    reports, cmds = [], []
+    for t in range(t0, t1):
+        before = {r: len(s.commands) for r, s in sinks.items()}
+        reports.append(ctrl.tick(t))
+        cmds.append([c.render() for r, s in sinks.items()
+                     for c in s.commands[before[r]:]])
+    return reports, cmds
+
+
+def pct(vals, q) -> float:
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+def loop_phase(dev, card: str) -> dict:
+    """Phase 12, the closed control loop on the card (multiregion, the
+    shipped flagship): (a) `controller_from_config(device=dev)` drives
+    96 ticks through the 09:00 peak edge for rule, carbon, ppo and mpc,
+    with dry-run sinks, one shared SpanTracer, a MetricsExporter scraped
+    once over 127.0.0.1, JSONL telemetry and a snapshot every tick; each
+    stage's median and p99; the Chrome trace validated; compile_report
+    with no hot entry captured again after its warm-up; (b) the same four
+    sessions on the CPU: rule and carbon byte-identical command streams
+    and every report float within 1e-5 relative, ppo and mpc reported;
+    (c) each card run killed at three seeded ticks and resumed from its
+    snapshot in a fresh Controller (a fresh backend; mpc's reuses (a)'s
+    captured planner graph), bitwise; (d) the recovery scoreboard at
+    bench_recovery's size but 4 runs a cell (8 there), on the card."""
+    import dataclasses
+    import random
+    import urllib.request
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.actuation.sink import DryRunSink
+    from ccka_tpu_torch.harness.controller import (Controller,
+                                                   controller_from_config)
+    from ccka_tpu_torch.harness.promexport import MetricsExporter
+    from ccka_tpu_torch.harness.recovery import (_fingerprint,
+                                                 recovery_scoreboard)
+    from ccka_tpu_torch.harness.snapshot import load_snapshot
+    from ccka_tpu_torch.harness.telemetry import read_telemetry
+    from ccka_tpu_torch.obs.compile import compile_report
+    from ccka_tpu_torch.obs.trace import SpanTracer, validate_chrome_trace
+
+    cfg = PRESETS["multiregion"]()
+    out_dir = "runs/chip_smoke_loop"
+    os.makedirs(out_dir, exist_ok=True)
+    names = ("rule", "carbon", "ppo", "mpc")
+    quiet = dict(interval_s=0.0, log_fn=lambda s: None, seed=LOOP_SEED)
+    rec: dict = {"card": card, "ticks": LOOP_TICKS, "stages": {}}
+
+    # ---- (a) the loop on the card
+    tracer = SpanTracer()
+    runs, backends = {}, {}
+    for name in names:
+        backend = backends[name] = loop_backend(cfg, name, dev)
+        exporter = MetricsExporter(port=0, cluster=cfg.cluster.name)
+        snap = f"{out_dir}/{name}.snap"
+        tel = f"{out_dir}/{name}.jsonl"
+        for p in (snap, tel):
+            if os.path.exists(p):
+                os.unlink(p)
+        try:
+            ctrl = controller_from_config(
+                cfg, backend, device=dev, tracer=tracer,
+                exporter=exporter, telemetry_path=tel, snapshot_path=snap,
+                snapshot_every=1, **quiet)
+            # The configured source starts at midnight; the phase's world
+            # starts at 08:36 to cross the peak edge.
+            ctrl.source = loop_source(cfg)
+            t0 = time.perf_counter()
+            reports, cmds = drive_loop(ctrl, 0, LOOP_TICKS,
+                                       ctrl.region_sinks)
+            synced(lambda: None)
+            wall = time.perf_counter() - t0
+            ctrl.close()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{exporter.port}/metrics",
+                    timeout=30) as resp:
+                scrape = resp.read().decode()
+        finally:
+            exporter.close()
+        if "ccka_tick_decide_ms" not in scrape or "ccka_cost_usd_hr" \
+                not in scrape:
+            fail(f"phase 12a: the {name} exporter's scrape lacks the tick "
+                 f"series")
+        edge = int((9 * 3600 - LOOP_START_S) / cfg.sim.dt_s)
+        if [r.is_peak for r in reports] != [t >= edge
+                                            for t in range(LOOP_TICKS)]:
+            fail(f"phase 12a: {name} did not cross the 09:00 edge at tick "
+                 f"{edge}")
+        if not all(r.applied and r.verified for r in reports):
+            fail(f"phase 12a: {name} left a tick unapplied or unverified")
+        if len(read_telemetry(tel)) != LOOP_TICKS:
+            fail(f"phase 12a: {name} telemetry holds no line per tick")
+        runs[name] = (reports, cmds, {r: [c.render() for c in s.commands]
+                                      for r, s in ctrl.region_sinks.items()})
+        stages = {}
+        for st in LOOP_STAGES + ("tick",):
+            vals = [sum(r.timings_ms.values()) if st == "tick"
+                    else r.timings_ms[st] for r in reports]
+            stages[st] = {"median_ms": pct(vals, 50), "p99_ms": pct(vals, 99)}
+        if name == "mpc":
+            every = backend.replan_every
+            rep = [r.timings_ms["decide"] for r in reports
+                   if r.t % every == 0]
+            stages["replan_decide"] = {"median_ms": pct(rep, 50),
+                                       "p99_ms": pct(rep, 99),
+                                       "n": len(rep)}
+        stages["wall_s"] = wall
+        stages["ms_per_tick"] = wall / LOOP_TICKS * 1e3
+        rec["stages"][name] = stages
+        log(f"# loop[{name}] " + json.dumps(stages))
+        log(f"#   {name}: mean cost {np.mean([r.cost_usd_hr for r in reports]):.5f} $/hr, "
+            f"slo_ok {np.mean([r.slo_ok for r in reports]):.3f}, "
+            f"profiles {sorted({r.profile for r in reports})}")
+    doc = tracer.chrome_trace()
+    problems = validate_chrome_trace(doc)
+    log(f"# chrome trace: {len(doc['traceEvents'])} events, "
+        f"validate_chrome_trace -> {problems}")
+    tracer.write_chrome_trace(f"{out_dir}/trace.json")
+    if problems:
+        fail(f"phase 12a: the Chrome trace is not loadable: {problems[:5]}")
+    report = compile_report()
+    log("# compile_report " + json.dumps(report))
+    late = {k: v["recompiles"] for k, v in report.items()
+            if v["recompiles"]}
+    if late:
+        fail(f"phase 12a: hot entries captured again after warm-up: {late}")
+    if report.get("mpc.replan", {}).get("compiles", 0) < 1:
+        fail("phase 12a: the mpc replan never ran through its graph")
+    rec["compile_report"] = report
+
+    # ---- (b) the same sessions on the CPU
+    rec["cpu"] = {}
+    for name in names:
+        backend = loop_backend(cfg, name, "cpu")
+        ctrl = controller_from_config(cfg, backend, device="cpu", **quiet)
+        ctrl.source = loop_source(cfg)
+        t0 = time.perf_counter()
+        reports, cmds = drive_loop(ctrl, 0, LOOP_TICKS, ctrl.region_sinks)
+        cpu_wall = time.perf_counter() - t0
+        ctrl.close()
+        g_reports, g_cmds, _ = runs[name]
+        diff_ticks = [t for t in range(LOOP_TICKS) if cmds[t] != g_cmds[t]]
+        worst, worst_at = 0.0, None
+        for a, b in zip(reports, g_reports):
+            for f in LOOP_FLOATS:
+                x, y = getattr(a, f), getattr(b, f)
+                d = abs(y - x) / max(abs(x), 1e-6)
+                if f == "pending_pods":
+                    # A remainder of the demand: held at its scale.
+                    d = abs(y - x) / max(abs(x), cfg.workload.total_pods)
+                if d > worst:
+                    worst, worst_at = d, (a.t, f, x, y)
+        same_exact = all(
+            (a.profile, a.is_peak, a.slo_ok, a.applied, a.verified) ==
+            (b.profile, b.is_peak, b.slo_ok, b.applied, b.verified)
+            for a, b in zip(reports, g_reports))
+        rec["cpu"][name] = {"ticks_with_different_patches": diff_ticks,
+                            "max_rel_field_diff": worst,
+                            "at": worst_at, "cpu_wall_s": cpu_wall}
+        log(f"# card vs cpu [{name}]: {len(diff_ticks)} ticks with other "
+            f"patches {diff_ticks[:20]}; largest field rel diff "
+            f"{worst:.3g} at {worst_at}; cpu wall {cpu_wall:.2f} s")
+        if name in ("rule", "carbon") and (
+                diff_ticks or worst > 1e-5 or not same_exact):
+            fail(f"phase 12b: {name} on the card is not the CPU run")
+
+    # ---- (c) kill and resume, bitwise
+    def fresh(name):
+        b = loop_backend(cfg, name, dev)
+        if name == "mpc":
+            # The captured planner is a pure function of its inputs,
+            # bitwise the eager one; a new process captures its own (20-30
+            # s, timed in (a)), so the fresh backends share (a)'s.
+            b._graphs = backends["mpc"]._graphs
+        return b
+
+    rng = random.Random(LOOP_SEED)
+    rec["kills"] = {}
+    for name in names:
+        g_reports, _, g_stream = runs[name]
+        kills = sorted(rng.sample(range(1, LOOP_TICKS - 1), LOOP_KILLS))
+        for kill in kills:
+            sinks = {r.name: DryRunSink() for r in cfg.cluster.regions}
+            snap = f"{out_dir}/{name}-kill{kill}.snap"
+            if os.path.exists(snap):
+                os.unlink(snap)
+            kw = dict(device=dev, snapshot_path=snap, **quiet)
+            c1 = Controller(cfg, fresh(name), loop_source(cfg), sinks,
+                            **kw)
+            pre, _ = drive_loop(c1, 0, kill, sinks)
+            c1.close()
+            del c1
+            c2 = Controller(cfg, fresh(name), loop_source(cfg), sinks,
+                            **kw)
+            start = c2.restore(load_snapshot(snap))
+            post, _ = drive_loop(c2, start, LOOP_TICKS, sinks)
+            c2.close()
+            ok = ([_fingerprint(r) for r in pre + post]
+                  == [_fingerprint(r) for r in g_reports]
+                  and {r: [c.render() for c in s.commands]
+                       for r, s in sinks.items()} == g_stream)
+            log(f"# kill/resume [{name}] at tick {kill}: resumed at "
+                f"{start}, bitwise {ok}")
+            if start != kill or not ok:
+                fail(f"phase 12c: {name} killed at {kill} did not resume "
+                     f"bitwise")
+        rec["kills"][name] = kills
+
+    # ---- (d) the recovery scoreboard on the card
+    t0 = time.perf_counter()
+    board = recovery_scoreboard(cfg, policies=("rule", "flagship"),
+                                runs_per_cell=RECOVERY_RUNS,
+                                ticks=RECOVERY_TICKS, seed=101, device=dev)
+    synced(lambda: None)
+    board_s = time.perf_counter() - t0
+    ratios = {f"{cell}/{p}": row["usd_per_slo_hr_vs_baseline"]
+              for cell, sec in board["cells"].items()
+              for p, row in sec["rows"].items()}
+    log(f"# recovery board: {board['n_paired_runs']} pairs, "
+        f"{board_s:.2f} s wall; invariants {board['invariants']}; "
+        f"ratios {ratios}; flagship {board.get('flagship_source')}")
+    inv = board["invariants"]
+    if (inv["duplicate_patches_total"] or inv["lost_patches_total"]
+            or inv["resume_bitwise_frac"] != 1.0
+            or any(v != 1.0 for v in ratios.values())
+            or len(ratios) != 8):
+        fail("phase 12d: the recovery board broke its invariants")
+    rec["recovery"] = {"wall_s": board_s, "invariants": inv,
+                       "n_paired_runs": board["n_paired_runs"]}
+    with open(f"{out_dir}/loop_record.json", "w") as fh:
+        json.dump(rec, fh, indent=1, default=str)
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2533,7 +2829,12 @@ def main() -> None:
                                zero_counters, read_counters)
 
     clock("12")
-    # ---- 12. the kernels, the card, the result
+    # ---- 12. the closed control loop on the card: see loop_phase.
+    loop_rec = loop_phase(dev, smi)
+    log(f"# phase 12 record: {json.dumps(loop_rec['recovery'])}")
+
+    clock("13")
+    # ---- 13. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],

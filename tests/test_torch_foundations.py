@@ -249,7 +249,12 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "train.evaluate", "forecast.base", "forecast.backends",
              "forecast.metrics", "sim.streaming", "obs.trace",
              "obs.occupancy", "obs.runlog", "train.optim", "train.imitate",
-             "train.cem", "train.factory"):
+             "train.cem", "train.factory", "obs.compile",
+             "harness.telemetry", "harness.snapshot", "harness.promexport",
+             "harness.lifecycle", "harness.controller", "harness.recovery",
+             "signals.replay", "signals.live", "signals.transport",
+             "actuation.patches", "actuation.sink", "actuation.reconcile",
+             "actuation.chaos", "cli", "__main__"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -342,6 +347,19 @@ produce_cell(small, resolve_scenarios(["mixed"])["mixed"], "off", pairs=2,
              steps=16, block_T=16, t_chunk=16, iters=1, device="cpu")
 train_flagship(small, iterations=1, eval_every=1, eval_steps=8,
                n_eval_traces=1, log=lambda s: None, device="cpu")
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+# The closed control loop: a few ticks, a snapshot, the recovery board.
+import tempfile
+
+from ccka_tpu_torch.cli import main as cli_main
+from ccka_tpu_torch.harness.recovery import recovery_scoreboard
+
+with tempfile.TemporaryDirectory() as d:
+    assert cli_main(["run", "--device", "cpu", "--ticks", "2",
+                     "--interval", "0", "--snapshot", d + "/s.snap"]) == 0
+rb = recovery_scoreboard(cfg, policies=("rule",), intensities=("severe",),
+                         runs_per_cell=1, ticks=4, device="cpu")
+assert rb["invariants"]["resume_bitwise_frac"] == 1.0
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

@@ -15,6 +15,7 @@ import torch
 from ccka_tpu_torch import PRESETS
 from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
 from ccka_tpu_torch.policy.rule import RulePolicy, offpeak_action, peak_action
+from ccka_tpu_torch.signals.base import ExogenousTrace
 from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
 from ccka_tpu_torch.sim import megakernel as mk
 from ccka_tpu_torch.sim import random as prandom
@@ -731,3 +732,61 @@ def test_population_launch_bitwise_member_by_member(cuda):
             params, cfg.cluster, _unflatten(pop[m], spec), stream, 288, 9)
         for f in one._fields:
             assert torch.equal(getattr(both, f)[m], getattr(one, f)), (m, f)
+
+
+def test_graphed_replan_is_bitwise_the_eager_one_and_counted(cuda):
+    """`MPCBackend.replan` on the card replays a captured graph of the
+    planner: bitwise the eager optimization, one capture per geometry
+    (counted under "mpc.replan"), none on a second replan."""
+    from ccka_tpu_torch.obs.compile import stats_for
+    from ccka_tpu_torch.train import mpc
+
+    cfg = PRESETS["multiregion"]()
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals, start_unix_s=8 * 3600.0)
+    backend = mpc.MPCBackend(cfg, horizon=8, iters=3, device=cuda)
+    state = initial_state(cfg, 1, cuda)
+    window = ExogenousTrace(*(x[None] for x in src.forecast(
+        0, 8, device=cuda)))
+    s0 = stats_for("mpc.replan")
+    c0 = s0.compiles if s0 is not None else 0
+    init = backend._plan.expand(1, *backend._plan.shape)
+    want = mpc.optimize_plan_batch(backend.params, cfg.cluster, cfg.train,
+                                   state, window, init, iters=3)
+    got = backend.replan(state, window)
+    assert torch.equal(got.plan_latent, want.plan_latent)
+    assert torch.equal(got.losses, want.losses)
+    again = mpc.optimize_plan_batch(backend.params, cfg.cluster, cfg.train,
+                                    state, window, got.plan_latent, iters=3)
+    assert torch.equal(backend.replan(state, window).plan_latent,
+                       again.plan_latent)
+    s = stats_for("mpc.replan")
+    assert s.compiles == c0 + 1 and s.recompiles == 0
+
+
+def test_controller_ticks_on_the_card_as_on_the_cpu(cuda):
+    """The rule loop on the card: the command stream of the CPU run, its
+    reports within 1e-5, and the estimate stage fenced."""
+    from ccka_tpu_torch.actuation.sink import DryRunSink
+    from ccka_tpu_torch.harness.controller import Controller
+    from ccka_tpu_torch.obs.trace import SpanTracer
+
+    cfg = PRESETS["multiregion"]()
+    runs = {}
+    for dev in ("cpu", cuda):
+        src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                    cfg.signals, start_unix_s=8 * 3600.0)
+        sink, tracer = DryRunSink(), SpanTracer()
+        reports = Controller(cfg, RulePolicy(cfg.cluster, device=dev), src,
+                             sink, device=dev, tracer=tracer,
+                             interval_s=0.0, log_fn=lambda s: None).run(8)
+        runs[str(dev)] = (reports, sink.rendered(), tracer)
+    (rc, kc, _), (rg, kg, tg) = runs["cpu"], runs[str(cuda)]
+    assert kc == kg
+    for a, b in zip(rc, rg):
+        assert a.profile == b.profile and a.slo_ok == b.slo_ok
+        for f in ("cost_usd_hr", "carbon_g_hr", "nodes_spot", "nodes_od"):
+            assert np.isclose(getattr(b, f), getattr(a, f), rtol=1e-5,
+                              atol=1e-6), f
+    assert all(sp.cat == "device" for sp in tg.spans()
+               if sp.name == "estimate")
