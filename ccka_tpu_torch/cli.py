@@ -1,15 +1,32 @@
-"""The port's command line: the closed control loop and its recovery board.
+"""The port's command line: the reference's demo scripts and the scoring
+and training entry points, as thin callers of the port's modules.
 
-The PyTorch form of two subcommands of `ccka_tpu/cli.py`:
+The PyTorch form of `ccka_tpu/cli.py`, with the same flags, output and
+exit codes. Subcommand <-> script map:
 
-  run          — the live closed-loop controller: scrape -> decide ->
-                 render -> apply -> verify every interval
-  recover-eval — the crash-recovery scoreboard (`harness/recovery.py`)
+  offpeak / peak / reset  <- demo_20 / demo_21 / demo_19 (NodePool patches)
+  observe     the profile a policy would apply right now (read-only)
+  run         the live closed-loop controller (scrape -> decide -> render
+              -> apply -> verify every interval)
+  preroll     <- demo_18 (environment assertions, the card's included)
+  bootstrap   EC2NodeClass + NodePools (the reference's missing demo_01)
+  guardrails  <- 04_kyverno (admission ClusterPolicies)
+  map-nodes   <- demo_15 (Karpenter node role into aws-auth)
+  cleanup     <- demo_50 (teardown order)
+  burst       <- demo_30 (COUNT x REPLICAS load generator)
+  watch       <- demo_40 observe (port-forwards + smoke queries)
+  dashboard   <- demo_40 configure (Grafana stack)
+  pipeline    <- 06_opencost collector stage
+  simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
+  recover-eval, scenarios, distill-factory, capture, report, obs,
+  show-config
 
-``python -m ccka_tpu_torch run --ticks 3 --device cpu`` reaches them.
-Both run on the card unless ``--device cpu`` is given. Every other
-subcommand of ``ccka`` is not ported yet (ROADMAP A14) and exits with a
-message saying so.
+Every subcommand that runs torch work takes ``--device`` (default
+``cuda``); without a GPU and without ``--device cpu`` it exits non-zero
+naming the device and never carries on on the CPU. ``python -m
+ccka_tpu_torch <cmd> --device cpu`` runs the plain PyTorch versions.
+Subcommands whose modules are not ported yet exit 2 naming their ROADMAP
+item (:data:`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -17,10 +34,24 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 
-PORTED = ("run", "recover-eval")
+# Subcommands of `ccka` the port has not yet, with the ROADMAP item that
+# ports them.
+NOT_PORTED = {
+    "fleet": "A11b(i)", "decisions": "A11b(i)", "tournament": "A11b(i)",
+    "overload-eval": "A11b(ii)", "incidents": "A11b(ii)",
+    "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
+    "geo": "item 13", "scenario-search": "item 13", "flywheel": "item 13",
+}
+_DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
+                "version)")
+
+
+def _names(s: str) -> tuple:
+    return tuple(x.strip() for x in s.split(",") if x.strip())
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -36,14 +67,37 @@ def _build_parser() -> argparse.ArgumentParser:
                    help="dotted config override, e.g. --set sim.dt_s=15")
     sub = p.add_subparsers(dest="command", required=True)
 
+    def device(sp) -> None:
+        sp.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+
+    for name, helptext in (
+            ("offpeak", "apply the cost-biased Off-Peak profile (demo_20)"),
+            ("peak", "apply the SLO-biased Peak profile (demo_21)"),
+            ("reset", "normalize NodePools to neutral (demo_19)")):
+        sp = sub.add_parser(name, help=helptext)
+        sp.add_argument("--live", action="store_true",
+                        help="apply via kubectl instead of dry-run")
+        sp.add_argument("--json", action="store_true",
+                        help="emit patches as JSON instead of commands")
+
+    so = sub.add_parser("observe", help="print the profile a policy would "
+                                        "apply right now (read-only)")
+    so.add_argument("--backend", default="rule",
+                    choices=("rule", "carbon", "mpc", "ppo"))
+    so.add_argument("--checkpoint", default="",
+                    help="ppo params (.npz or a `train` state directory); "
+                         "mpc: a `train --backend mpc` warm-start plan")
+    device(so)
+
     sr = sub.add_parser(
         "run", help="the live closed-loop controller: scrape->decide->"
                     "render->apply->verify every interval")
     sr.add_argument("--backend", default="rule",
                     choices=("rule", "carbon", "mpc", "ppo"))
     sr.add_argument("--checkpoint", default="",
-                    help="params .npz for ppo (default: the shipped "
-                         "flagship of the preset's topology)")
+                    help="ppo params (.npz or a `train` state directory; "
+                         "default: the shipped flagship of the preset's "
+                         "topology); mpc: a warm-start plan")
     sr.add_argument("--forecaster", default="",
                     help="mpc planning-window source: oracle (default), "
                          "persistence, seasonal-naive, or ridge")
@@ -79,9 +133,165 @@ def _build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--trace-out", default="",
                     help="write the session's tick spans as Chrome "
                          "trace-event JSON on exit")
-    sr.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain "
-                         "PyTorch version)")
+    device(sr)
+
+    sp = sub.add_parser("preroll", help="environment assertions (demo_18), "
+                                        "the card and its kernels included")
+    sp.add_argument("--live", action="store_true")
+    device(sp)
+
+    sb = sub.add_parser(
+        "bootstrap", help="create the EC2NodeClass + NodePools (the "
+                          "reference's missing demo_01)")
+    sb.add_argument("--live", action="store_true")
+    sb.add_argument("--json", action="store_true",
+                    help="print the manifests instead of applying")
+
+    swatch = sub.add_parser(
+        "watch", help="the demo_40 observe session: port-forward Grafana/"
+                      "Prometheus/OpenCost and smoke-query the metrics "
+                      "store (dry-run prints the tunnel plan)")
+    swatch.add_argument("--live", action="store_true",
+                        help="actually spawn kubectl port-forwards and "
+                             "hold them until interrupted")
+    swatch.add_argument("--duration", type=float, default=0.0,
+                        help="with --live: seconds to hold the tunnels "
+                             "(0 = until Ctrl-C)")
+
+    sg2 = sub.add_parser(
+        "guardrails", help="apply the Kyverno admission ClusterPolicies "
+                           "(04_kyverno analog)")
+    sg2.add_argument("--live", action="store_true")
+    sg2.add_argument("--json", action="store_true",
+                     help="print the ClusterPolicies instead of applying")
+
+    sm = sub.add_parser(
+        "map-nodes", help="map the Karpenter node role into aws-auth so "
+                          "provisioned nodes can join (demo_15 analog)")
+    sm.add_argument("--account-id", required=True,
+                    help="AWS account id owning the node role")
+    sm.add_argument("--live", action="store_true")
+
+    sc = sub.add_parser(
+        "cleanup", help="teardown in demo_50 order: namespace, NodePools "
+                        "first, NodeClaims w/ finalizer scrub")
+    sc.add_argument("--live", action="store_true")
+    sc.add_argument("--wipe-nodeclass", action="store_true",
+                    help="also delete the EC2NodeClass (WIPE_NODECLASS)")
+
+    sw = sub.add_parser(
+        "burst", help="the demo_30 load generator: COUNT x REPLICAS "
+                      "deployments alternating spot/on-demand nodeSelectors")
+    sw.add_argument("--count", type=int, default=None,
+                    help="deployments (default: workload.deployments, 12)")
+    sw.add_argument("--replicas", type=int, default=None,
+                    help="replicas each (default: workload.replicas, 5)")
+    sw.add_argument("--namespace", default=None,
+                    help="target namespace (default: workload.namespace)")
+    sw.add_argument("--live", action="store_true")
+    sw.add_argument("--json", action="store_true",
+                    help="print the manifests instead of applying")
+    sw.add_argument("--status", action="store_true",
+                    help="readiness summary of applied deployments "
+                         "(demo_30_burst_observe)")
+    sw.add_argument("--delete", action="store_true",
+                    help="remove the burst deployments + PDB")
+
+    st = sub.add_parser(
+        "train", help="train a learned backend; a state directory out")
+    st.add_argument("--backend", default="ppo", choices=("ppo", "mpc"))
+    st.add_argument("--iterations", type=int, default=40,
+                    help="PPO iterations / MPC warm-start Adam steps")
+    st.add_argument("--checkpoint-dir", required=True)
+    st.add_argument("--seed", type=int, default=None)
+    st.add_argument("--log-every", type=int, default=10)
+    st.add_argument("--runlog", default="",
+                    help="structured JSONL run log (obs/runlog)")
+    device(st)
+
+    se = sub.add_parser(
+        "evaluate", help="scoreboard: backends on held-out traces, with "
+                         "vs-rule ratios")
+    se.add_argument("--backends", default="rule,mpc",
+                    help="comma list of rule,carbon,mpc,ppo")
+    se.add_argument("--checkpoint", default="",
+                    help="params for the ppo backend (.npz or a state "
+                         "directory)")
+    se.add_argument("--days", type=float, default=0.25)
+    se.add_argument("--traces", type=int, default=4)
+    se.add_argument("--seed", type=int, default=0)
+    se.add_argument("--deterministic", action="store_true",
+                    help="expectation dynamics instead of sampled worlds")
+    device(se)
+
+    ss = sub.add_parser("simulate", help="batched simulator + KPI report")
+    ss.add_argument("--backend", default="rule",
+                    choices=("rule", "carbon", "neutral", "mpc", "ppo"))
+    ss.add_argument("--checkpoint", default="",
+                    help="ppo params (.npz or a state directory); mpc: a "
+                         "warm-start plan")
+    ss.add_argument("--forecaster", default="",
+                    help="mpc planning-window source: oracle (default), "
+                         "persistence, seasonal-naive, or ridge")
+    ss.add_argument("--days", type=float, default=1.0)
+    ss.add_argument("--clusters", type=int, default=1)
+    ss.add_argument("--seed", type=int, default=0)
+    ss.add_argument("--stochastic", action="store_true")
+    ss.add_argument("--profile-dir", default="",
+                    help="capture a torch.profiler trace of the rollout "
+                         "into this directory")
+    ss.add_argument("--mesh", action="store_true",
+                    help="shard the cluster batch over all devices (not "
+                         "ported yet: ROADMAP item 14)")
+    ss.add_argument("--device-traces", action="store_true",
+                    help="synthesize exogenous traces on the device; "
+                         "synthetic backend only")
+    device(ss)
+
+    sfe = sub.add_parser(
+        "forecast-eval", help="forecast quality scoreboard: horizon-"
+                              "resolved MAPE/RMSE per signal channel for "
+                              "each forecaster backend")
+    sfe.add_argument("--trace", default="",
+                     help="replay .npz to evaluate on (default: the "
+                          "configured signal source)")
+    sfe.add_argument("--forecasters",
+                     default="persistence,seasonal-naive,ridge",
+                     help="comma list of persistence,seasonal-naive,ridge")
+    sfe.add_argument("--horizon", type=int, default=0,
+                     help="forecast horizon in ticks "
+                          "(default: train.mpc_horizon)")
+    sfe.add_argument("--history", type=int, default=0,
+                     help="history window in ticks (default: each "
+                          "forecaster's own requirement)")
+    sfe.add_argument("--stride", type=int, default=32,
+                     help="ticks between evaluation anchors")
+    sfe.add_argument("--steps", type=int, default=0,
+                     help="trace length to evaluate over (default: the "
+                          "stored trace length, or 2 days for "
+                          "synthetic/live sources)")
+    sfe.add_argument("--seed", type=int, default=0)
+    sfe.add_argument("--per-horizon", action="store_true",
+                     help="include the full per-tick error curves "
+                          "(default: summary stats only)")
+    device(sfe)
+
+    sch = sub.add_parser(
+        "chaos-eval", help="fault-injection robustness scoreboard: "
+                           "policies x fault intensities on paired "
+                           "kernel traces")
+    sch.add_argument("--intensities", default="off,mild,moderate,severe",
+                     help="comma list of config.FAULT_PRESETS names; "
+                          "must include 'off' (the calm denominator)")
+    sch.add_argument("--policies", default="rule,flagship,mpc",
+                     help="comma list of rule,carbon,flagship,mpc")
+    sch.add_argument("--traces", type=int, default=0,
+                     help="paired traces per intensity (0 = 256)")
+    sch.add_argument("--steps", type=int, default=0,
+                     help="ticks per trace (0 = one day on the card, 96 "
+                          "on the CPU)")
+    sch.add_argument("--seed", type=int, default=31)
+    device(sch)
 
     sre = sub.add_parser(
         "recover-eval", help="crash-recovery scoreboard: paired kill/no-"
@@ -96,8 +306,117 @@ def _build_parser() -> argparse.ArgumentParser:
     sre.add_argument("--ticks", type=int, default=32,
                      help="control ticks per run")
     sre.add_argument("--seed", type=int, default=101)
-    sre.add_argument("--device", default="cuda",
-                     help="torch device (default cuda)")
+    device(sre)
+
+    slsc = sub.add_parser(
+        "scenarios", help="list the named workload scenario library: "
+                          "family mix, fault preset and arrival shapes "
+                          "per scenario")
+    slsc.add_argument("--minted-dir", default="",
+                      help="search-minted scenarios (not ported yet: "
+                           "ROADMAP item 13)")
+
+    ssc = sub.add_parser(
+        "scenario-eval", help="per-family workload scoreboard: policies x "
+                              "named scenarios on paired kernel traces")
+    ssc.add_argument("--scenarios",
+                     default="diurnal-inference,flash-crowd,"
+                             "batch-backfill,mixed",
+                     help="comma list of workload scenario names "
+                          "(see `scenarios`)")
+    ssc.add_argument("--policies", default="rule,flagship,mpc",
+                     help="comma list of rule,carbon,flagship,mpc")
+    ssc.add_argument("--traces", type=int, default=0,
+                     help="paired traces per scenario (0 = 256)")
+    ssc.add_argument("--steps", type=int, default=0,
+                     help="ticks per trace (0 = one day on the card, 96 "
+                          "on the CPU)")
+    ssc.add_argument("--seed", type=int, default=31)
+    device(ssc)
+
+    sdf = sub.add_parser(
+        "distill-factory",
+        help="MPC-distillation data factory (train/factory.py): planned "
+             "(state, plan) pairs across scenario x fault-intensity cells, "
+             "labeled through the CARRY kernels, as an imitation dataset")
+    sdf.add_argument("--scenarios",
+                     default="diurnal-inference,batch-backfill",
+                     help="comma list of workload scenario names")
+    sdf.add_argument("--intensities", default="off,moderate",
+                     help="comma list of 'off' + config.FAULT_PRESETS "
+                          "names")
+    sdf.add_argument("--teacher", default="mpc",
+                     help="planner protocol: 'mpc' or 'mpc-rh'")
+    sdf.add_argument("--pairs", type=int, default=64,
+                     help="(state, plan) pairs per cell (default 64)")
+    sdf.add_argument("--steps", type=int, default=96,
+                     help="ticks per pair window (default 96)")
+    sdf.add_argument("--iters", type=int, default=0,
+                     help="planner gradient steps per window (0 = the "
+                          "factory default protocol)")
+    sdf.add_argument("--student-iterations", type=int, default=0,
+                     help="distill the dataset into a fresh ActorCritic "
+                          "for this many Adam steps (0 = dataset/report "
+                          "only)")
+    sdf.add_argument("--out", default="",
+                     help="write the dataset (obs/target/returns) to "
+                          "this .npz path")
+    sdf.add_argument("--seed", type=int, default=41)
+    device(sdf)
+
+    sg = sub.add_parser(
+        "capture", help="record exogenous signals from the configured "
+                        "source into a replayable .npz trace")
+    sg.add_argument("--out", required=True, help="output .npz path")
+    sg.add_argument("--steps", type=int, default=2880,
+                    help="ticks to record (default: one day at 30s)")
+    sg.add_argument("--seed", type=int, default=0)
+    device(sg)
+
+    sp = sub.add_parser(
+        "report", help="summarize a controller telemetry JSONL into a "
+                       "session scoreboard")
+    sp.add_argument("--telemetry", required=True,
+                    help="JSONL file written by `run --telemetry`")
+
+    sob = sub.add_parser(
+        "obs", help="inspect structured run logs (obs/runlog JSONL): tail "
+                    "the latest records or summarize them")
+    sob.add_argument("action", choices=("tail", "summarize"))
+    sob.add_argument("path", help="run-log JSONL")
+    sob.add_argument("-n", "--lines", type=int, default=10,
+                     help="tail: records to show (default 10)")
+
+    sd = sub.add_parser(
+        "dashboard", help="render/apply the demo_40 observability stage: "
+                          "Grafana Deployment/Service/admin-Secret plus "
+                          "datasource+dashboard provisioning")
+    sd.add_argument("--live", action="store_true")
+    sd.add_argument("--json", action="store_true",
+                    help="print the manifests instead of applying")
+    sd.add_argument("--provision-only", action="store_true",
+                    help="render only the ConfigMaps")
+
+    spl = sub.add_parser(
+        "pipeline", help="render/apply the metrics-pipeline deploy stage "
+                         "(06_opencost.sh:204-387 analog)")
+    spl.add_argument("--remote-write-url", default="",
+                     help="prometheusremotewrite endpoint (default: "
+                          "derived from signals.prometheus_url)")
+    spl.add_argument("--region", default="",
+                     help="enable SigV4 auth for this AWS region (AMP)")
+    spl.add_argument("--writer-role-arn", default="",
+                     help="IRSA role annotation for the collector SA")
+    spl.add_argument("--query-role-arn", default="",
+                     help="IRSA role annotation for the query-proxy SA")
+    spl.add_argument("--proxy", action="store_true",
+                     help="also render the SigV4 query proxy "
+                          "Deployment/Service (requires --region)")
+    spl.add_argument("--live", action="store_true")
+    spl.add_argument("--json", action="store_true",
+                     help="print the manifests instead of applying")
+
+    sub.add_parser("show-config", help="print the resolved config")
     return p
 
 
@@ -124,14 +443,86 @@ def _load_config(args) -> FrameworkConfig:
     return cfg.with_overrides(**overrides) if overrides else cfg
 
 
+def _device(name: str):
+    """The torch device a subcommand asked for; exits naming it when it
+    is absent (no silent fallback to the CPU)."""
+    from ccka_tpu_torch import resolve_device
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(f"ccka: --device {name}: {e}")
+
+
+def _source(cfg: FrameworkConfig):
+    from ccka_tpu_torch.signals.live import make_signal_source
+    return make_signal_source(cfg.cluster, cfg.workload, cfg.sim, cfg.signals,
+                              faults=cfg.faults, workloads=cfg.workloads)
+
+
+def _lead(trace):
+    """A [T, ...] trace as a batch of one cluster."""
+    return type(trace)(*(x[None] for x in trace))
+
+
+def _cmd_profile(cfg: FrameworkConfig, profile: str, live: bool,
+                 as_json: bool) -> int:
+    from ccka_tpu_torch.actuation.patches import render_nodepool_patches
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+    from ccka_tpu_torch.policy.rule import (neutral_action, offpeak_action,
+                                            peak_action)
+
+    action, op = {
+        "offpeak": (offpeak_action(cfg.cluster, "cpu"), "replace"),
+        "peak": (peak_action(cfg.cluster, "cpu"), "add"),
+        "reset": (neutral_action(cfg.cluster, "cpu"), "replace"),
+    }[profile]
+    patches = render_nodepool_patches(action, cfg.cluster, op=op)
+
+    if as_json:
+        print(json.dumps([{
+            "pool": ps.pool,
+            "disruption_merge": ps.disruption_merge,
+            "requirements_json": ps.requirements_json,
+        } for ps in patches], indent=2))
+
+    sink = KubectlSink() if live else DryRunSink(echo=not as_json)
+    results = sink.apply_all(patches)
+    ok = all(r.ok for r in results)
+    for r in results:
+        status = "ok" if r.ok else "FAILED"
+        fb = " (fallback path)" if r.used_fallback else ""
+        print(f"[{status}] nodepool/{r.pool}{fb}", file=sys.stderr)
+        if not r.ok and r.detail:
+            print(r.detail, file=sys.stderr)
+    print(f"[{'ok' if ok else 'err'}] {profile} profile "
+          f"{'applied' if live else 'rendered (dry-run)'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _load_ppo_params(checkpoint: str):
+    """PPO params from an .npz (`train/checkpoint.py::save_params_npz`,
+    the shipped flagships' format) or from a state directory that
+    `train --backend ppo` wrote."""
+    from ccka_tpu_torch.train.checkpoint import load_params_npz, load_state
+
+    if checkpoint.endswith(".npz"):
+        return load_params_npz(checkpoint)[0]
+    try:
+        return load_state(checkpoint)
+    except (OSError, ValueError, KeyError) as e:
+        raise SystemExit(f"ccka: cannot load ppo params {checkpoint!r}: "
+                         f"{e}")
+
+
 def make_backend(cfg: FrameworkConfig, name: str, checkpoint: str = "",
                  forecaster: str = "", *, device=None):
     """The backend of a CLI spelling on ``device`` (the card unless
-    ``device="cpu"``). ``forecaster`` (mpc only) names a
-    `ccka_tpu_torch.forecast` backend the planner replans against;
-    empty or "oracle" keeps the perfect-foresight windows. ``ppo``
-    without a checkpoint loads the shipped flagship of the config's
-    topology."""
+    ``device="cpu"``), shared by observe, simulate, run and evaluate.
+    ``forecaster`` (mpc only) names a `ccka_tpu_torch.forecast` backend
+    the planner replans against; empty or "oracle" keeps the
+    perfect-foresight windows. ``ppo`` without a checkpoint loads the
+    shipped flagship of the config's topology; ``mpc`` with one starts
+    from the warm-start plan that ``train --backend mpc`` wrote."""
     from ccka_tpu_torch import resolve_device
     from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
     from ccka_tpu_torch.policy.rule import RulePolicy
@@ -154,11 +545,23 @@ def make_backend(cfg: FrameworkConfig, name: str, checkpoint: str = "",
         return CarbonAwarePolicy(cfg.cluster, device=device)
     if name == "mpc":
         from ccka_tpu_torch.train.mpc import MPCBackend
-        if checkpoint:
-            raise SystemExit("ccka: a trained mpc warm-start plan "
-                             "(--checkpoint) is not ported yet (ROADMAP "
-                             "A14)")
-        return MPCBackend(cfg, forecaster=fc, device=device)
+        backend = MPCBackend(cfg, forecaster=fc, device=device)
+        if checkpoint:  # trained warm-start plan (train --backend mpc)
+            import torch
+
+            from ccka_tpu_torch.train.checkpoint import load_state
+            try:
+                plan = torch.as_tensor(load_state(checkpoint)["plan"])
+            except (OSError, ValueError, KeyError) as e:
+                raise SystemExit(f"ccka: cannot load the mpc plan "
+                                 f"{checkpoint!r}: {e}")
+            if plan.shape != backend._plan.shape:
+                raise SystemExit(
+                    f"ccka: the mpc plan {checkpoint!r} is "
+                    f"{tuple(plan.shape)}, this config plans "
+                    f"{tuple(backend._plan.shape)}")
+            backend._plan = plan.to(device=device, dtype=torch.float32)
+        return backend
     if name == "ppo":
         from ccka_tpu_torch.train.ppo import PPOBackend
         if not checkpoint:
@@ -170,10 +573,38 @@ def make_backend(cfg: FrameworkConfig, name: str, checkpoint: str = "",
                     "checkpoint shipped for this topology; train one with "
                     "`python -m ccka_tpu_torch.train.flagship`)")
             return backend
-        from ccka_tpu_torch.train.checkpoint import load_params_npz
-        params, _meta = load_params_npz(checkpoint)
-        return PPOBackend(cfg, params, device=device)
+        return PPOBackend(cfg, _load_ppo_params(checkpoint), device=device)
     raise SystemExit(f"ccka: unknown backend {name!r}")
+
+
+def _cmd_observe(cfg: FrameworkConfig, args) -> int:
+    """The first tick's decision of a backend from a fresh cluster, on
+    the card (a batch of one, as the controller runs it)."""
+    from ccka_tpu_torch.harness.controller import _batch1
+    from ccka_tpu_torch.sim.dynamics import ExoStep
+    from ccka_tpu_torch.sim.rollout import initial_state
+
+    dev = _device(args.device)
+    src = _source(cfg)
+    exo = ExoStep(*src.tick(0, device=dev))
+    policy = make_backend(cfg, args.backend, args.checkpoint, device=dev)
+    state0 = initial_state(cfg, 1, dev)
+    if hasattr(policy, "replan"):  # receding-horizon backends plan first
+        policy.replan(state0, _lead(src.trace(policy.horizon, device=dev)))
+    action = _batch1(policy.decide(state0, exo, 0))
+    action = type(action)(*(x[0].detach().cpu() for x in action))
+    is_peak = float(exo.is_peak[0]) > 0.5
+    out = {
+        "backend": args.backend,
+        "is_peak": is_peak,
+        "consolidate_after_s": [float(x) for x in action.consolidate_after_s],
+        "consolidation_aggr": [float(x) for x in action.consolidation_aggr],
+        "zone_weight": [[float(x) for x in row] for row in action.zone_weight],
+    }
+    if hasattr(policy, "profile_name"):
+        out["profile"] = policy.profile_name(is_peak)
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def _cmd_run(cfg: FrameworkConfig, args) -> int:
@@ -184,6 +615,7 @@ def _cmd_run(cfg: FrameworkConfig, args) -> int:
         raise SystemExit("ccka: --resume needs --snapshot PATH (the "
                          "snapshot file to restore from and keep "
                          "writing to)")
+    dev = _device(args.device)
     resume_body = None
     if args.resume:
         from ccka_tpu_torch.harness.snapshot import (SnapshotError,
@@ -193,7 +625,7 @@ def _cmd_run(cfg: FrameworkConfig, args) -> int:
         except SnapshotError as e:
             raise SystemExit(f"ccka: {e}")
     backend = make_backend(cfg, args.backend, args.checkpoint,
-                           forecaster=args.forecaster, device=args.device)
+                           forecaster=args.forecaster, device=dev)
     tracer = None
     if args.trace_out:
         from ccka_tpu_torch.obs.trace import SpanTracer
@@ -211,7 +643,7 @@ def _cmd_run(cfg: FrameworkConfig, args) -> int:
     try:
         # Only live daemons take the per-cluster single-writer lock.
         ctrl = controller_from_config(
-            cfg, backend, device=args.device, live=args.live,
+            cfg, backend, device=dev, live=args.live,
             interval_s=args.interval, seed=args.seed, apply_hpa=args.hpa,
             apply_keda=args.keda, lock=args.live,
             telemetry_path=args.telemetry, exporter=exporter,
@@ -249,20 +681,663 @@ def _cmd_run(cfg: FrameworkConfig, args) -> int:
     return 0 if ok else 1
 
 
-def _cmd_recover_eval(cfg: FrameworkConfig, args) -> int:
-    from ccka_tpu_torch.harness.recovery import recovery_scoreboard
+def simulate_report(summary, backend: str, clusters: int,
+                    days: float) -> dict:
+    """``simulate``'s report: each EpisodeSummary field's mean over the
+    clusters (numpy's float32 mean, as the JAX package takes it), then
+    the run's backend, clusters and days."""
+    import numpy as np
 
-    def names(s: str) -> tuple:
-        return tuple(x.strip() for x in s.split(",") if x.strip())
+    report = {k: np.asarray(v.detach().cpu()).mean().item()
+              for k, v in summary._asdict().items()}
+    report["backend"] = backend
+    report["clusters"] = clusters
+    report["days"] = days
+    return report
 
+
+def _fleet_summary(cfg, src, params, backend: str, backend_obj, action_fn,
+                   steps: int, clusters: int, seed: int, stochastic: bool,
+                   device_traces: bool, dev):
+    """The batch path of ``simulate``: one EpisodeSummary per cluster.
+
+    rule, carbon and neutral go through the profile kernel's entries
+    (`sim/megakernel.py`): the rule's off-peak and peak actions, the
+    neutral action in both places, or the carbon teacher with the
+    policy's constants (as `faults/scoreboard.py::score_rows` passes
+    them). A source whose packed stream carries fault or workload lanes
+    is synthesized packed on the device, as the boards do, and the
+    ``*_summary_from_packed`` entries select the lane instantiation. On
+    ``--device cpu`` the same entries run their plain versions, the
+    semantics of `sim/rollout.py::batched_rollout_summary`. Every other
+    backend (ppo) runs the plain rollout, with the lanes threaded
+    through."""
+    import torch
+
+    from ccka_tpu_torch.faults.process import unpack_fault_lanes
+    from ccka_tpu_torch.policy.rule import (neutral_action, offpeak_action,
+                                            peak_action)
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
+                                            initial_state)
+    from ccka_tpu_torch.workloads.process import unpack_workload_lanes
+
+    Z = cfg.cluster.n_zones
+    has_faults = getattr(src, "faults", None) is not None
+    has_workloads = getattr(src, "workloads", None) is not None
+    lanes = has_faults or has_workloads
+    if (lanes or device_traces) and not getattr(
+            src, "supports_device_traces", False):
+        raise SystemExit(
+            "ccka: --device-traces requires the synthetic signals backend"
+            if device_traces else
+            "ccka: a stream with fault or workload lanes is synthesized on "
+            "the device: the synthetic signals backend only")
+    stream, lane_kw = None, {}
+    if lanes:
+        stream = src.packed_trace_device(steps, seed + 7919, clusters,
+                                         device=dev)
+        traces = mk.unpack_exo(stream, steps, Z)
+        lane_kw = dict(
+            faults=unpack_fault_lanes(stream, steps, Z) if has_faults
+            else None,
+            workloads=unpack_workload_lanes(stream, steps, Z)
+            if has_workloads else None)
+    elif device_traces:
+        traces = src.batch_trace_device(
+            steps, torch.Generator(device=dev).manual_seed(seed + 7919),
+            clusters, device=dev)
+    else:
+        traces = src.batch_trace(steps, [seed + i for i in range(clusters)],
+                                 device=dev)
+    if backend not in ("rule", "neutral", "carbon"):
+        return batched_rollout_summary(
+            params, initial_state(cfg, clusters, dev), action_fn, traces,
+            seed, stochastic=stochastic, **lane_kw)[1]
+    if stream is None:
+        stream = mk._pack_exo(traces, steps)
+    off, peak = offpeak_action(cfg.cluster, dev), peak_action(cfg.cluster,
+                                                              dev)
+    if backend == "neutral":
+        off = peak = neutral_action(cfg.cluster, dev)
+    if backend == "carbon":
+        return mk.carbon_megakernel_summary_from_packed(
+            params, off, peak, stream, steps, seed,
+            sharpness=backend_obj.sharpness,
+            min_weight=backend_obj.min_weight,
+            stickiness=backend_obj.stickiness, stochastic=stochastic)
+    return mk.megakernel_summary_from_packed(params, off, peak, stream,
+                                             steps, seed,
+                                             stochastic=stochastic)
+
+
+def _cmd_simulate(cfg: FrameworkConfig, args) -> int:
+    """The batched simulator and its KPI report.
+
+    With ``--clusters > 1`` the rule, carbon and neutral backends score
+    the fleet through the profile kernel (:func:`_fleet_summary`). ppo
+    stays on the plain rollout, as in the JAX package: the MLP kernel
+    computes `sim/megakernel.py::kernel_numerics_action_fn` (the
+    kernel's bf16 numerics), not ``PPOBackend.action_fn``. The
+    single-cluster path and the receding-horizon mpc run the plain
+    rollout, as there. ``--mesh`` is not ported yet: :func:`main` exits
+    naming ROADMAP item 14."""
+    import torch
+
+    from ccka_tpu_torch.harness.telemetry import profile_trace
+    from ccka_tpu_torch.policy.rule import neutral_action
+    from ccka_tpu_torch.sim.metrics import summarize
+    from ccka_tpu_torch.sim.rollout import initial_state, rollout
+    from ccka_tpu_torch.sim.types import SimParams
+
+    dev = _device(args.device)
+    backend, clusters, seed = args.backend, args.clusters, args.seed
+    params = SimParams.from_config(cfg, device=dev)
+    steps = int(args.days * 86400.0 / cfg.sim.dt_s)
+    src = _source(cfg)
+
+    if clusters == 1 and args.device_traces:
+        raise SystemExit("ccka: --mesh/--device-traces are batch-path "
+                         "flags; set --clusters > 1 (they would be "
+                         "silently ignored on the single-cluster path)")
+
+    backend_obj = None
+    receding = False
+    if backend == "neutral":
+        neutral = neutral_action(cfg.cluster, dev)
+        action_fn = lambda s, e, t: neutral  # noqa: E731
+        if args.forecaster:
+            from ccka_tpu_torch.forecast.base import make_forecaster
+            if make_forecaster(args.forecaster,
+                               dt_s=cfg.sim.dt_s) is not None:
+                raise SystemExit("ccka: --forecaster only applies to the "
+                                 "mpc backend")
+    else:
+        backend_obj = make_backend(cfg, backend, args.checkpoint,
+                                   forecaster=args.forecaster, device=dev)
+        # Receding-horizon backends carry host-side plan state a fixed
+        # action_fn would freeze; they run their own closed loop.
+        receding = getattr(backend_obj, "requires_receding_horizon", False)
+        if not receding:
+            action_fn = backend_obj.action_fn()
+    if receding and clusters != 1:
+        raise SystemExit(f"ccka: --backend {backend} simulates one cluster "
+                         "(receding-horizon); use `ccka evaluate "
+                         f"--backends {backend}` for paired comparisons")
+
+    with profile_trace(args.profile_dir):
+        if clusters == 1:
+            trace = _lead(src.trace(steps, seed=seed, device=dev))
+            if receding:
+                _final, metrics = backend_obj.evaluate(
+                    initial_state(cfg, 1, dev), trace, seed,
+                    stochastic=args.stochastic)
+            else:
+                _final, metrics = rollout(params, initial_state(cfg, 1, dev),
+                                          action_fn, trace, seed,
+                                          stochastic=args.stochastic)
+            s = summarize(params, metrics)
+        else:
+            s = _fleet_summary(cfg, src, params, backend, backend_obj,
+                               action_fn, steps, clusters, seed,
+                               args.stochastic, args.device_traces, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    print(json.dumps(simulate_report(s, backend, clusters, args.days),
+                     indent=2))
+    return 0
+
+
+def _cmd_forecast_eval(cfg: FrameworkConfig, args) -> int:
+    """Forecast quality scoreboard: horizon-resolved MAPE/RMSE per signal
+    channel for each forecaster backend (`forecast/`). The oracle row is
+    omitted by construction: its error is identically zero."""
+    from ccka_tpu_torch.forecast.base import make_forecaster
+    from ccka_tpu_torch.forecast.metrics import evaluate_forecaster
+
+    dev = _device(args.device)
+    if args.trace:
+        from ccka_tpu_torch.signals.replay import ReplaySignalSource
+        try:
+            src = ReplaySignalSource.from_file(args.trace)
+        except (OSError, KeyError, ValueError) as e:
+            raise SystemExit(f"ccka: cannot load trace {args.trace!r}: {e}")
+        steps = args.steps or src._trace.steps
+        # The trace's own cadence sets the seasonal period.
+        dt_s = src.meta().dt_s or cfg.sim.dt_s
+    else:
+        src = _source(cfg)
+        steps = args.steps or int(2 * 86400.0 / cfg.sim.dt_s)
+        dt_s = cfg.sim.dt_s
+    trace = src.trace(steps, seed=args.seed, device=dev)
+    horizon = args.horizon or cfg.train.mpc_horizon
+
+    out = {"trace": args.trace or cfg.signals.backend, "steps": int(steps),
+           "horizon": int(horizon), "dt_s": dt_s,
+           "forecasters": {}}
+    for name in _names(args.forecasters):
+        try:
+            fc = make_forecaster(name, dt_s=dt_s)
+        except ValueError as e:
+            raise SystemExit(f"ccka: {e}")
+        if fc is None:
+            print("# oracle forecast error is zero by definition — row "
+                  "omitted", file=sys.stderr)
+            continue
+        try:
+            row = evaluate_forecaster(fc, trace, horizon=horizon,
+                                      history_steps=args.history or None,
+                                      stride=args.stride)
+        except ValueError as e:  # e.g. trace shorter than history+horizon
+            raise SystemExit(f"ccka: {name}: {e}")
+        if not args.per_horizon:
+            for field, errs in row.items():
+                if isinstance(errs, dict) and "mape" in errs:
+                    row[field] = {
+                        "mape_h1": round(errs["mape"][0], 5),
+                        "mape_hlast": round(errs["mape"][-1], 5),
+                        "rmse_h1": round(errs["rmse"][0], 5),
+                        "rmse_hlast": round(errs["rmse"][-1], 5),
+                    }
+        out["forecasters"][name] = row
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_distill_factory(cfg: FrameworkConfig, args) -> int:
+    """The MPC-distillation data factory (`train/factory.py`). Unknown
+    scenario, intensity and teacher names are rejected before anything
+    runs."""
+    from ccka_tpu_torch.train import factory as factory_mod
+
+    dev = _device(args.device)
+    scenarios, intensities = _names(args.scenarios), _names(args.intensities)
     try:
-        board = recovery_scoreboard(
-            cfg, intensities=names(args.intensities),
-            policies=names(args.policies), runs_per_cell=args.runs,
-            ticks=args.ticks, seed=args.seed, device=args.device)
+        factory_mod.validate_factory_names(
+            scenarios=scenarios, intensities=intensities,
+            teacher=args.teacher)
+        dataset, report = factory_mod.factory_run(
+            cfg, scenarios=scenarios, intensities=intensities,
+            teacher=args.teacher, pairs_per_cell=args.pairs,
+            steps=args.steps,
+            iters=args.iters or factory_mod.FACTORY_ITERS,
+            seed=args.seed, with_ledger=True, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    if args.out:
+        import numpy as np
+
+        np.savez_compressed(
+            args.out, obs=dataset.obs.detach().cpu().numpy(),
+            target=dataset.target.detach().cpu().numpy(),
+            returns=dataset.returns.detach().cpu().numpy())
+        report = dict(report, dataset_path=args.out)
+    if args.student_iterations > 0:
+        from ccka_tpu_torch.train.imitate import imitate
+
+        _params, hist = imitate(cfg, None, None, dataset=dataset,
+                                iterations=args.student_iterations,
+                                seed=args.seed, device=dev)
+        report = dict(report,
+                      student={"iterations": args.student_iterations,
+                               "final_actor_mse": round(
+                                   hist[-1]["actor_mse"], 5),
+                               "final_critic_mse": round(
+                                   hist[-1]["critic_mse"], 5)})
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def _cmd_capture(cfg: FrameworkConfig, args) -> int:
+    """Record the configured source into a replayable .npz
+    (`signals/replay.py::save_trace`, the JAX package's layout)."""
+    from ccka_tpu_torch.signals.replay import save_trace
+
+    dev = _device(args.device)
+    src = _source(cfg)
+    trace = src.trace(args.steps, seed=args.seed, device=dev)
+    save_trace(args.out, trace, src.meta())
+    print(json.dumps({"out": args.out, "steps": args.steps,
+                      "source": src.meta().source,
+                      "zones": list(src.meta().zones)}))
+    return 0
+
+
+def _cmd_train(cfg: FrameworkConfig, args) -> int:
+    """Train a learned backend into a state directory
+    (`train/checkpoint.py::save_state`): PPO params in the checkpoints'
+    flax layout, or mpc's warm-start plan (a plan optimized against a
+    representative window, which seeds replans)."""
+    from ccka_tpu_torch.obs.runlog import RunLog
+    from ccka_tpu_torch.train.checkpoint import save_state
+
+    dev = _device(args.device)
+    src = _source(cfg)
+    rl = RunLog(args.runlog or None, kind=f"{args.backend}-train",
+                meta={"iterations": args.iterations, "seed": args.seed})
+    if args.backend == "ppo":
+        from ccka_tpu_torch import bridge
+        from ccka_tpu_torch.train.ppo import PPOTrainer
+        trainer = PPOTrainer(cfg, device=dev)
+        ts, history = trainer.train(src, args.iterations, seed=args.seed,
+                                    log_every=args.log_every or 1,
+                                    runlog=rl)
+        for rec in history:
+            print(json.dumps(rec))
+        path = save_state(args.checkpoint_dir,
+                          bridge.actor_critic_to_flax(ts.params),
+                          step=int(ts.iteration))
+        rl.close(checkpoint=path)
+        print(f"[ok] ppo params -> {path}", file=sys.stderr)
+        return 0
+    from ccka_tpu_torch.models.nets import action_to_latent
+    from ccka_tpu_torch.policy.rule import neutral_action
+    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.train.mpc import optimize_plan
+    h = cfg.train.mpc_horizon
+    base = action_to_latent(neutral_action(cfg.cluster, dev), cfg.cluster)
+    init = base.expand(h, *base.shape)
+    result = optimize_plan(SimParams.from_config(cfg, device=dev),
+                           cfg.cluster, cfg.train, initial_state(cfg, 1, dev),
+                           src.trace(h, seed=args.seed or cfg.train.seed,
+                                     device=dev),
+                           init, iters=args.iterations)
+    first, final = float(result.losses[0]), float(result.losses[-1])
+    print(json.dumps({"final_objective": final, "first_objective": first}))
+    path = save_state(args.checkpoint_dir, {"plan": result.plan_latent},
+                      step=args.iterations)
+    rl.event("mpc_plan", first_objective=first, final_objective=final,
+             iters=args.iterations)
+    rl.close(checkpoint=path)
+    print(f"[ok] mpc warm-start plan -> {path}", file=sys.stderr)
+    return 0
+
+
+def _cmd_evaluate(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.train.evaluate import compare_backends, heldout_traces
+
+    dev = _device(args.device)
+    src = _source(cfg)
+    steps = max(int(args.days * 86400.0 / cfg.sim.dt_s), 1)
+    traces = heldout_traces(src, steps=steps, n=args.traces,
+                            seed0=10_000 + args.seed, device=dev)
+    backends = {name: make_backend(cfg, name, args.checkpoint, device=dev)
+                for name in args.backends.split(",") if name}
+    board = compare_backends(cfg, backends, traces,
+                             stochastic=not args.deterministic)
+    print(json.dumps(board, indent=2, sort_keys=True))
+    return 0
+
+
+def _cmd_bootstrap(cfg: FrameworkConfig, live: bool, as_json: bool) -> int:
+    from ccka_tpu_torch.actuation.bootstrap import (
+        bootstrap, render_ec2nodeclass_manifest, render_nodepool_manifest)
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+
+    if as_json:
+        docs = [render_ec2nodeclass_manifest(cfg.cluster)]
+        docs += [render_nodepool_manifest(cfg.cluster, p)
+                 for p in cfg.cluster.pools]
+        print(json.dumps(docs, indent=2))
+        return 0
+    sink = KubectlSink() if live else DryRunSink(echo=True)
+    results = bootstrap(cfg, sink)
+    ok = all(r.ok for r in results)
+    for r in results:
+        print(f"[{'ok' if r.ok else 'FAILED'}] {r.pool}"
+              + (f" — {r.detail}" if r.detail else ""), file=sys.stderr)
+    print(f"[{'ok' if ok else 'err'}] bootstrap "
+          f"{'applied' if live else 'rendered (dry-run)'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _apply_docs(docs: list, live: bool, label: str, *, sink=None) -> int:
+    """Shared render -> sink -> per-result report path for the manifest
+    commands."""
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+
+    if sink is None:
+        sink = KubectlSink() if live else DryRunSink(echo=True)
+    results = sink.apply_manifests(docs)
+    ok = all(r.ok for r in results)
+    for r in results:
+        print(f"[{'ok' if r.ok else 'FAILED'}] {r.pool}"
+              + (f" — {r.detail}" if r.detail else ""), file=sys.stderr)
+    print(f"[{'ok' if ok else 'err'}] {label} "
+          f"{'applied' if live else 'rendered (dry-run)'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _cmd_burst(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.actuation.burst import (apply_burst, burst_status,
+                                                delete_burst,
+                                                render_burst_deployments,
+                                                render_burst_pdb,
+                                                render_burst_rbac)
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+
+    ns = args.namespace or cfg.workload.namespace
+    if args.json and (args.delete or args.status):
+        raise SystemExit("ccka: burst --json renders the creation "
+                         "manifests and conflicts with --delete/--status "
+                         "(--status output is already JSON)")
+    if args.json:
+        docs = render_burst_rbac(ns)
+        docs.append(render_burst_pdb(cfg.workload, ns))
+        docs += render_burst_deployments(cfg.workload, ns,
+                                         count=args.count,
+                                         replicas=args.replicas)
+        print(json.dumps(docs, indent=2))
+        return 0
+    sink = KubectlSink() if args.live else DryRunSink(echo=True)
+    if args.delete:
+        ok = delete_burst(sink, ns)
+        print("[ok] burst workload removed" if ok
+              else "[err] burst delete failed", file=sys.stderr)
+        return 0 if ok else 1
+    if args.status:
+        print(json.dumps(burst_status(sink, ns), indent=2))
+        return 0
+    results = apply_burst(cfg.workload, sink, ns,
+                          count=args.count, replicas=args.replicas)
+    ok = all(r.ok for r in results)
+    for r in results:
+        if not r.ok:
+            print(f"[FAILED] {r.pool} — {r.detail}", file=sys.stderr)
+    print(f"[{'ok' if ok else 'err'}] burst: {len(results)} object(s) "
+          f"{'applied' if args.live else 'rendered (dry-run)'}",
+          file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _cmd_map_nodes(cfg: FrameworkConfig, account_id: str, live: bool) -> int:
+    from ccka_tpu_torch.actuation.bootstrap import ensure_node_role_mapping
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+
+    sink = KubectlSink() if live else DryRunSink(echo=True)
+    if not live:
+        # Seed a representative aws-auth so the dry-run demonstrates the
+        # patch it would make against a real cluster.
+        sink.objects[("configmap", "kube-system", "aws-auth")] = {
+            "apiVersion": "v1", "kind": "ConfigMap",
+            "metadata": {"name": "aws-auth", "namespace": "kube-system"},
+            "data": {"mapRoles": ""},
+        }
+    r = ensure_node_role_mapping(cfg, sink, account_id=account_id)
+    print(f"[{'ok' if r.ok else 'FAILED'}] {r.pool}"
+          + (f" — {r.detail}" if r.detail else ""), file=sys.stderr)
+    return 0 if r.ok else 1
+
+
+def _cmd_cleanup(cfg: FrameworkConfig, live: bool,
+                 wipe_nodeclass: bool) -> int:
+    from ccka_tpu_torch.actuation.bootstrap import cleanup
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+
+    sink = KubectlSink() if live else DryRunSink(echo=True)
+    results = cleanup(cfg, sink, wipe_nodeclass=wipe_nodeclass)
+    ok = all(good for _, good in results)
+    for name, good in results:
+        print(f"[{'ok' if good else 'FAILED'}] delete {name}",
+              file=sys.stderr)
+    print(f"[{'ok' if ok else 'err'}] cleanup "
+          f"{'done' if live else 'rendered (dry-run)'}", file=sys.stderr)
+    return 0 if ok else 1
+
+
+def _cmd_dashboard(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.actuation.sink import DryRunSink, KubectlSink
+    from ccka_tpu_torch.harness.dashboard import (render_dashboard_configmap,
+                                                  render_observability_stack)
+    if args.provision_only:
+        docs = render_dashboard_configmap(cfg.signals.prometheus_url,
+                                          cfg.workload.namespace)
+    else:
+        # The whole demo_40 configure stage: provisioning, admin Secret,
+        # Grafana Deployment/Service.
+        docs = render_observability_stack(cfg.signals.prometheus_url,
+                                          cfg.workload.namespace)
+    if args.json:
+        print(json.dumps(docs, indent=2))
+        return 0
+    sink = KubectlSink() if args.live else DryRunSink(echo=True)
+    # Re-applying must not rotate an existing admin Secret: the running
+    # Grafana resolved its password at container start
+    # (demo_40_watch_config.sh:36-48).
+    existing = sink.get_object("Secret", "ccka-grafana-admin",
+                               namespace=cfg.workload.namespace)
+    if existing:
+        docs = [d for d in docs if d.get("kind") != "Secret"]
+        print("[ok] existing grafana admin secret preserved",
+              file=sys.stderr)
+    return _apply_docs(docs, args.live, "dashboard stack", sink=sink)
+
+
+def _cmd_pipeline(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.harness.pipeline import render_metrics_pipeline
+    if args.query_role_arn and not args.proxy:
+        # The query role only lands on the proxy's SA.
+        raise SystemExit("ccka: --query-role-arn has no effect "
+                         "without --proxy")
+    rw_url = args.remote_write_url or (
+        cfg.signals.prometheus_url.rstrip("/")
+        # AMP serves remote-write at /api/v1/remote_write; plain
+        # Prometheus at /api/v1/write.
+        + ("/api/v1/remote_write" if args.region else "/api/v1/write"))
+    try:
+        docs = render_metrics_pipeline(
+            rw_url, cfg.workload.namespace, region=args.region,
+            writer_role_arn=args.writer_role_arn,
+            query_role_arn=args.query_role_arn, proxy=args.proxy)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    if args.json:
+        print(json.dumps(docs, indent=2))
+        return 0
+    return _apply_docs(docs, args.live, "metrics pipeline")
+
+
+def _cmd_watch(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.harness.watch import WatchSession, watch_plan
+    if not args.live:
+        # Dry-run prints the tunnel plan only: no network I/O.
+        plan = watch_plan(cfg)
+        for fw in plan:
+            print(f"[dry-run] would run: {' '.join(fw.argv())}",
+                  file=sys.stderr)
+        print(json.dumps({"plan": [fw.name for fw in plan]}, indent=2))
+        return 0
+    with WatchSession(cfg) as session:
+        try:
+            ready = session.start()
+        except RuntimeError as e:  # e.g. kubectl missing
+            raise SystemExit(f"ccka: {e}")
+        for name, ok in ready.items():
+            print(f"[{'ok' if ok else 'err'}] tunnel {name}",
+                  file=sys.stderr)
+        smoke = session.smoke()
+        print(json.dumps({"ready": ready, "smoke": smoke}, indent=2))
+        if not all(ready.values()):
+            return 1
+        try:
+            if args.duration > 0:
+                time.sleep(args.duration)
+            else:
+                print("[ok] tunnels up — Ctrl-C to stop", file=sys.stderr)
+                while True:
+                    time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
+def _cmd_board(cfg: FrameworkConfig, args) -> int:
+    """chaos-eval and scenario-eval: the fault and workload boards
+    (`faults/scoreboard.py`, `workloads/scoreboard.py`) on the card."""
+    dev = _device(args.device)
+    kw = dict(policies=_names(args.policies), n_traces=args.traces or 256,
+              eval_steps=args.steps or None, seed=args.seed, device=dev)
+    try:
+        if args.command == "chaos-eval":
+            from ccka_tpu_torch.faults.scoreboard import fault_scoreboard
+            board = fault_scoreboard(
+                cfg, intensities=_names(args.intensities), **kw)
+        else:
+            from ccka_tpu_torch.workloads.scoreboard import (
+                workload_scoreboard)
+            board = workload_scoreboard(
+                cfg, scenarios=_names(args.scenarios), **kw)
     except ValueError as e:
         raise SystemExit(f"ccka: {e}")
     print(json.dumps(board, indent=2))
+    return 0
+
+
+def _cmd_recover_eval(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.harness.recovery import recovery_scoreboard
+
+    dev = _device(args.device)
+    try:
+        board = recovery_scoreboard(
+            cfg, intensities=_names(args.intensities),
+            policies=_names(args.policies), runs_per_cell=args.runs,
+            ticks=args.ticks, seed=args.seed, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    print(json.dumps(board, indent=2))
+    return 0
+
+
+def _cmd_scenarios(args) -> int:
+    """The hand-named scenario library; minted scenarios are item 13."""
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    if args.minted_dir:
+        print("ccka_tpu_torch: scenarios --minted-dir (search-minted "
+              "scenarios) is not ported yet (ROADMAP item 13)",
+              file=sys.stderr)
+        return 2
+    listing = []
+    for name, sc in WORKLOAD_SCENARIOS.items():
+        wl = sc.workloads
+        listing.append({
+            "name": name,
+            "description": sc.description,
+            "family_mix": sc.family_mix(),
+            "fault_preset": sc.fault_preset or None,
+            "minted": ({"by": sc.minted_by,
+                        "params_digest": sc.params_digest}
+                       if sc.minted else None),
+            "inference": {
+                "flash_frac": wl.inference_flash_frac,
+                "flash_mult": wl.inference_flash_mult,
+                "queue_max": wl.inference_queue_max,
+                "slo_ms": wl.inference_slo_ms,
+            },
+            "batch": {
+                "burst_frac": wl.batch_burst_frac,
+                "burst_mult": wl.batch_burst_mult,
+                "deadline_ticks": wl.batch_deadline_ticks,
+            },
+        })
+    print(json.dumps({"scenarios": listing}, indent=2))
+    return 0
+
+
+def _cmd_report(args) -> int:
+    from ccka_tpu_torch.harness.telemetry import (read_telemetry,
+                                                  summarize_telemetry)
+    try:
+        records = read_telemetry(args.telemetry)
+    except OSError as e:
+        raise SystemExit(f"ccka: cannot read telemetry: {e}")
+    except json.JSONDecodeError as e:
+        # e.g. a partial line from a controller killed mid-write
+        raise SystemExit(f"ccka: corrupt telemetry line in "
+                         f"{args.telemetry}: {e}")
+    print(json.dumps(summarize_telemetry(records), indent=2))
+    return 0
+
+
+def _cmd_obs(args) -> int:
+    from ccka_tpu_torch.obs.runlog import read_runlog, summarize_runlog
+    try:
+        # Non-strict: a live run's last line may be mid-write, a counted
+        # torn tail (interior corruption still raises).
+        records, stats = read_runlog(args.path, with_stats=True)
+    except OSError as e:
+        raise SystemExit(f"ccka: cannot read run log: {e}")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"ccka: corrupt run log {args.path}: {e}")
+    if stats["torn_tail"]:
+        print("# note: final line torn (crash or live writer mid-write) "
+              "— showing the intact prefix", file=sys.stderr)
+    if args.action == "tail":
+        for rec in records[-max(args.lines, 1):]:
+            print(json.dumps(rec, sort_keys=True))
+        return 0
+    print(json.dumps(summarize_runlog(records), indent=2))
     return 0
 
 
@@ -282,12 +1357,38 @@ def _command(argv: list[str]) -> str | None:
     return None
 
 
+def _not_ported(argv: list[str]) -> str | None:
+    """The ROADMAP item of a subcommand the port has not yet, or None."""
+    cmd = _command(argv)
+    if cmd == "fleet" and _flag(argv, "--service"):
+        return "A11b(ii)"
+    if cmd == "simulate" and _flag(argv, "--mesh"):
+        return "item 14"
+    return NOT_PORTED.get(cmd)
+
+
+def _flag(argv: list[str], flag: str) -> bool:
+    return any(a == flag or a.startswith(flag + "=") for a in argv)
+
+
+_HANDLERS = {
+    "observe": _cmd_observe, "run": _cmd_run, "simulate": _cmd_simulate,
+    "evaluate": _cmd_evaluate, "train": _cmd_train,
+    "forecast-eval": _cmd_forecast_eval, "chaos-eval": _cmd_board,
+    "scenario-eval": _cmd_board, "recover-eval": _cmd_recover_eval,
+    "distill-factory": _cmd_distill_factory, "capture": _cmd_capture,
+    "dashboard": _cmd_dashboard, "pipeline": _cmd_pipeline,
+    "watch": _cmd_watch, "burst": _cmd_burst,
+}
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    cmd = _command(argv)
-    if cmd is not None and cmd not in PORTED:
-        print(f"ccka_tpu_torch: subcommand {cmd!r} is not ported yet "
-              f"(ROADMAP A14); the port has {', '.join(PORTED)}",
+    item = _not_ported(argv)
+    if item is not None:
+        what = {"A11b(ii)": " --service", "item 14": " --mesh"}
+        print(f"ccka_tpu_torch: subcommand {_command(argv)!r}"
+              f"{what.get(item, '')} is not ported yet (ROADMAP {item})",
               file=sys.stderr)
         return 2
     args = _build_parser().parse_args(argv)
@@ -299,6 +1400,39 @@ def main(argv: list[str] | None = None) -> int:
     except OSError as e:
         print(f"ccka: cannot read config: {e}", file=sys.stderr)
         return 2
-    if args.command == "run":
-        return _cmd_run(cfg, args)
-    return _cmd_recover_eval(cfg, args)
+
+    cmd = args.command
+    try:
+        if cmd in ("offpeak", "peak", "reset"):
+            return _cmd_profile(cfg, cmd, args.live, args.json)
+        if cmd in _HANDLERS:
+            return _HANDLERS[cmd](cfg, args)
+        if cmd == "preroll":
+            from ccka_tpu_torch.harness.preroll import run_preroll
+            return run_preroll(cfg, live=args.live, device=args.device)
+        if cmd == "bootstrap":
+            return _cmd_bootstrap(cfg, args.live, args.json)
+        if cmd == "guardrails":
+            from ccka_tpu_torch.actuation.guardrails import render_guardrails
+            if args.json:
+                print(json.dumps(render_guardrails(), indent=2))
+                return 0
+            return _apply_docs(render_guardrails(), args.live, "guardrails")
+        if cmd == "map-nodes":
+            return _cmd_map_nodes(cfg, args.account_id, args.live)
+        if cmd == "cleanup":
+            return _cmd_cleanup(cfg, args.live, args.wipe_nodeclass)
+        if cmd == "scenarios":
+            return _cmd_scenarios(args)
+        if cmd == "report":
+            return _cmd_report(args)
+        if cmd == "obs":
+            return _cmd_obs(args)
+        if cmd == "show-config":
+            print(cfg.to_json())
+            return 0
+    except ConfigError as e:
+        # e.g. a replay trace that validates as a path but fails to load
+        print(f"ccka: config error: {e}", file=sys.stderr)
+        return 2
+    raise SystemExit(f"unknown command {cmd}")

@@ -29,6 +29,7 @@ state.
 from __future__ import annotations
 
 import os
+import re
 import tempfile
 import threading
 from dataclasses import asdict
@@ -274,6 +275,18 @@ SERVICE_ONLY_SERIES = frozenset({
     "ccka_policy_candidate_win_rate", "ccka_tournament_leader",
     "ccka_host_loop_us_per_tenant", "ccka_active_tenants",
 })
+
+_LABEL = re.compile(r"[a-zA-Z_][a-zA-Z0-9_]*")
+
+
+def exported_series_names() -> set[str]:
+    return set(SERIES)
+
+
+def referenced_series(expr: str) -> set[str]:
+    """The `ccka_*` tokens a PromQL expression reads (for parity tests)."""
+    return {tok for tok in _LABEL.findall(expr) if tok.startswith("ccka_")}
+
 
 def resolve_field(rec: Mapping, spec: str):
     """A SERIES field spec against one tick record: a plain TickReport

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Five main paths. The rule-profile fleet rollout: a batch of clusters
+Six main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -17,7 +17,8 @@ kernels, the rollout resumed at each block from its carried state, and a
 fleet of 262144 clusters in chunks whose whole stream would not fit the
 card. The closed control loop: one cluster's scrape, decide, render,
 apply, verify and estimate a tick, on the card, under four backends,
-killed and resumed.
+killed and resumed. The command line: preroll, simulate, evaluate, the
+boards, train and observe through `ccka_tpu_torch.cli.main` on the card.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -185,7 +186,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    severe x 4 runs x 32 ticks, seed 101; 8 runs there) on the card: 0 duplicate and 0 lost patches, a
    bitwise-resume share of 1.0, every usd_per_slo_hr_vs_baseline 1.0; its
    wall. It writes `runs/chip_smoke_loop/`;
-13. one JSON line listing every kernel and lane instantiation, the
+13. the command line (the main path of the tenth slice), each
+   subcommand through `ccka_tpu_torch.cli.main` with its default device:
+   (a) `preroll` exits 0, its device row names the card and its kernel
+   row launched the rule kernel once; (b) `simulate` at the default
+   preset, `--clusters 32768 --days 1 --stochastic --device-traces`,
+   under rule, carbon and neutral: one profile kernel launch a run (the
+   carbon instantiation for carbon) and no call of a plain version, each
+   run timed; then `--clusters 1024 --days 0.125` on host traces, each
+   policy: the report bitwise the direct kernel entry's means on the same
+   traces, the entry held against its plain version at phase 4's
+   deterministic standard; (c) `evaluate --backends rule,carbon,ppo
+   --days 0.0625 --traces 4 --deterministic` (multiregion) on the card
+   and with `--device cpu`: every field within 1e-5 relative (rule,
+   carbon) and 1e-3 (ppo; its SLO-gated fields may differ by one flipped
+   cluster-tick, counted and printed); (d) `chaos-eval --policies
+   rule,carbon,flagship --intensities off,severe` (the board needs its
+   calm denominator) and `scenario-eval --scenarios mixed`, both at
+   `--traces 32768 --steps 2880`: each JSON bitwise a direct
+   `fault_scoreboard` / `workload_scoreboard` call with the same
+   arguments, the launch counters read by instantiation; (e) `train
+   --backend ppo --iterations 1` writes `runs/chip_smoke_cli/ppo`, and
+   `observe --backend ppo --checkpoint` on the card agrees with `--device
+   cpu` within 1e-6; (f) the profile commands' and operator tools'
+   output, printed as `# cli` lines and checked to be non-empty;
+14. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -2279,6 +2304,354 @@ def loop_phase(dev, card: str) -> dict:
     return rec
 
 
+# ---- the command line on the card (phase 13)
+
+CLI_SEED = 3
+CLI_FULL_DAYS = 1
+CLI_B = 1024
+CLI_DAYS = 0.125                    # 360 ticks of 30 s
+CLI_POLICIES = ("rule", "carbon", "neutral")
+CLI_KERNEL = {"rule": "rollout_profiles_kernel",
+              "neutral": "rollout_profiles_kernel",
+              "carbon": "rollout_profiles_kernel<CARBON>"}
+CLI_EVAL = ["--preset", "multiregion", "evaluate", "--backends",
+            "rule,carbon,ppo", "--days", "0.0625", "--traces", "4",
+            "--deterministic"]
+# Fields of an evaluate row that read the per-tick SLO gate: a tick whose
+# latency sits at the gate may flip on a last-bit difference of the
+# flagship's policy (tests/test_torch_cli.py measures one such flip
+# across frameworks); at most one flipped cluster-tick is allowed there.
+CLI_GATED = ("slo_attainment", "slo_hours", "usd_per_slo_hour",
+             "objective_usd", "vs_rule_objective", "vs_rule_usd_per_slo_hour")
+CLI_BOARDS = (
+    ("chaos-eval", ["--preset", "multiregion", "chaos-eval", "--policies",
+                    "rule,carbon,flagship", "--intensities", "off,severe"],
+     "intensities", ("off", "severe")),
+    ("scenario-eval", ["--preset", "multiregion", "scenario-eval",
+                       "--policies", "rule,carbon,flagship", "--scenarios",
+                       "mixed"], "scenarios", ("mixed",)))
+CLI_SHOWN = (["offpeak", "--json"], ["peak", "--json"], ["reset", "--json"],
+             ["bootstrap", "--json"], ["guardrails", "--json"],
+             ["burst", "--json"], ["watch"], ["dashboard", "--json"],
+             ["pipeline", "--json"])
+
+
+def run_cli(argv: list) -> tuple[int, str, str]:
+    """``ccka_tpu_torch.cli.main(argv)`` with its stdout and stderr
+    captured; fails on a nonzero exit."""
+    import contextlib
+    import io
+
+    from ccka_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    if rc != 0:
+        fail(f"phase 13: `{' '.join(argv)}` exited {rc}: "
+             f"{err.getvalue()[-2000:]}")
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_json(argv: list) -> dict:
+    text = run_cli(argv)[1]
+    return json.loads(text[text.index("{"):])
+
+
+class PlainCalls:
+    """Counts calls of the profile kernel's plain versions
+    (`sim/megakernel.py::_plain_summary`, `_plain_rollout`) while
+    installed; the entries look them up at each call."""
+
+    def __init__(self):
+        from ccka_tpu_torch.sim import megakernel as mk
+
+        self.mk, self.calls = mk, 0
+        self.saved = {n: getattr(mk, n)
+                      for n in ("_plain_summary", "_plain_rollout")}
+
+    def __enter__(self):
+        for name, fn in self.saved.items():
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(self.mk, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mk, name, fn)
+
+
+def rel_diff(got, want, path: str = "") -> list:
+    """(path, |a - b| / max(|b|, 1e-9)) for every number of two JSON
+    documents of one shape; fails on a shape or text difference."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"phase 13: keys differ at {path}: "
+                 f"{sorted(set(got) ^ set(want))}")
+        return [d for k in want for d in rel_diff(got[k], want[k],
+                                                   f"{path}.{k}")]
+    if isinstance(want, list):
+        if len(got) != len(want):
+            fail(f"phase 13: lengths differ at {path}")
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in rel_diff(g, w, f"{path}[{i}]")]
+    if isinstance(want, (int, float)) and not isinstance(want, bool):
+        return [(path, abs(got - want) / max(abs(want), 1e-9))]
+    if got != want:
+        fail(f"phase 13: {path} is {got!r} on the card, {want!r} on the "
+             f"CPU")
+    return []
+
+
+def cli_phase(dev, card: str, hold, plain, zero_counters,
+              read_counters) -> dict:
+    """Phase 13, the command line on the card: each subcommand through
+    `ccka_tpu_torch.cli.main` with its default device. (a) preroll; (b)
+    simulate at default B = 32768 x T = 2880 stochastic on device traces
+    under rule, carbon and neutral (one profile kernel launch a run, no
+    plain version), then at B = 1024 x T = 360 on host traces, each
+    report bitwise the direct kernel entry's means and the entry held
+    against its plain version at phase 4's deterministic standard; (c)
+    evaluate on the card and on the CPU; (d) chaos-eval and
+    scenario-eval at B = 32768 x T = 2880, each bitwise a direct board
+    call, launches by instantiation; (e) train ppo for one iteration,
+    observe its state directory on the card and the CPU; (f) the profile
+    commands' and operator tools' output. Returns the phase's record."""
+    from ccka_tpu_torch.cli import simulate_report
+    from ccka_tpu_torch.config import PRESETS
+    from ccka_tpu_torch.faults.scoreboard import fault_scoreboard
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.policy.rule import (neutral_action, offpeak_action,
+                                            peak_action)
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.workloads.scoreboard import workload_scoreboard
+
+    t_phase = time.perf_counter()
+    rec: dict = {"seconds": {}, "launches": {}}
+
+    def timed(name: str, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rec["seconds"][name] = time.perf_counter() - t0
+        return out
+
+    # ---- (a) preroll under the default device
+    zero_counters()
+    _, text, _ = timed("preroll", lambda: run_cli(["preroll"]))
+    rec["launches"]["preroll"] = read_counters()["rollout_profiles_kernel"]
+    rows = [ln for ln in text.splitlines() if ln.startswith("[")]
+    for ln in rows:
+        log(f"# cli preroll: {ln}")
+    name = torch.cuda.get_device_name(0)
+    if not any(ln.startswith("[PASS] torch-device") and name in ln
+               for ln in rows):
+        fail(f"phase 13a: preroll's device row does not name {name}")
+    if not any(ln.startswith("[PASS] kernels-build") for ln in rows):
+        fail("phase 13a: preroll's kernel row did not pass")
+    if rec["launches"]["preroll"] != 1:
+        fail(f"phase 13a: preroll launched the rule kernel "
+             f"{rec['launches']['preroll']} times, not once")
+
+    # ---- (b) simulate: the fleet at full size, then against the entries
+    rec["simulate"] = {}
+    for policy in CLI_POLICIES:
+        argv = ["simulate", "--backend", policy, "--clusters", str(B_MAIN),
+                "--days", str(CLI_FULL_DAYS), "--stochastic",
+                "--device-traces"]
+        zero_counters()
+        with PlainCalls() as pc:
+            report = timed(f"simulate {policy} B={B_MAIN}",
+                           lambda: cli_json(argv))
+        launches = read_counters()
+        rec["launches"][f"simulate {policy}"] = launches[CLI_KERNEL[policy]]
+        others = {k: v for k, v in launches.items()
+                  if k != CLI_KERNEL[policy] and v}
+        log(f"# cli simulate {policy} default B={B_MAIN} "
+            f"T={int(CLI_FULL_DAYS * T_DAY)} "
+            f"stochastic --device-traces: "
+            f"{rec['seconds'][f'simulate {policy} B={B_MAIN}']:.3f} s; "
+            f"launches {launches}; plain calls {pc.calls}; $/SLO-hr "
+            f"{report['usd_per_slo_hour']:.6f}, SLO attainment "
+            f"{report['slo_attainment']:.6f}")
+        if launches[CLI_KERNEL[policy]] != 1 or others or pc.calls:
+            fail(f"phase 13b: simulate {policy} launched {launches} with "
+                 f"{pc.calls} plain calls, not one {CLI_KERNEL[policy]} "
+                 f"launch and no plain version")
+        if report["clusters"] != B_MAIN or not all(
+                math.isfinite(v) for v in report.values()
+                if isinstance(v, float)):
+            fail(f"phase 13b: simulate {policy} report malformed")
+        rec["simulate"][policy] = report
+
+    cfg = PRESETS["default"]()
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    params = SimParams.from_config(cfg, device=dev)
+    T = int(CLI_DAYS * 86400.0 / cfg.sim.dt_s)
+    traces = src.batch_trace(T, [CLI_SEED + i for i in range(CLI_B)],
+                             device=dev)
+    off, peak = offpeak_action(cfg.cluster, dev), peak_action(cfg.cluster,
+                                                              dev)
+    neutral = neutral_action(cfg.cluster, dev)
+    cp = CarbonAwarePolicy(cfg.cluster, device=dev)
+    direct = {
+        "rule": lambda: mk.megakernel_rollout_summary(
+            params, off, peak, traces, CLI_SEED, stochastic=False,
+            device=dev),
+        "neutral": lambda: mk.megakernel_rollout_summary(
+            params, neutral, neutral, traces, CLI_SEED, stochastic=False,
+            device=dev),
+        "carbon": lambda: mk.carbon_megakernel_rollout_summary(
+            params, off, peak, traces, CLI_SEED, sharpness=cp.sharpness,
+            min_weight=cp.min_weight, stickiness=cp.stickiness,
+            stochastic=False, device=dev)}
+    action_fns = {
+        "rule": mk._profile_action_fn(off, peak, None),
+        "neutral": mk._profile_action_fn(neutral, neutral, None),
+        "carbon": mk._profile_action_fn(
+            off, peak, (cp.sharpness, cp.min_weight, cp.stickiness))}
+    rec["held"] = {}
+    for policy in CLI_POLICIES:
+        argv = ["simulate", "--backend", policy, "--clusters", str(CLI_B),
+                "--days", str(CLI_DAYS), "--seed", str(CLI_SEED)]
+        got = timed(f"simulate {policy} B={CLI_B}", lambda: cli_json(argv))
+        entry = timed(f"direct entry {policy} B={CLI_B}", direct[policy])
+        want = json.loads(json.dumps(simulate_report(entry, policy, CLI_B,
+                                                     CLI_DAYS)))
+        if got != want:
+            bad = [k for k in want if got.get(k) != want[k]]
+            fail(f"phase 13b: simulate {policy} B={CLI_B} is not the "
+                 f"direct entry's means: {bad}")
+        reference = timed(f"plain {policy} B={CLI_B}", lambda: plain(
+            cfg, params, traces, CLI_SEED, False, action_fns[policy]))
+        same, max_abs = hold(f"cli simulate {policy} default B={CLI_B} "
+                             f"T={T} deterministic (host traces)", entry,
+                             reference, False)
+        rec["held"][policy] = {"bitwise": same, "max_abs_err": max_abs}
+    del traces
+    torch.cuda.empty_cache()
+
+    # ---- (c) evaluate on the card and on the CPU
+    card_board = timed("evaluate card", lambda: cli_json(CLI_EVAL))
+    cpu_board = timed("evaluate cpu",
+                      lambda: cli_json(CLI_EVAL + ["--device", "cpu"]))
+    worst = {}
+    ticks = int(0.0625 * 86400.0 / cfg.sim.dt_s)
+    for name, row in cpu_board.items():
+        got = dict(card_board[name])
+        if got.pop("backend") != row.get("backend"):
+            fail(f"phase 13c: evaluate {name}: another backend")
+        want = {k: v for k, v in row.items() if k != "backend"}
+        diffs = rel_diff(got, want, name)
+        tol = 1e-3 if name == "ppo" else 1e-5
+        gated = [d for d in diffs if d[0].split(".")[1] in CLI_GATED
+                 or ".per_trace." in d[0]]
+        flips = (abs(got["slo_attainment"] - want["slo_attainment"])
+                 * 4 * ticks)
+        if name == "ppo" and flips > 0.5:
+            log(f"#   evaluate ppo: {flips:.2f} cluster-ticks flipped at "
+                f"the SLO gate between the card and the CPU")
+            if flips > 1.001:
+                fail("phase 13c: evaluate ppo flipped more than one "
+                     "cluster-tick at the SLO gate")
+            diffs = [d for d in diffs if d not in gated]
+        worst[name] = max(diffs, key=lambda d: d[1]) if diffs else ("", 0.0)
+        bad = [d for d in diffs if d[1] > tol]
+        if bad:
+            fail(f"phase 13c: evaluate {name} card against CPU beyond "
+                 f"{tol}: {bad[:5]}")
+    rec["evaluate_worst"] = worst
+    log(f"# cli evaluate multiregion 4 x {ticks} deterministic: card "
+        f"{rec['seconds']['evaluate card']:.3f} s, CPU "
+        f"{rec['seconds']['evaluate cpu']:.3f} s; worst field card against "
+        f"CPU {worst}")
+
+    # ---- (d) the boards through the command line, against direct calls
+    mcfg = PRESETS["multiregion"]()
+    rec["boards"] = {}
+    for name, argv, key, names in CLI_BOARDS:
+        argv = argv + ["--traces", str(B_MAIN), "--steps", str(T_DAY)]
+        torch.cuda.synchronize()
+        zero_counters()
+        for counter in (build.launch_rollout_profiles,
+                        build.launch_rollout_mlp, build.launch_rollout_plan):
+            counter.launches.clear()
+        got = timed(name, lambda: cli_json(argv))
+        launches = dict(read_counters())
+        for kernel, counter in (
+                ("rollout_profiles_kernel", build.launch_rollout_profiles),
+                ("rollout_mlp_kernel", build.launch_rollout_mlp)):
+            launches.update({kernel + k: v
+                             for k, v in counter.launches.items()})
+        rec["launches"][name] = launches
+        kw = dict(policies=("rule", "carbon", "flagship"), n_traces=B_MAIN,
+                  eval_steps=T_DAY, seed=31, device=dev)
+        want = json.loads(json.dumps(timed(
+            f"{name} direct", lambda: fault_scoreboard(
+                mcfg, intensities=names, **kw) if name == "chaos-eval"
+            else workload_scoreboard(mcfg, scenarios=names, **kw))))
+        if json.dumps(got, sort_keys=True) != json.dumps(want,
+                                                         sort_keys=True):
+            fail(f"phase 13d: {name}'s JSON is not the direct board's")
+        for entry in ("rollout_profiles_kernel",
+                      "rollout_profiles_kernel<CARBON>",
+                      "rollout_mlp_kernel"):
+            if launches[entry] != len(names):
+                fail(f"phase 13d: {name} launched {entry} "
+                     f"{launches[entry]} times, not {len(names)}")
+        for policy in POLICIES:
+            for stream in names:
+                label = instantiation_name(policy, stream)
+                if launches.get(label, 0) < 1:
+                    fail(f"phase 13d: {name} never launched {label}")
+        rows = {(s, p): got[key][s]["rows"][p] for s in names
+                for p in got[key][s]["rows"]}
+        rec["boards"][name] = {f"{s} {p}": r["usd_per_slo_hour"]
+                               for (s, p), r in rows.items()}
+        log(f"# cli {name} multiregion B={B_MAIN} T={T_DAY} stochastic: "
+            f"{rec['seconds'][name]:.3f} s; bitwise the direct board; "
+            f"launches {launches}; $/SLO-hr {rec['boards'][name]}")
+
+    # ---- (e) train ppo one iteration, observe its state directory
+    ckpt = os.path.join("runs", "chip_smoke_cli", "ppo")
+    timed("train ppo", lambda: run_cli(["train", "--iterations", "1",
+                                        "--checkpoint-dir", ckpt]))
+    views = [timed(f"observe ppo {where}", lambda: cli_json(
+        ["observe", "--backend", "ppo", "--checkpoint", ckpt] + extra))
+        for where, extra in (("card", []), ("cpu", ["--device", "cpu"]))]
+    diffs = rel_diff(views[0], views[1], "observe")
+    obs_worst = max((d[1] for d in diffs), default=0.0)
+    if obs_worst > 1e-6:
+        fail(f"phase 13e: observe ppo on the card against the CPU: "
+             f"{obs_worst:.3g}")
+    rec["observe_ppo_worst"] = obs_worst
+    log(f"# cli train ppo (1 iteration, default 256 x 64) "
+        f"{rec['seconds']['train ppo']:.3f} s -> {ckpt}; observe card "
+        f"against CPU worst {obs_worst:.3g}")
+
+    # ---- (f) the profile commands and the operator tools
+    t_tools = time.perf_counter()
+    for argv in CLI_SHOWN:
+        _, out, err = run_cli(argv)
+        if not (out.strip() or err.strip()):
+            fail(f"phase 13f: `{' '.join(argv)}` printed nothing")
+        for ln in (out + err).splitlines():
+            log(f"# cli {argv[0]}| {ln}")
+    rec["seconds"]["operator tools"] = time.perf_counter() - t_tools
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"# phase 13 seconds: "
+        + json.dumps({k: round(v, 3) for k, v in rec["seconds"].items()}))
+    log(f"# card: {card}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2834,7 +3207,22 @@ def main() -> None:
     log(f"# phase 12 record: {json.dumps(loop_rec['recovery'])}")
 
     clock("13")
-    # ---- 13. the kernels, the card, the result
+    # ---- 13. the command line on the card: see cli_phase.
+    cli_rec = cli_phase(dev, smi, hold, plain, zero_counters, read_counters)
+    cli_paths = {
+        "rollout_profiles_kernel": {
+            f"command line simulate {p} (phase 13b)":
+                cli_rec["launches"][f"simulate {p}"]
+            for p in ("rule", "neutral")},
+        "rollout_profiles_kernel<CARBON>": {
+            "command line simulate carbon (phase 13b)":
+                cli_rec["launches"]["simulate carbon"]}}
+    cli_paths["rollout_profiles_kernel"]["command line preroll (phase "
+                                         "13a)"] = cli_rec["launches"][
+                                             "preroll"]
+
+    clock("14")
+    # ---- 14. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -2850,7 +3238,8 @@ def main() -> None:
              "rule path (phase 6)": rule_launches["rollout_profiles_kernel"],
              "three-policy path (phase 7)":
                  launches["rollout_profiles_kernel"],
-             **train_paths("rollout_profiles_kernel")},
+             **train_paths("rollout_profiles_kernel"),
+             **cli_paths["rollout_profiles_kernel"]},
          "max_abs_err": main_abs, "ms": k_ms, "plain_ms": plain_ms,
          "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
          "issue_floor_ms": k_floor,
@@ -2886,7 +3275,8 @@ def main() -> None:
          "launches_by_path": {
              "three-policy path (phase 7)":
                  launches["rollout_profiles_kernel<CARBON>"],
-             **train_paths("rollout_profiles_kernel<CARBON>")},
+             **train_paths("rollout_profiles_kernel<CARBON>"),
+             **cli_paths["rollout_profiles_kernel<CARBON>"]},
          "max_abs_err": checks7["carbon"][1], "ms": main_ms["carbon"][0],
          "plain_ms": checks7["carbon"][0], "bound_ms": main_ms["carbon"][1],
          "bound_by": main_ms["carbon"][2], "library_ms": None,

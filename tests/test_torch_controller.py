@@ -334,6 +334,44 @@ def test_kill_and_resume_bitwise_at_every_tick(name, tmp_path):
         assert pair["usd_ratio"] == pytest.approx(1.0)
 
 
+def test_kill_and_resume_with_workload_families(tmp_path):
+    """Workload families at rates that fill the queues (the JAX test's
+    own rates leave the port's queues at 0): killed at ticks 1, 4, 7 and
+    10 of 12, a fresh controller resumes with fingerprints, queues and
+    the family counters bitwise the uninterrupted run's."""
+    ct = tcfg.default_config().with_overrides(**{
+        "workloads.enabled": True, "workloads.inference_rate_pods": 30.0,
+        "workloads.inference_flash_frac": 0.3,
+        "workloads.batch_rate_pods": 20.0,
+        "workloads.background_rate_pods": 5.0,
+        "workloads.batch_deadline_ticks": 4})
+    ticks = 12
+
+    def run(start: int, stop: int, snap: str = ""):
+        src = SyntheticSignalSource(ct.cluster, ct.workload, ct.sim,
+                                    ct.signals, start_unix_s=EDGE)
+        ctrl = Controller(ct, RulePolicy(ct.cluster, device="cpu"), src,
+                          DryRunSink(), device="cpu", seed=5,
+                          snapshot_path=snap, **QUIET)
+        if start:
+            assert ctrl.restore(snapshot.load_snapshot(snap)) == start
+        reports = ctrl.run(stop - start, start_tick=start)
+        ctrl.close()
+        return reports
+
+    def state(reports):
+        return [(recovery._fingerprint(r), r.inference_queue_depth,
+                 r.batch_backlog, r.inference_slo_violations_total,
+                 r.batch_deadline_misses_total) for r in reports]
+
+    want = state(run(0, ticks))
+    assert max(r[1] + r[2] for r in want) > 0  # the queues fill
+    for kill in (1, 4, 7, 10):
+        snap = str(tmp_path / f"wl-{kill}.snap")
+        got = state(run(0, kill, snap) + run(kill, ticks, snap))
+        assert got == want, kill
+
+
 def test_recovery_board_kills_where_the_reference_does():
     kw = dict(policies=("rule",), intensities=("off", "severe"),
               runs_per_cell=2, ticks=6, seed=9)
@@ -441,8 +479,8 @@ def test_cli_run_resume_and_recover_eval(tmp_path, capsys):
     out = capsys.readouterr().out
     board = json.loads(out[out.index('{\n  "engine"'):])
     assert board["invariants"]["resume_bitwise_frac"] == 1.0
-    assert cli.main(["simulate"]) == 2
-    assert "ROADMAP A14" in capsys.readouterr().err
+    assert cli.main(["fleet"]) == 2
+    assert "ROADMAP A11b(i)" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="needs --snapshot"):
         cli.main(["run", "--device", "cpu", "--resume"])
 

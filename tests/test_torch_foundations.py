@@ -254,7 +254,10 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "harness.lifecycle", "harness.controller", "harness.recovery",
              "signals.replay", "signals.live", "signals.transport",
              "actuation.patches", "actuation.sink", "actuation.reconcile",
-             "actuation.chaos", "cli", "__main__"):
+             "actuation.chaos", "actuation.guardrails",
+             "actuation.bootstrap", "actuation.burst", "harness.preroll",
+             "harness.watch", "harness.dashboard", "harness.pipeline",
+             "cli", "__main__"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -349,6 +352,8 @@ train_flagship(small, iterations=1, eval_every=1, eval_steps=8,
                n_eval_traces=1, log=lambda s: None, device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 # The closed control loop: a few ticks, a snapshot, the recovery board.
+import contextlib
+import io
 import tempfile
 
 from ccka_tpu_torch.cli import main as cli_main
@@ -357,6 +362,17 @@ from ccka_tpu_torch.harness.recovery import recovery_scoreboard
 with tempfile.TemporaryDirectory() as d:
     assert cli_main(["run", "--device", "cpu", "--ticks", "2",
                      "--interval", "0", "--snapshot", d + "/s.snap"]) == 0
+# The operator tools and the command line's scoring entries.
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(
+        io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+    for argv in (["preroll", "--device", "cpu"], ["bootstrap"],
+                 ["guardrails"], ["burst", "--status"], ["watch"],
+                 ["dashboard", "--json"], ["pipeline", "--json"],
+                 ["simulate", "--clusters", "2", "--days", "0.002",
+                  "--device", "cpu"],
+                 ["capture", "--steps", "8", "--out", d + "/c.npz",
+                  "--device", "cpu"]):
+        assert cli_main(argv) == 0, argv
 rb = recovery_scoreboard(cfg, policies=("rule",), intensities=("severe",),
                          runs_per_cell=1, ticks=4, device="cpu")
 assert rb["invariants"]["resume_bitwise_frac"] == 1.0

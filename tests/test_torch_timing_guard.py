@@ -72,5 +72,9 @@ def test_guard_scans_the_control_loop():
     for rel in (("harness", "controller.py"), ("harness", "recovery.py"),
                 ("obs", "compile.py"), ("signals", "live.py"),
                 ("signals", "transport.py"), ("actuation", "reconcile.py"),
-                ("sim", "streaming.py"), ("train", "mpc.py")):
+                ("sim", "streaming.py"), ("train", "mpc.py"),
+                ("actuation", "guardrails.py"), ("actuation", "bootstrap.py"),
+                ("actuation", "burst.py"), ("harness", "preroll.py"),
+                ("harness", "watch.py"), ("harness", "dashboard.py"),
+                ("harness", "pipeline.py"), ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel
