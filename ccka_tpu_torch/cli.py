@@ -17,6 +17,11 @@ exit codes. Subcommand <-> script map:
   watch       <- demo_40 observe (port-forwards + smoke queries)
   dashboard   <- demo_40 configure (Grafana stack)
   pipeline    <- 06_opencost collector stage
+  fleet       the batched fleet loop over N dry-run sinks (one CUDA
+              graph a tick on the card)
+  incidents / decisions / tournament
+              read the incident log, the decision ledger and the
+              shadow tournament's board and audits
   simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
   recover-eval, scenarios, distill-factory, capture, report, obs,
   show-config
@@ -41,8 +46,7 @@ from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 # Subcommands of `ccka` the port has not yet, with the ROADMAP item that
 # ports them.
 NOT_PORTED = {
-    "fleet": "A11b(i)", "decisions": "A11b(i)", "tournament": "A11b(i)",
-    "overload-eval": "A11b(ii)", "incidents": "A11b(ii)",
+    "overload-eval": "A11b(ii)",
     "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
     "geo": "item 13", "scenario-search": "item 13", "flywheel": "item 13",
 }
@@ -386,6 +390,106 @@ def _build_parser() -> argparse.ArgumentParser:
     sob.add_argument("path", help="run-log JSONL")
     sob.add_argument("-n", "--lines", type=int, default=10,
                      help="tail: records to show (default 10)")
+
+    sf = sub.add_parser(
+        "fleet", help="fleet-scale dry-run control: one batched on-device "
+                      "decide over N clusters fanning out to N sinks per "
+                      "tick (report PDF p.4 s9 productization)")
+    sf.add_argument("--clusters", type=int, default=64)
+    sf.add_argument("--ticks", type=int, default=10)
+    sf.add_argument("--backend", default="rule",
+                    choices=("rule", "carbon", "ppo"))
+    sf.add_argument("--checkpoint", default="")
+    sf.add_argument("--seed", type=int, default=0)
+    sf.add_argument("--service", default="",
+                    help="run the multi-tenant service layer at this "
+                         "config.SERVICE_PRESETS posture instead of the "
+                         "bare fleet loop (not ported yet: ROADMAP "
+                         "A11b(ii))")
+    sf.add_argument("--profiles", default="healthy",
+                    help="with --service: comma list of tenant profile "
+                         "archetypes, cycled over the fleet")
+    sf.add_argument("--obs", default="",
+                    help="with --service: run the incident-grade obs "
+                         "layer at this config.OBS_PRESETS posture")
+    sf.add_argument("--incidents-out", default="",
+                    help="with --service + obs: append structured "
+                         "incident records (JSONL) here — inspect with "
+                         "`incidents`")
+    sf.add_argument("--decisions-out", default="",
+                    help="with --service + obs: append the decision "
+                         "ledger's per-tenant provenance rows (JSONL) "
+                         "here — inspect with `decisions`")
+    device(sf)
+
+    sinc = sub.add_parser(
+        "incidents", help="inspect structured incident records "
+                          "(obs/incidents JSONL from a service/"
+                          "controller run): list them, show one with "
+                          "its verified recorder dump, or reconstruct "
+                          "the causal timeline around it by joining "
+                          "RunLog records and trace spans on tick keys")
+    sinc.add_argument("action", choices=("list", "show", "timeline"))
+    sinc.add_argument("path", help="incident JSONL (IncidentLog output)")
+    sinc.add_argument("--id", type=int, default=0,
+                      help="show/timeline: incident id (default: show "
+                           "requires one; timeline centers on it, or "
+                           "covers every tick when omitted)")
+    sinc.add_argument("--runlog", default="",
+                      help="timeline: RunLog JSONL to join on tick keys")
+    sinc.add_argument("--trace", default="",
+                      help="timeline: span JSONL (SpanTracer "
+                           "jsonl_path output) to join on tick keys")
+    sinc.add_argument("--window", type=int, default=8,
+                      help="timeline --id: ticks of context around the "
+                           "incident (default 8)")
+
+    sdec = sub.add_parser(
+        "decisions", help="inspect the decision-provenance ledger "
+                          "(obs/decisions JSONL from a service/"
+                          "controller run): list rows, show a tick's "
+                          "raw records, or explain a decision's 'why' "
+                          "— objective-term shares plus what the rule "
+                          "shadow would have done on the same inputs")
+    sdec.add_argument("action", choices=("list", "show", "explain"))
+    sdec.add_argument("path", help="decision JSONL (DecisionLedger "
+                                   "output). explain labels action "
+                                   "components from the CURRENT "
+                                   "--preset/--config cluster layout "
+                                   "— run it with the config the log "
+                                   "was recorded under (a length "
+                                   "mismatch falls back to bare "
+                                   "indices with a note)")
+    sdec.add_argument("--t", type=int, default=-1,
+                      help="show/explain: tick to render (show/explain "
+                           "require one; list ignores it)")
+    sdec.add_argument("--tenant", type=int, default=-1,
+                      help="show/explain: restrict to one tenant index "
+                           "(-1 = every tenant of the tick)")
+    sdec.add_argument("-n", "--lines", type=int, default=20,
+                      help="list: most recent rows to print "
+                           "(default 20)")
+
+    stour = sub.add_parser(
+        "tournament", help="shadow-tournament observatory "
+                           "(obs/tournament JSONL from a service run): "
+                           "list the registered candidate builders, "
+                           "render the windowed per-class win board, "
+                           "or explain a signed promotion audit — who "
+                           "beat whom, on which windows and classes, "
+                           "with the signature verified")
+    stour.add_argument("action", choices=("list", "board", "explain"))
+    stour.add_argument("path", nargs="?", default="",
+                       help="tournament JSONL (TournamentLedger "
+                            "output; board/explain require it, list "
+                            "ignores it)")
+    stour.add_argument("--t", type=int, default=-1,
+                       help="board/explain: tick to render (default: "
+                            "the most recent board/audit row)")
+    stour.add_argument("--key", default="",
+                       help="explain: HMAC audit key (default: the "
+                            "--preset/--config obs.tournament_audit_"
+                            "key)")
 
     sd = sub.add_parser(
         "dashboard", help="render/apply the demo_40 observability stage: "
@@ -1341,6 +1445,216 @@ def _cmd_obs(args) -> int:
     return 0
 
 
+def _cmd_fleet(cfg: FrameworkConfig, args) -> int:
+    """`fleet` (the bare fleet loop; ``--service`` is refused before the
+    parser, naming its ROADMAP item)."""
+    from ccka_tpu_torch.harness.fleet import fleet_controller_from_config
+
+    if args.clusters < 1 or args.ticks < 1:
+        raise SystemExit("ccka: fleet needs --clusters >= 1 and "
+                         "--ticks >= 1")
+    if args.obs or args.incidents_out or args.decisions_out:
+        # The obs layer rides the service loop; letting these flags
+        # silently no-op would leave the operator believing incidents
+        # were being recorded.
+        raise SystemExit(
+            "ccka: --obs/--incidents-out/--decisions-out need an ENABLED "
+            "--service posture (the obs layer rides the service loop; "
+            "'off' delegates to the bare fleet)")
+    dev = _device(args.device)
+    backend = make_backend(cfg, args.backend, args.checkpoint, device=dev)
+    ctrl = fleet_controller_from_config(
+        cfg, backend, args.clusters, horizon_ticks=max(args.ticks + 2, 8),
+        seed=args.seed, log_fn=lambda s: print(s, file=sys.stderr),
+        device=dev)
+    reports = ctrl.run(args.ticks)
+    ctrl.close()
+    ok = all(r.applied == r.n_clusters for r in reports)
+    n = args.clusters * max(len(reports), 1)
+    print(json.dumps({
+        "clusters": args.clusters,
+        "ticks": args.ticks,
+        "applied_frac": sum(r.applied for r in reports) / n,
+        "slo_ok_frac": sum(r.slo_ok for r in reports) / n,
+        "fleet_cost_usd_hr_last": reports[-1].cost_usd_hr,
+        "decide_ms_mean": round(sum(r.decide_ms for r in reports)
+                                / len(reports), 2),
+        "fanout_ms_mean": round(sum(r.fanout_ms for r in reports)
+                                / len(reports), 2),
+    }, indent=2))
+    return 0 if ok else 1
+
+
+def _cmd_incidents(cfg: FrameworkConfig, args) -> int:
+    """`incidents list|show|timeline` — the incident JSONL plus (for
+    show) the checksum-verified recorder dump and (for timeline) the
+    causal join against RunLog records and trace spans."""
+    from ccka_tpu_torch.obs.incidents import (attach_dump_entries,
+                                              build_timeline, read_incidents)
+
+    try:
+        incidents = read_incidents(args.path)
+    except OSError as e:
+        raise SystemExit(f"ccka: cannot read incidents: {e}")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"ccka: corrupt incident log {args.path}: {e}")
+    if args.action == "list":
+        for rec in incidents:
+            print(json.dumps(rec, sort_keys=True))
+        counts: dict = {}
+        for rec in incidents:
+            counts[rec.get("trigger", "?")] = \
+                counts.get(rec.get("trigger", "?"), 0) + 1
+        print(f"# {len(incidents)} incident(s): "
+              + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())),
+              file=sys.stderr)
+        return 0
+    by_id = {int(rec.get("id", 0)): rec for rec in incidents}
+    if args.action == "show":
+        if not args.id:
+            raise SystemExit("ccka: incidents show needs --id N "
+                             "(see `ccka incidents list`)")
+        rec = by_id.get(args.id)
+        if rec is None:
+            raise SystemExit(f"ccka: no incident with id {args.id} in "
+                             f"{args.path}")
+        from ccka_tpu_torch.harness.snapshot import SnapshotError
+        try:
+            print(json.dumps(attach_dump_entries(rec), indent=2))
+        except SnapshotError as e:
+            raise SystemExit(f"ccka: recorder dump failed verification "
+                             f"— refusing to render it: {e}")
+        return 0
+    # timeline
+    runlog = spans = ()
+    if args.runlog:
+        from ccka_tpu_torch.obs.runlog import read_runlog
+        try:
+            runlog = read_runlog(args.runlog)
+        except OSError as e:
+            raise SystemExit(f"ccka: cannot read run log: {e}")
+        except json.JSONDecodeError as e:
+            raise SystemExit(f"ccka: corrupt run log {args.runlog}: {e}")
+    if args.trace:
+        try:
+            with open(args.trace, encoding="utf-8") as fh:
+                spans = [json.loads(line) for line in fh if line.strip()]
+        except OSError as e:
+            raise SystemExit(f"ccka: cannot read span JSONL: {e}")
+        except json.JSONDecodeError as e:
+            raise SystemExit(f"ccka: corrupt span JSONL {args.trace}: "
+                             f"{e}")
+    around = None
+    if args.id:
+        rec = by_id.get(args.id)
+        if rec is None:
+            raise SystemExit(f"ccka: no incident with id {args.id} in "
+                             f"{args.path}")
+        around = int(rec.get("t", 0))
+    timeline = build_timeline(incidents, runlog=runlog, spans=spans,
+                              around=around, window=args.window)
+    for row in timeline:
+        print(json.dumps(row, sort_keys=True))
+    print(f"# {len(timeline)} timeline event(s)"
+          + (f" around tick {around} ±{args.window}"
+             if around is not None else ""), file=sys.stderr)
+    return 0
+
+
+def _cmd_decisions(cfg: FrameworkConfig, args) -> int:
+    """`decisions list|show|explain` — the decision-provenance JSONL:
+    compact recent rows, a tick's raw records, or the rendered "why"
+    (objective-term shares + the rule shadow's counterfactual)."""
+    from ccka_tpu_torch.obs.decisions import (explain_row,
+                                              flat_action_names,
+                                              read_decisions)
+
+    try:
+        rows = read_decisions(args.path)
+    except OSError as e:
+        raise SystemExit(f"ccka: cannot read decisions: {e}")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"ccka: corrupt decision log {args.path}: {e}")
+    if args.action == "list":
+        for rec in rows[-max(args.lines, 1):]:
+            sh = rec.get("shadow", {})
+            print(json.dumps({
+                "t": rec.get("t"), "tenant": rec.get("tenant"),
+                "lane": rec.get("lane"),
+                "objective_total": rec.get("objective", {}).get("total"),
+                "diverged": sh.get("diverged"),
+                "div_max_abs": sh.get("div_max_abs"),
+                "usd_delta": sh.get("usd_delta"),
+            }, sort_keys=True))
+        div = sum(1 for r in rows
+                  if r.get("shadow", {}).get("diverged"))
+        print(f"# {len(rows)} decision row(s), {div} diverged from "
+              "the rule shadow", file=sys.stderr)
+        return 0
+    if args.t < 0:
+        raise SystemExit(f"ccka: decisions {args.action} needs --t TICK "
+                         "(see `ccka decisions list`)")
+    sel = [r for r in rows if r.get("t") == args.t
+           and (args.tenant < 0 or r.get("tenant") == args.tenant)]
+    if not sel:
+        where = (f" tenant {args.tenant}" if args.tenant >= 0 else "")
+        raise SystemExit(f"ccka: no decision rows for tick "
+                         f"{args.t}{where} in {args.path}")
+    if args.action == "show":
+        for rec in sel:
+            print(json.dumps(rec, sort_keys=True))
+        return 0
+    names = flat_action_names(cfg.cluster)
+    for rec in sel:
+        print(explain_row(rec, action_names=names))
+        print()
+    return 0
+
+
+def _cmd_tournament(cfg: FrameworkConfig, args) -> int:
+    """`tournament list|board|explain` — the shadow-tournament
+    observatory: the registered candidate roster, the windowed
+    per-workload-class win board, or a signed promotion audit with its
+    signature verified against the config's audit key."""
+    from ccka_tpu_torch.obs.tournament import (CANDIDATE_BUILDERS,
+                                               explain_audit, explain_board,
+                                               read_tournament)
+
+    if args.action == "list":
+        for name in sorted(CANDIDATE_BUILDERS):
+            _builder, desc = CANDIDATE_BUILDERS[name]
+            print(f"{name}: {desc}")
+        print(f"# {len(CANDIDATE_BUILDERS)} registered candidate "
+              "builder(s); compose a roster with "
+              "obs.tournament_roster", file=sys.stderr)
+        return 0
+    if not args.path:
+        raise SystemExit(f"ccka: tournament {args.action} needs the "
+                         "tournament JSONL path")
+    try:
+        rows = read_tournament(args.path)
+    except OSError as e:
+        raise SystemExit(f"ccka: cannot read tournament log: {e}")
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"ccka: corrupt tournament log {args.path}: "
+                         f"{e}")
+    kind = "board" if args.action == "board" else "promotion_audit"
+    sel = [r for r in rows if r.get("kind") == kind
+           and (args.t < 0 or r.get("t") == args.t)]
+    if not sel:
+        where = f" at tick {args.t}" if args.t >= 0 else ""
+        raise SystemExit(f"ccka: no {kind} rows{where} in {args.path}"
+                         + ("" if kind == "board" else
+                            " — no challenger has sustained a win yet"))
+    if args.action == "board":
+        print(explain_board(sel[-1]))
+        return 0
+    key = args.key or cfg.obs.tournament_audit_key
+    for rec in sel if args.t >= 0 else sel[-1:]:
+        print(explain_audit(rec, key))
+    return 0
+
+
 def _command(argv: list[str]) -> str | None:
     """The subcommand word of ``argv`` (past the global options)."""
     takes_value = {"--config", "--preset", "--set"}
@@ -1378,7 +1692,9 @@ _HANDLERS = {
     "scenario-eval": _cmd_board, "recover-eval": _cmd_recover_eval,
     "distill-factory": _cmd_distill_factory, "capture": _cmd_capture,
     "dashboard": _cmd_dashboard, "pipeline": _cmd_pipeline,
-    "watch": _cmd_watch, "burst": _cmd_burst,
+    "watch": _cmd_watch, "burst": _cmd_burst, "fleet": _cmd_fleet,
+    "incidents": _cmd_incidents, "decisions": _cmd_decisions,
+    "tournament": _cmd_tournament,
 }
 
 
@@ -1386,9 +1702,10 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     item = _not_ported(argv)
     if item is not None:
-        what = {"A11b(ii)": " --service", "item 14": " --mesh"}
-        print(f"ccka_tpu_torch: subcommand {_command(argv)!r}"
-              f"{what.get(item, '')} is not ported yet (ROADMAP {item})",
+        cmd = _command(argv)
+        what = {"fleet": " --service", "simulate": " --mesh"}
+        print(f"ccka_tpu_torch: subcommand {cmd!r}"
+              f"{what.get(cmd, '')} is not ported yet (ROADMAP {item})",
               file=sys.stderr)
         return 2
     args = _build_parser().parse_args(argv)

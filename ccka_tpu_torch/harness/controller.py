@@ -42,9 +42,6 @@ from ccka_tpu_torch.sim.rollout import initial_state
 from ccka_tpu_torch.sim.types import (CT_SPOT, Action, ClusterState,
                                       SimParams, StepMetrics)
 
-# The later slice that ports the decision ledger and the incident log.
-_LATER = "ROADMAP A11b (the fleet and service half of the control loop)"
-
 # Rank of each Action leaf for one cluster ([P, Z], [P, 2], [P], [P], [C]).
 _ACTION_RANKS = (2, 2, 1, 1, 1)
 
@@ -242,10 +239,6 @@ class Controller:
                  workload_steps=None,
                  log_fn: Callable[[str], None] | None = None,
                  sleep_fn: Callable[[float], None] = time.sleep):
-        if incident_log is not None or decision_ledger is not None:
-            raise NotImplementedError(
-                "Controller(incident_log=, decision_ledger=): the incident "
-                f"log and the decision ledger are not ported yet ({_LATER})")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.interruption_feed = interruption_feed
@@ -287,6 +280,24 @@ class Controller:
                     deadline_s=reconcile_deadline_s,
                     seed=seed ^ 0x5EC0)
             self._reconcilers[region] = rec
+        # Incident log (`obs/incidents.py`; None disables): the degraded
+        # machine's hold -> rule-fallback escalation and every reconciler
+        # give-up stamp ONE structured incident each. The give-up trigger
+        # rides the reconciler's own hook (`actuation/reconcile.on_giveup`).
+        self.incident_log = incident_log
+        # Decision-provenance ledger (`obs/decisions.py`; None disables):
+        # one row per tick — the observed exo, the state estimate, the
+        # chosen action's objective terms and the RULE SHADOW stepped on
+        # the same inputs, strictly after the real estimate, so recording
+        # cannot steer a decision.
+        self.decision_ledger = decision_ledger
+        self._obs_tick = 0
+        # Regions may SHARE a reconciler (one per distinct sink), so the
+        # give-up's region is stamped from the converge call site.
+        self._obs_region = ""
+        if incident_log is not None:
+            for rec in by_sink.values():
+                rec.on_giveup = self._stamp_giveup
         self.interval_s = (cfg.signals.scrape_interval_s
                            if interval_s is None else interval_s)
         self.apply_hpa = apply_hpa
@@ -474,6 +485,17 @@ class Controller:
             self._drained_instances.pop(
                 next(iter(self._drained_instances)))
 
+    # -- incident stamps (no-ops without an incident_log) -------------------
+
+    def _stamp_giveup(self, outcome) -> None:
+        """`actuation/reconcile.on_giveup` hook: one incident per give-up,
+        keyed on the tick and region the apply loop is in."""
+        self.incident_log.stamp(
+            "reconcile_giveup", t=self._obs_tick,
+            region=self._obs_region,
+            diverged=list(outcome.diverged),
+            retries=int(outcome.retries))
+
     # -- one tick ----------------------------------------------------------
 
     def _window(self, t: int) -> ExogenousTrace:
@@ -490,6 +512,7 @@ class Controller:
     def tick(self, t: int) -> TickReport:
         from ccka_tpu_torch.harness.telemetry import StageTimer
 
+        self._obs_tick = t
         timer = StageTimer(self.tracer)
         # 1. scrape: a one-step trace is a batch of one tick.
         with timer.stage("scrape"):
@@ -517,6 +540,14 @@ class Controller:
                         f"{self._degraded} (stale streak "
                         f"{self._stale_streak}, diverge streak "
                         f"{self._diverge_streak})")
+            if self._degraded == "fallback" and \
+                    self.incident_log is not None:
+                # The loop stopped trusting fresh intent entirely: an
+                # incident, not just a log line.
+                self.incident_log.stamp(
+                    "hold_fallback", t=t, prev_mode=prev_mode,
+                    stale_streak=int(self._stale_streak),
+                    diverge_streak=int(self._diverge_streak))
 
         # 1b. spot interruption warnings -> cordon and drain BEFORE the
         #     decide, so the displaced pods go Pending under this tick's
@@ -568,6 +599,7 @@ class Controller:
             tick_retries = tick_failures = diverged_pools = 0
             pools_converged = True
             for region, patches in per_region.items():
+                self._obs_region = region
                 outcome = self._reconcilers[region].converge(patches)
                 results += outcome.results
                 tick_retries += outcome.retries
@@ -623,6 +655,10 @@ class Controller:
         # 6. advance the state estimate (expectation dynamics; with
         #    families enabled the queues advance in the same step).
         with timer.stage("estimate") as sp_est:
+            state_pre = self.state
+            wl_state_pre = (self._wl_state if self._wl_steps is not None
+                            else None)
+            w = None
             if self._wl_steps is not None:
                 k = t % self._wl_horizon
                 w = type(self._wl_steps)(*(x[k:k + 1]
@@ -640,6 +676,13 @@ class Controller:
                 m.inf_slo_violation[0])
             self.batch_deadline_misses_total += float(
                 m.batch_deadline_miss[0])
+
+        # 6a. decision provenance (no-op without a ledger): the rule shadow
+        #     stepped on the SAME pre-step state and observed exo, strictly
+        #     after this tick's real decide/apply/estimate.
+        if self.decision_ledger is not None:
+            self._observe_decision(t, action, exo, m, state_pre,
+                                   wl_state_pre, w, stale)
 
         # 7. measured app-level SLO metrics, when the source scrapes them.
         with timer.stage("slo_scrape"):
@@ -718,6 +761,60 @@ class Controller:
         if self.exporter is not None:
             self.exporter.update(report)
         return report
+
+    # -- decision provenance (obs/decisions.py) -----------------------------
+
+    def _observe_decision(self, t: int, action, exo, m, state_pre,
+                          wl_state_pre, w, stale: bool) -> None:
+        """One ledger row: the chosen step's metrics (``m``, on the host)
+        against the rule shadow's on identical inputs (same pre-step
+        state, same observed exo, same step). The degraded machine maps
+        onto the decision lanes: ok -> fresh, hold -> hold, fallback ->
+        fallback (a fallback tick's divergence is 0 by construction)."""
+        lane = {"ok": "fresh", "hold": "hold",
+                "fallback": "fallback"}[self._degraded]
+        shadow_action = _batch1(self._fallback_policy.decide(state_pre,
+                                                             exo, t))
+        if self._wl_steps is not None:
+            _s, sh_metrics, _ws = self._step_wl(
+                state_pre, wl_state_pre, shadow_action, exo, w)
+        else:
+            _s, sh_metrics = self._step(state_pre, shadow_action, exo)
+        sh = _host_metrics(sh_metrics)
+
+        def decomp(mm) -> dict:
+            pend = np.maximum(mm.demand_pods[0] - mm.served_pods[0], 0.0)
+            return {"cost_usd": float(mm.cost_usd[0]),
+                    "carbon_g": float(mm.carbon_g[0]),
+                    "pend_c0": float(pend[0]),
+                    "pend_c1": float(pend[1]),
+                    "slo_ok": float(mm.slo_ok[0])}
+
+        def flat(a) -> np.ndarray:
+            return np.concatenate([
+                leaf[0].detach().cpu().numpy().astype(np.float64).reshape(-1)
+                for leaf in a])
+
+        host_exo = ExoStep(*(x[0].detach().cpu().numpy() for x in exo))
+        surfaces = self.decision_ledger.observe_single(
+            t, lane=lane, action=flat(action),
+            shadow_action=flat(shadow_action),
+            exo={
+                "spot_price_hr": float(host_exo.spot_price_hr.mean()),
+                "od_price_hr": float(host_exo.od_price_hr.mean()),
+                "carbon_g_kwh": float(host_exo.carbon_g_kwh.mean()),
+                "demand_pods": float(host_exo.demand_pods.sum()),
+                "is_peak": bool(float(host_exo.is_peak) > 0.5),
+                "stale": bool(stale),
+            },
+            state={"nodes_spot": float(m.nodes_by_ct[0, 0]),
+                   "nodes_od": float(m.nodes_by_ct[0, 1])},
+            chosen=decomp(m), shadow=decomp(sh))
+        # A windowed divergence spike is an incident here exactly as on
+        # the fleet path: one edge-triggered stamp, re-armed below the bar.
+        spike = surfaces.get("spike")
+        if spike is not None and self.incident_log is not None:
+            self.incident_log.stamp("policy_divergence", t=t, **spike)
 
     # -- durable snapshot / resume ------------------------------------------
 

@@ -16,8 +16,9 @@ The PyTorch form of `ccka_tpu/harness/snapshot.py`, the same disk format:
   tensor is "."), so the leaves of the two
   packages' bodies can be compared one by one.
 
-The body schema belongs to the writer (`harness/controller.py`); this
-module guarantees integrity and fidelity.
+The body schema belongs to the writer (`harness/controller.py`,
+`harness/fleet.py`, `obs/recorder.py`); this module guarantees integrity
+and fidelity.
 """
 
 from __future__ import annotations
@@ -118,6 +119,14 @@ def _canonical(body: dict) -> str:
 def save_snapshot(path: str, body: dict) -> str:
     """Atomically write ``body`` in its integrity envelope; returns the
     absolute path."""
+    return save_snapshot_with_digest(path, body)[0]
+
+
+def save_snapshot_with_digest(path: str, body: dict) -> tuple[str, str]:
+    """:func:`save_snapshot`, also returning the envelope's SHA-256, for a
+    writer that records the digest beside a reference to the file (the
+    flight recorder's incident records) without serializing the body
+    twice."""
     sha = hashlib.sha256(_canonical(body).encode()).hexdigest()
     doc = {
         "format": SNAPSHOT_FORMAT,
@@ -139,7 +148,7 @@ def save_snapshot(path: str, body: dict) -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
-    return path
+    return path, sha
 
 
 def load_snapshot(path: str) -> dict:

@@ -78,6 +78,21 @@ def action_to_latent(action: Action, cluster: ClusterConfig) -> torch.Tensor:
     ], dim=-1)
 
 
+_CONSTS: dict = {}
+
+
+def _const(v: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-dim constant tensor, made once per (value, dtype, device): a
+    CUDA graph capture may not copy from the host, so the constants of a
+    captured body must exist before the capture (its warm-up makes
+    them)."""
+    key = (v, dtype, torch.device(device))
+    c = _CONSTS.get(key)
+    if c is None:
+        c = _CONSTS[key] = torch.tensor(v, dtype=dtype, device=device)
+    return c
+
+
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))`` written
     as `jax.nn.gelu` writes it, every operation in ``x``'s dtype. On a
@@ -86,7 +101,7 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     in float32 and rounds once, which lands one bfloat16 step away on
     about four inputs in ten."""
     def const(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return _const(v, x.dtype, x.device)
 
     inner = const(math.sqrt(2.0 / math.pi)) * (x + const(0.044715)
                                                * (x * x * x))
@@ -141,6 +156,32 @@ class _Torso(nn.Module):
             x = gelu_tanh(F.linear(x, layer.weight.to(torch.bfloat16))
                           + layer.bias.to(torch.bfloat16))
         return x.to(torch.float32)
+
+
+def _rowwise_sums(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight.T`` in float32 with each row's sums added in one fixed
+    order (an elementwise product, then one reduction over the inputs),
+    so a row's result does not depend on how many rows share the call: a
+    GEMM picks its kernel, and with it the order of its sums, by the
+    batch size."""
+    return (x.to(torch.float32)[..., None, :]
+            * weight.to(torch.float32)).sum(dim=-1)
+
+
+def rowwise_policy_mean(net: "ActorCritic", obs: torch.Tensor) -> torch.Tensor:
+    """The actor's mean latent, ``net(obs)[0]``, computed row by row
+    (:func:`_rowwise_sums`): the same rounding points as the module's
+    forward (bfloat16 products rounded before the bias, the float32
+    head), other sum orders. A cluster's mean is then the same alone as
+    in a fleet, on every device."""
+    x = _normalize_obs(obs).to(torch.bfloat16)
+    for i in range(net.n_layers):
+        layer = getattr(net, f"Dense_{i}")
+        w = layer.weight.to(torch.bfloat16)
+        x = gelu_tanh(_rowwise_sums(x, w).to(torch.bfloat16)
+                      + layer.bias.to(torch.bfloat16))
+    head = net.actor_mean
+    return _rowwise_sums(x, head.weight) + head.bias
 
 
 class PolicyMLP(_Torso):

@@ -34,6 +34,7 @@ import torch
 
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import ClusterConfig, FrameworkConfig, TrainConfig
+from ccka_tpu_torch.graphs import Graph, copy_in, static
 from ccka_tpu_torch.models.nets import action_to_latent, latent_to_action
 from ccka_tpu_torch.obs.compile import watch_jit
 from ccka_tpu_torch.policy.base import PolicyBackend
@@ -173,32 +174,6 @@ def _segment(params, cluster, tcfg, states, plan, window, seg, iters,
         return _execute(params, cluster, states, plan, seg, replan_every)
 
 
-class _Graph:
-    """``body()`` captured once as a CUDA graph, replayed on demand. Its
-    inputs live in static tensors that callers copy into before a
-    replay; the body is functional, so warm-up runs change nothing."""
-
-    def __init__(self, body):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                body()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = body()
-
-
-def _static(tup):
-    return type(tup)(*(x.clone() for x in tup))
-
-
-def _copy_in(dst, src) -> None:
-    for d, s in zip(dst, src):
-        d.copy_(s)
-
-
 class _SegmentGraph:
     """:func:`_segment` captured as a CUDA graph at its first call and
     replayed for every segment. ``captures`` counts the captures (one)."""
@@ -211,15 +186,15 @@ class _SegmentGraph:
 
     def __call__(self, states, plan, window, seg):
         if self._graph is None:
-            self.states, self.plan = _static(states), plan.clone()
-            self.window, self.seg = _static(window), _static(seg)
-            self._graph = _Graph(lambda: _segment(
+            self.states, self.plan = static(states), plan.clone()
+            self.window, self.seg = static(window), static(seg)
+            self._graph = Graph(lambda: _segment(
                 *self._args, self.states, self.plan, self.window, self.seg,
                 self._iters, self._replan_every))
             self.captures += 1
         for dst, src in ((self.states, states), (self.window, window),
                          (self.seg, seg)):
-            _copy_in(dst, src)
+            copy_in(dst, src)
         self.plan.copy_(plan)
         self._graph.graph.replay()
         return self._graph.out
@@ -242,14 +217,14 @@ class _PlanGraphs:
                tuple(init.shape))
         entry = self._graphs.get(key)
         if entry is None:
-            st, win, lat = _static(states), _static(window), init.clone()
-            graph = _Graph(lambda: optimize_plan_batch(
+            st, win, lat = static(states), static(window), init.clone()
+            graph = Graph(lambda: optimize_plan_batch(
                 *self._args, st, win, lat, iters=self._iters))
             entry = self._graphs[key] = (st, win, lat, graph)
             self.captures += 1
         st, win, lat, graph = entry
-        _copy_in(st, states)
-        _copy_in(win, window)
+        copy_in(st, states)
+        copy_in(win, window)
         lat.copy_(init)
         graph.graph.replay()
         return PlanResult(graph.out.plan_latent.clone(),

@@ -39,6 +39,7 @@ from torch.func import functional_call
 from ccka_tpu_torch import bridge, resolve_device
 from ccka_tpu_torch.config import FrameworkConfig
 from ccka_tpu_torch.models import ActorCritic, latent_dim, latent_to_action
+from ccka_tpu_torch.models.nets import rowwise_policy_mean
 from ccka_tpu_torch.policy.base import PolicyBackend, observe
 from ccka_tpu_torch.signals.base import ExogenousTrace
 from ccka_tpu_torch.sim.dynamics import ExoStep, clip
@@ -429,9 +430,11 @@ class PPOBackend(PolicyBackend):
         self.net.to(dev).requires_grad_(False)
 
     def decide(self, state: ClusterState, exo: ExoStep, t: int) -> Action:
+        """Batch-first: a cluster's action is the same whether it is
+        decided alone or in a fleet (`models.nets.rowwise_policy_mean`)."""
         obs = observe(self.params_sim, state, exo).flatten()
-        mean, _, _ = self.net(obs)
-        return latent_to_action(mean, self.cluster)
+        return latent_to_action(rowwise_policy_mean(self.net, obs),
+                                self.cluster)
 
 
 def ppo_train(cfg: FrameworkConfig, source, iterations: int, *,

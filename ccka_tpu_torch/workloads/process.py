@@ -61,7 +61,7 @@ def _time_of_day(steps: int, batch: int, dt_s: float, start_unix_s: float,
                                device=device)[:, None]
     t_rel = (torch.as_tensor((np.arange(steps) * dt_s).astype(np.float32),
                              device=device)[:, None]
-             + torch.as_tensor(np.asarray(start_offset_s, np.float32),
+             + torch.as_tensor(start_offset_s, dtype=torch.float32,
                                device=device)[None, :])
     if wrap_period_s is not None:
         t_rel = torch.remainder(t_rel, _f32(wrap_period_s))

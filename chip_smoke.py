@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Six main paths. The rule-profile fleet rollout: a batch of clusters
+Eight main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -19,6 +19,10 @@ card. The closed control loop: one cluster's scrape, decide, render,
 apply, verify and estimate a tick, on the card, under four backends,
 killed and resumed. The command line: preroll, simulate, evaluate, the
 boards, train and observe through `ccka_tpu_torch.cli.main` on the card.
+Replayed streams: windows of a stored trace sampled on the card and
+rolled out by the same kernels. The fleet controller: N clusters decided
+at once, one CUDA graph a tick, with the decision ledger, the shadow
+tournament and the incident log riding beside it.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -210,7 +214,47 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    `observe --backend ppo --checkpoint` on the card agrees with `--device
    cpu` within 1e-6; (f) the profile commands' and operator tools'
    output, printed as `# cli` lines and checked to be non-empty;
-14. one JSON line listing every kernel and lane instantiation, the
+14. the fleet controller and replayed streams (the main paths of the
+   eleventh slice): (a) the replay device samplers on the default
+   preset's 9-day store (`data/replay_train_9day.npz`): 256 windows of
+   a day bitwise the host slices at the same offsets, the packed stream
+   (B = 32768 x T = 2880) bitwise `_pack_exo` of its windows, 8 blocks
+   of 360 bitwise the unblocked stream; on that replayed day, stochastic,
+   the rule, carbon and MLP (the replay flagship) kernels with the
+   counters zeroed just before and read just after (one launch each),
+   each timed (median of 5) with its bound and held against its plain
+   version (B = 1024 x T = 360 both modes at phase 4's standard, the MLP
+   at B = 1024 x T = 32 at phase 5a's); the same three on a replayed
+   stream with mild faults and the mixed families (the
+   <FAULTS,WL_D=16> instantiations, at phase 5c's standard: B = 8192 x
+   T = 360, the MLP per cluster at B = 1024 x T = 32); the rule CARRY
+   drive over the replayed day in 8 blocks, and the same day through the
+   streaming pipeline (`sim/streaming.py`, sync and double-buffered, its
+   stream buffers reused), each bitwise the unblocked kernel; two CEM
+   generations on the replay source (NP = 64 x G = 256 x T = 2880), the
+   second writing its stream into the first's buffer: one rule, one
+   carbon and one population launch each; (b) the batched fleet tick (`harness/fleet.py`,
+   one CUDA graph a tick), multiregion with the shipped flagship, under
+   rule, carbon and ppo (mpc is refused, naming itself): N = 1, 1024,
+   10240 at horizon 2880, 32 chained ticks through the graph and its
+   eager body, every output bitwise, each tick's time (median, p99);
+   N = 1024: each backend's 8 full ticks with the dry-run fan-out,
+   pipelined bitwise sequential, the fleet.dispatch/harvest/fanout
+   spans; the card against the CPU over 4 ticks on the same traces (rows
+   within 1e-5 relative, the flagship's 1e-3 and its actions 5e-3; rule
+   and carbon command streams byte-identical);
+   ledger-on (DecisionLedger, and a TournamentLedger over rule, carbon,
+   carbon-sharp) bitwise ledger-off, term shares summing to 1, the rule
+   fleet's divergence 0; killed at tick 4 and restored into a fresh
+   controller, bitwise; `compile_report()`: one fleet.tick capture per
+   key, no recapture; (c) the controller's ledgers: multiregion, ppo, 48
+   ticks through a severe ChaosSink per region, incident log (with its
+   flight recorder) and decision ledger on, then off: command streams
+   and fingerprints bitwise, every incident count equal to its trigger's
+   counter; then `incidents list|show|timeline`, `decisions
+   list|explain` and `tournament list|board` through `cli.main` on the
+   files written (`runs/chip_smoke_fleet/`);
+15. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -2348,8 +2392,7 @@ def run_cli(argv: list) -> tuple[int, str, str]:
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(list(argv))
     if rc != 0:
-        fail(f"phase 13: `{' '.join(argv)}` exited {rc}: "
-             f"{err.getvalue()[-2000:]}")
+        fail(f"`{' '.join(argv)}` exited {rc}: {err.getvalue()[-2000:]}")
     return rc, out.getvalue(), err.getvalue()
 
 
@@ -2649,6 +2692,765 @@ def cli_phase(dev, card: str, hold, plain, zero_counters,
     log(f"# phase 13 seconds: "
         + json.dumps({k: round(v, 3) for k, v in rec["seconds"].items()}))
     log(f"# card: {card}")
+    return rec
+
+
+# ---- the fleet controller and replayed streams on the card (phase 14)
+
+REPLAY_STORE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "replay_train_9day.npz")
+REPLAY_SEED = 113
+REPLAY_WINDOWS = 256                # host-checked windows of phase 14a
+REPLAY_CEM_GENS = 2                 # 14a's CEM generations on the store
+FLEET_NS = (1, 1024, 10240)
+FLEET_N = 1024                      # the full ticks, CPU and ledger checks
+FLEET_CHAIN = 32                    # chained dispatches (bench.py's chain)
+FLEET_TICKS, FLEET_CPU_TICKS, FLEET_KILL = 8, 4, 4
+FLEET_SEED = 17
+FLEET_BACKENDS = ("rule", "carbon", "ppo")
+FLEET_ROSTER = ("rule", "carbon", "carbon-sharp")
+LEDGER_TICKS = 48
+
+
+def replay_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
+                 zero_counters, read_counters) -> dict:
+    """14a: the replay device samplers on the default preset's 9-day
+    store, and the rollout kernels on replayed streams. Windows bitwise
+    the host slices at the same offsets; the packed stream's exo rows
+    bitwise `_pack_exo` of those windows; 8 blocks of 360 bitwise the
+    unblocked stream. Then at B = 32768 x T = 2880, stochastic, one
+    replayed stream: the rule, carbon and MLP (the replay flagship)
+    kernels with the counters zeroed just before and read just after,
+    each timed (median of 5) with its bound, each held against its plain
+    version (B = 1024 x T = 360 both modes at phase 4's standard, the MLP
+    at B = 1024 x T = 32 at phase 5a's). The same on a replayed stream
+    with mild faults and the mixed families (the <FAULTS,WL_D=16>
+    instantiations, held at phase 5c's standard: B = 8192 x T = 360, the
+    MLP per cluster at B = 1024 x T = 32). The rule CARRY drive over the
+    replayed day in 8 blocks, then the same day through the streaming
+    pipeline, sync and double-buffered (the samplers write into the
+    drives' reused buffers), each bitwise the unblocked kernel. Two CEM
+    generations on the replay source (NP = 64 x G = 256 x T = 2880), the
+    second reusing the first's stream buffer: one rule, one carbon and
+    one population launch each."""
+    from ccka_tpu_torch.config import FAULT_PRESETS
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.signals.replay import ReplaySignalSource
+    from ccka_tpu_torch.signals.synthetic import family_generator
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.train import cem
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        """Seconds since the previous lap, for the sub-steps' lines."""
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    cfg, _, params, off, peak, net = setup("default", "replay")
+    Z = cfg.cluster.n_zones
+    src = ReplaySignalSource.from_file(REPLAY_STORE)
+    stored = src._trace.steps
+    rec: dict = {"store": os.path.relpath(REPLAY_STORE), "stored_ticks":
+                 stored}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # The samplers against the host store.
+    tr = src.batch_trace_device(T_DAY, gen(REPLAY_SEED), REPLAY_WINDOWS,
+                                device=dev)
+    offs = src._window_offsets(gen(REPLAY_SEED), REPLAY_WINDOWS).cpu()
+    ext = src._trace_at(0, stored + T_DAY)
+    for i, o in enumerate(offs.tolist()):
+        host = ext.slice_steps(int(o), T_DAY)
+        if not all(torch.equal(x[i].cpu(), h) for x, h in zip(tr, host)):
+            fail(f"14a: replayed window {i} (offset {o}) is not the host "
+                 f"slice of the store")
+    stream, synth_s = synced(lambda: src.packed_trace_device(
+        T_DAY, REPLAY_SEED, B_MAIN, device=dev))
+    windows = src.batch_trace_device(T_DAY, family_generator(
+        REPLAY_SEED, None, dev), B_MAIN, device=dev)
+    if not torch.equal(stream, mk._pack_exo(windows, T_DAY)):
+        fail("14a: packed_trace_device is not _pack_exo of its windows")
+    del windows
+    blocks = [src.packed_block_trace_device(
+        BLOCK_DAY, REPLAY_SEED, B_MAIN, j, total_steps=T_DAY,
+        t_chunk=T_CHUNK_STREAM, device=dev)
+        for j in range(T_DAY // BLOCK_DAY)]
+    if not torch.equal(torch.cat(blocks), stream):
+        fail("14a: the blocked replayed stream does not concatenate to the "
+             "unblocked one")
+    log(f"# 14a replay samplers ({rec['store']}, {stored} ticks): "
+        f"{REPLAY_WINDOWS} "
+        f"windows of {T_DAY} bitwise the host slices; the packed stream "
+        f"B={B_MAIN} ({synth_s * 1e3:.3f} ms) bitwise _pack_exo of its "
+        f"windows; {len(blocks)} blocks of {BLOCK_DAY} bitwise the "
+        f"unblocked stream {lap()}")
+
+    # The kernels on the replayed stream, counted, then timed.
+    torch.cuda.synchronize()
+    zero_counters()
+    main = {
+        "rule": mk.megakernel_summary_from_packed(
+            params, off, peak, stream, T_DAY, seed=5, stochastic=True),
+        "carbon": mk.carbon_megakernel_summary_from_packed(
+            params, off, peak, stream, T_DAY, seed=5, stochastic=True),
+        "mlp": mk.neural_megakernel_summary_from_packed(
+            params, cfg.cluster, net, stream, T_DAY, seed=5,
+            stochastic=True)}
+    torch.cuda.synchronize()
+    rec["launches"] = read_counters()
+    for name, kernel in (("rule", "rollout_profiles_kernel"),
+                         ("carbon", "rollout_profiles_kernel<CARBON>"),
+                         ("mlp", "rollout_mlp_kernel")):
+        if rec["launches"][kernel] != 1:
+            fail(f"14a: the replayed stream launched {kernel} "
+                 f"{rec['launches'][kernel]} times, not once")
+        for f in ("usd_per_slo_hour", "g_co2_per_kreq", "slo_attainment"):
+            v = getattr(main[name], f)
+            if v.shape != (B_MAIN,) or not torch.isfinite(v).all():
+                fail(f"14a: {name}.{f} malformed on the replayed stream")
+    log(f"#   the three launches {lap()}")
+    rec["kernels"] = {}
+    for name in ("rule", "carbon", "mlp"):
+        ms = median_ms(lambda: run_entry(name, cfg, params, net, stream,
+                                         T_DAY, True, seed=5))
+        b_ms, b_by, _terms, _ops = lane_bound(cfg, name, "plain", net)
+        rec["kernels"][name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"#   {name} on the replayed day B={B_MAIN} T={T_DAY}: "
+            f"{ms:.4f} ms median of {N_TIMED}; bound {b_ms:.4f} ms "
+            f"({b_by}); fleet $/SLO-hr "
+            f"{main[name].usd_per_slo_hour.mean().item():.6f}")
+    log(f"#   the three kernels on the replayed day {lap()}")
+    del main
+
+    # The streamed replayed day: 8 CARRY launches, bitwise the unblocked.
+    fns = block_fns(cfg, params, "rule", T_DAY, BLOCK_DAY, True)
+    build.launch_rollout_profiles.launches.clear()
+    got = fns.finalize(carry_day(fns, blocks))
+    want = mk.packed_mode_summary(params, cfg.cluster, "rule", stream,
+                                  T_DAY, STREAM_SEED, stochastic=True)
+    torch.cuda.synchronize()
+    carry_launches = dict(build.launch_rollout_profiles.launches)
+    if not bitwise(got, want):
+        fail("14a: the streamed replayed day is not bitwise the unblocked "
+             "kernel")
+    if carry_launches.get("<CARRY>", 0) != len(blocks):
+        fail(f"14a: the streamed replayed day launched {carry_launches}")
+    rec["carry_launches"] = carry_launches
+    log(f"#   streamed replayed day: {carry_launches} launches, bitwise the "
+        f"unblocked kernel {lap()}")
+    # The same day through the streaming pipeline (`sim/streaming.py`):
+    # both drives write each block into the buffers they reuse.
+    from ccka_tpu_torch.sim import streaming as stm
+
+    want_host = type(want)(*(x.cpu() for x in want))
+    build.launch_rollout_profiles.launches.clear()
+    for pipelined in (False, True):
+        summary, srep = stm.streaming_rollout_summary(
+            src, params, cfg.cluster, "rule", key=REPLAY_SEED, batch=B_MAIN,
+            T=T_DAY, block_T=BLOCK_DAY, seed=STREAM_SEED,
+            t_chunk=T_CHUNK_STREAM, stochastic=True, pipelined=pipelined,
+            device=dev)
+        if not bitwise(summary, want_host):
+            fail(f"14a: the replayed day through the streaming pipeline "
+                 f"(pipelined={pipelined}) is not bitwise the unblocked "
+                 f"kernel")
+    torch.cuda.synchronize()
+    stream_launches = dict(build.launch_rollout_profiles.launches)
+    if stream_launches != {"<CARRY>": 2 * len(blocks)}:
+        fail(f"14a: the streaming pipeline on the replayed day launched "
+             f"{stream_launches}")
+    rec["streaming_launches"] = stream_launches
+    log(f"#   the replayed day through the streaming pipeline (sync and "
+        f"double-buffered, {srep.get('stream_buffers')} stream buffers): "
+        f"{stream_launches} launches, both bitwise the unblocked kernel "
+        f"{lap()}")
+    del blocks, stream, got, want, want_host, summary
+    torch.cuda.empty_cache()
+
+    # Each kernel against its plain version on a replayed stream.
+    short = src.packed_trace_device(T_PARITY, REPLAY_SEED + 1, B_MULTI,
+                                    device=dev)
+    views = mk.unpack_exo(short, T_PARITY, Z)
+    rec["parity"] = {}
+    for name, fn in (("rule", rule_fn(cfg)), ("carbon", carbon_fn(cfg))):
+        for st in (False, True):
+            k = run_entry(name, cfg, params, net, short, T_PARITY, st)
+            p, p_s = synced(lambda: plain(cfg, params, views, LANE_SEED, st,
+                                          fn))
+            same, max_abs = hold(f"14a {name} replay B={B_MULTI} "
+                                 f"T={T_PARITY} "
+                                 f"{'stochastic' if st else 'deterministic'}",
+                                 k, p, st)
+            rec["parity"][name] = {"bitwise": same, "max_abs_err": max_abs,
+                                   "plain_ms": p_s * 1e3}
+    mshort = src.packed_trace_device(T_SHORT, REPLAY_SEED + 2, B_MULTI,
+                                     device=dev)
+    k = run_entry("mlp", cfg, params, net, mshort, T_SHORT, False)
+    p, p_s = synced(lambda: lane_plain("mlp", cfg, params, net, mshort,
+                                       T_SHORT, False))
+    rel = field_rel(k, p)
+    bad = {f: r for f, r in rel.items()
+           if r > (SHORT_LOOSE_TOL if f in SHORT_LOOSE else SHORT_TOL)}
+    worst = max(rel, key=rel.get)
+    log(f"# parity 14a mlp replay B={B_MULTI} T={T_SHORT} deterministic: "
+        f"bitwise {bitwise(k, p)}; largest per-cluster rel diff {worst} "
+        f"{rel[worst]:.3g}")
+    if bad:
+        fail(f"14a: mlp parity on the replayed stream: {bad}")
+    rec["parity"]["mlp"] = {"max_abs_err": float(max(
+        (getattr(k, f).double() - getattr(p, f).double()).abs().max()
+        for f in k._fields)), "plain_ms": p_s * 1e3}
+    log(f"#   plain versions on the replayed stream {lap()}")
+    del short, views, mshort
+
+    # The widened replayed stream: mild faults and the mixed families.
+    wl = WORKLOAD_SCENARIOS["mixed"].workloads
+    wsrc = ReplaySignalSource.from_file(REPLAY_STORE,
+                                        faults=FAULT_PRESETS["mild"],
+                                        workloads=wl)
+    wparams = lane_params(cfg, wl, dev)
+    wide = wsrc.packed_trace_device(T_DAY, REPLAY_SEED, B_MAIN, device=dev)
+    for counter in (build.launch_rollout_profiles, build.launch_rollout_mlp):
+        counter.launches.clear()
+    for name in ("rule", "carbon", "mlp"):
+        run_entry(name, cfg, wparams, net, wide, T_DAY, True, seed=5)
+    torch.cuda.synchronize()
+    wl_launches = {**{"rollout_profiles_kernel" + k: v for k, v in
+                      build.launch_rollout_profiles.launches.items()},
+                   **{"rollout_mlp_kernel" + k: v for k, v in
+                      build.launch_rollout_mlp.launches.items()}}
+    rec["wide_launches"] = wl_launches
+    rec["wide"] = {}
+    for name in ("rule", "carbon", "mlp"):
+        label = instantiation_name(name, "mixed")
+        if wl_launches.get(label, 0) != 1:
+            fail(f"14a: the widened replayed stream launched {label} "
+                 f"{wl_launches.get(label, 0)} times: {wl_launches}")
+        ms = median_ms(lambda: run_entry(name, cfg, wparams, net, wide,
+                                         T_DAY, True, seed=5))
+        b_ms, b_by, _terms, _ops = lane_bound(cfg, name, "mixed", net)
+        rec["wide"][label] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"#   {label} on the widened replayed day B={B_MAIN} "
+            f"T={T_DAY}: {ms:.4f} ms median of {N_TIMED}; bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    log(f"#   the widened replayed day {lap()}")
+    del wide
+    torch.cuda.empty_cache()
+    wshort = wsrc.packed_trace_device(T_PARITY, REPLAY_SEED + 3, B_PARITY,
+                                      device=dev)
+    for name in ("rule", "carbon"):
+        for st in (False, True):
+            k = run_entry(name, cfg, wparams, net, wshort, T_PARITY, st)
+            p = lane_plain(name, cfg, wparams, net, wshort, T_PARITY, st)
+            hold(f"14a {instantiation_name(name, 'mixed')} widened replay "
+                 f"B={B_PARITY} T={T_PARITY} "
+                 f"{'stochastic' if st else 'deterministic'}", k, p, st)
+    label = instantiation_name("mlp", "mixed")
+    wmshort = wsrc.packed_trace_device(T_SHORT, REPLAY_SEED + 4, B_MULTI,
+                                       device=dev)
+    k = run_entry("mlp", cfg, wparams, net, wmshort, T_SHORT, False)
+    p = lane_plain("mlp", cfg, wparams, net, wmshort, T_SHORT, False)
+    rel = field_rel(k, p)
+    loose = SHORT_LOOSE + ("denials", "stale_ticks", "inf_dropped",
+                           "batch_deadline_misses")
+    bad = {f: r for f, r in rel.items()
+           if r > (SHORT_LOOSE_TOL if f in loose else SHORT_TOL)}
+    worst = max(rel, key=rel.get)
+    log(f"# parity 14a {label} widened replay B={B_MULTI} T={T_SHORT} "
+        f"deterministic: bitwise {bitwise(k, p)}; largest per-cluster rel "
+        f"diff {worst} {rel[worst]:.3g}")
+    if bad:
+        fail(f"14a: {label} parity on the widened replayed stream: {bad}")
+    k = run_entry("mlp", cfg, wparams, net, wshort, T_PARITY, False)
+    p = lane_plain("mlp", cfg, wparams, net, wshort, T_PARITY, False)
+    viol = mk.mean_parity_violations(k, p, mk.NEURAL_MEAN_PARITY_TOLERANCES)
+    log(f"# parity 14a {label} widened replay B={B_PARITY} T={T_PARITY} "
+        f"deterministic: bitwise {bitwise(k, p)}; mean_parity_violations "
+        f"{viol}")
+    if viol:
+        fail("14a: mlp mean parity on the widened replayed stream")
+    log(f"#   plain versions on the widened replayed stream {lap()}")
+    del wshort, wmshort, k, p
+    torch.cuda.empty_cache()
+
+    # CEM generations on the replay source: from the second on, each
+    # writes its stream into the buffer the first allocated.
+    teacher = CarbonAwarePolicy(cfg.cluster, device=dev)
+    ccfg = cem.CEMConfig(generations=REPLAY_CEM_GENS, popsize=TRAIN_POP,
+                         traces_per_gen=TRAIN_G, eval_steps=T_DAY,
+                         sigma_min=1e-3)
+    zero_counters()
+    (_best, chist, _info), cem_s = synced(lambda: cem.cem_refine(
+        cfg, net, src, cem=ccfg, engine="mega", teacher_policy=teacher,
+        seed=TRAIN_SEED, device=dev))
+    rec["cem_launches"] = read_counters()
+    for kernel in ("rollout_profiles_kernel",
+                   "rollout_profiles_kernel<CARBON>", "rollout_mlp_kernel"):
+        if rec["cem_launches"][kernel] != REPLAY_CEM_GENS:
+            fail(f"14a: {REPLAY_CEM_GENS} CEM generations on the replay "
+                 f"source launched {kernel} "
+                 f"{rec['cem_launches'][kernel]} times")
+    if len(chist) != REPLAY_CEM_GENS or not all(
+            np.isfinite(h["incumbent_fitness"]) for h in chist):
+        fail("14a: a replay CEM generation's fitness is not finite")
+    rec["cem_s"] = cem_s
+    log(f"#   {REPLAY_CEM_GENS} CEM generations on the replay source "
+        f"NP={TRAIN_POP} x G={TRAIN_G} x T={T_DAY}: {cem_s:.3f} s, "
+        f"launches {rec['cem_launches']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 14a: {rec['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return rec
+
+
+class FixedTraces:
+    """A device-batched source that serves given [N, T, ...] traces (the
+    card's and the CPU's fleets then see the same worlds)."""
+
+    def __init__(self, traces):
+        self.traces = traces
+
+    def batch_trace_device(self, steps, generator, batch, device=None):
+        return type(self.traces)(*(x[:batch, :steps].to(device)
+                                   for x in self.traces))
+
+
+def fleet_rows(ctrl, t0: int, t1: int) -> list:
+    """Ticks t0..t1-1 one by one; each tick's (packed, per) host rows."""
+    rows = []
+    for t in range(t0, t1):
+        ctrl.tick(t)
+        rows.append(ctrl.last_rows[1:])
+    return rows
+
+
+def sink_commands(ctrl) -> list:
+    return [[c.render() for c in s.commands] for s in ctrl.sinks]
+
+
+def same_states(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def fleet_phase(dev, card: str) -> dict:
+    """14b: the batched fleet tick, multiregion with the shipped flagship,
+    under rule, carbon and ppo (the backends that capture; mpc is refused,
+    naming itself). N = 1, 1024, 10240 at horizon 2880: 32 chained
+    ticks, each through the eager body and the graph, every output
+    bitwise, each one's time on the stream (median, p99 of ticks 1-31;
+    tick 0 holds the capture), and the controller's own dispatch chain.
+    Then N = 1024: each backend's 8 full ticks with the dry-run fan-out,
+    pipelined against sequential (bitwise reports, command streams and
+    states), the fleet.dispatch/harvest/fanout spans; the card against
+    the CPU over 4 ticks on the same traces (packed and per-cluster rows
+    within 1e-5 relative; the flagship's within 1e-3, its actions and
+    divergences 5e-3; rule and carbon command streams byte-identical); ledger-on (a DecisionLedger
+    and a TournamentLedger over the roster rule, carbon, carbon-sharp)
+    against ledger-off, bitwise; a kill at tick 4 restored into a fresh
+    controller, bitwise; compile_report: one fleet.tick capture per key,
+    no recapture."""
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.harness import fleet as fl
+    from ccka_tpu_torch.harness.snapshot import load_snapshot
+    from ccka_tpu_torch.obs.compile import stats_for
+    from ccka_tpu_torch.obs.decisions import (DECISION_COLS, DecisionLedger,
+                                              decision_row_layout,
+                                              flat_action_names)
+    from ccka_tpu_torch.obs.tournament import TournamentLedger
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    cfg = PRESETS["multiregion"]()
+    out_dir = "runs/chip_smoke_fleet"
+    os.makedirs(out_dir, exist_ok=True)
+    rec: dict = {"card": card, "chain": {}, "ticks": {}}
+    before = stats_for("fleet.tick")
+    caps0 = before.compiles if before else 0
+    keys = set()
+
+    def fleet(backend, n, *, c=cfg, source=None, sinks=None, device=dev,
+              workers=8):
+        from ccka_tpu_torch.actuation.sink import DryRunSink
+
+        source = source or SyntheticSignalSource(c.cluster, c.workload,
+                                                 c.sim, c.signals)
+        ctrl = fl.FleetController(
+            c, backend, source, sinks or [DryRunSink() for _ in range(n)],
+            horizon_ticks=T_DAY, seed=FLEET_SEED, fanout_workers=workers,
+            device=device)
+        if device.type == "cuda":
+            keys.add((c, id(backend), n))
+        return ctrl
+
+    try:
+        fleet(loop_backend(cfg, "mpc", dev), 8)
+        fail("14b: the mpc backend was not refused by the fleet graph")
+    except (ValueError, RuntimeError) as e:
+        if "MPCBackend" not in str(e):
+            raise
+        log(f"# 14b mpc refused: {e}")
+
+    backends = {name: loop_backend(cfg, name, dev) for name in
+                FLEET_BACKENDS}
+    syn = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    for n in FLEET_NS:
+        # One sample of N traces serves the three backends.
+        traces, synth_s = synced(lambda: syn.batch_trace_device(
+            T_DAY, torch.Generator(device=dev).manual_seed(FLEET_SEED), n,
+            device=dev))
+        log(f"# 14b N={n}: batch_trace_device x {T_DAY} {synth_s:.3f} s")
+        for name, backend in backends.items():
+            ctrl = fleet(backend, n, source=FixedTraces(traces))
+            tick, xs = ctrl._tick_fn, ctrl._xs_all
+            s_e = s_g = ctrl.states
+            ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                  for _ in range(FLEET_CHAIN)]
+            for t in range(FLEET_CHAIN):
+                # Each chained tick timed on the stream: the eager body
+                # (its launches), then the graph's replay behind it.
+                ev[t][0].record()
+                e = tick.eager(s_e, xs, t)
+                ev[t][1].record()
+                g = tick(s_g, xs, t)
+                ev[t][2].record()
+                if not (torch.equal(e[0], g[0]) and torch.equal(e[2], g[2])
+                        and same_states(e[1], g[1])):
+                    fail(f"14b: {name} N={n}: the graph differs from its "
+                         f"eager body at tick {t}")
+                s_e = e[1]
+                s_g = type(g[1])(*(x.clone() for x in g[1]))
+            # Tick 0 holds the capture: the times are ticks 1-31's.
+            eager = [ev[t][0].elapsed_time(ev[t][1])
+                     for t in range(1, FLEET_CHAIN)]
+            graph = [ev[t][1].elapsed_time(ev[t][2])
+                     for t in range(1, FLEET_CHAIN)]
+            # The controller's own dispatch (replay + copies), 32 queued,
+            # after a round that allocates their pinned slots.
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                disp = [ctrl._dispatch(t) for t in range(FLEET_CHAIN)]
+                torch.cuda.synchronize()
+                dispatch_ms = (time.perf_counter() - t0) * 1e3 / FLEET_CHAIN
+                ctrl._slots.extend(d.slot for d in disp)
+            r = {"eager_ms": [float(np.median(eager)), pct(eager, 99)],
+                 "graph_ms": [float(np.median(graph)), pct(graph, 99)],
+                 "dispatch_chain_ms": dispatch_ms}
+            rec["chain"][f"{name} N={n}"] = r
+            log(f"# 14b {name} N={n}: {FLEET_CHAIN} chained ticks bitwise "
+                f"the eager body; ms a tick (median, p99): eager "
+                f"{r['eager_ms'][0]:.4f}, {r['eager_ms'][1]:.4f}; graph "
+                f"{r['graph_ms'][0]:.4f}, {r['graph_ms'][1]:.4f}; the "
+                f"controller's dispatch chain {dispatch_ms:.4f} ms a tick")
+            ctrl.close()
+            del ctrl, tick, xs, s_e, s_g, e, g, disp
+        del traces
+        torch.cuda.empty_cache()
+
+    log(f"# 14b the chains {lap()}")
+
+    # Full ticks at N = 1024: pipelined against sequential. The flagship's
+    # sequential run is also the uninterrupted run the kill is held to.
+    spans = {}
+    for name in FLEET_BACKENDS:
+        backend = backends[name]
+        seq = fleet(backend, FLEET_N, workers=1)
+        pipe = fleet(backend, FLEET_N)
+        seq_reports, seq_rows = [], []
+        for t in range(FLEET_TICKS):
+            seq_reports.append(seq.tick(t))
+            seq_rows.append(seq.last_rows[1:])
+        pipe_reports = pipe.run(FLEET_TICKS)
+        for a, b in zip(seq_reports, pipe_reports):
+            if ((a.t, a.applied, a.slo_ok, a.cost_usd_hr, a.carbon_g_hr,
+                 a.pending_pods) != (b.t, b.applied, b.slo_ok, b.cost_usd_hr,
+                                     b.carbon_g_hr, b.pending_pods)):
+                fail(f"14b: {name}: pipelined tick {a.t} differs from the "
+                     f"sequential one")
+        if sink_commands(seq) != sink_commands(pipe) or \
+                not same_states(seq.states, pipe.states):
+            fail(f"14b: {name}: the pipelined run's commands or states "
+                 f"differ from sequential ticks")
+        if any(r.applied != FLEET_N for r in pipe_reports):
+            fail(f"14b: {name}: a dry-run apply failed")
+        for sp in pipe.tracer.spans():
+            spans.setdefault(f"{name} {sp.name}", []).append(sp.dur_ms)
+        pipe.close()
+        if name == "ppo":
+            full, full_rows = seq, seq_rows
+        else:
+            seq.close()
+    rec["spans"] = {k: [float(np.median(v)), pct(v, 99)]
+                    for k, v in spans.items()}
+    log(f"# 14b N={FLEET_N} {FLEET_TICKS} full ticks, pipelined bitwise "
+        f"sequential; spans ms (median, p99): {json.dumps(rec['spans'])} "
+        f"{lap()}")
+
+    # The card against the CPU on the same traces.
+    traces = syn.batch_trace_device(T_DAY, torch.Generator(
+        device=dev).manual_seed(FLEET_SEED), FLEET_N, device=dev)
+    rec["cpu"] = {}
+    layout = decision_row_layout(cfg.cluster)
+    per_names = (["slo_ok", "cost_usd", "carbon_g", "pending"]
+                 + list(DECISION_COLS)
+                 + [f"shadow {a}" for a in flat_action_names(cfg.cluster)])
+    packed_names = flat_action_names(cfg.cluster) + ["is_peak"]
+    # Pending pods are remainders of the demand: held at its scale, as in
+    # phase 12b.
+    pend = {per_names.index(c) for c in ("pending", "pend_c0", "pend_c1",
+                                         "shadow_pend_c0", "shadow_pend_c1")}
+    floor_per = np.array([cfg.workload.total_pods if i in pend else 1e-6
+                          for i in range(layout.width)])
+    # The flagship's standard (tests/test_torch_fleet.py): a bf16 torso
+    # whose sums the two devices add in other orders holds its actions,
+    # and the divergence columns made of them, within 5e-3 relative, its
+    # other columns within 1e-3.
+    act_cols = [layout.col("div_max_abs"), layout.col("div_l2")]
+    for name in FLEET_BACKENDS:
+        t0 = time.perf_counter()
+        card_f = fleet(backends[name], FLEET_N, source=FixedTraces(traces))
+        cpu_f = fleet(loop_backend(cfg, name, torch.device("cpu")), FLEET_N,
+                      source=FixedTraces(traces), device=torch.device("cpu"))
+        a = fleet_rows(card_f, 0, FLEET_CPU_TICKS)
+        b = fleet_rows(cpu_f, 0, FLEET_CPU_TICKS)
+        flag = name == "ppo"
+        lim_packed = 5e-3 if flag else 1e-5
+        lim_per = np.full(layout.width, 1e-3 if flag else 1e-5)
+        lim_per[act_cols] = lim_packed
+        worst, at = 0.0, None     # the largest difference over its limit
+        for t, ((pa, qa), (pb, qb)) in enumerate(zip(a, b)):
+            for x, y, floor, lim, cols in (
+                    (pa, pb, 1e-6, lim_packed, packed_names),
+                    (qa, qb, floor_per, lim_per, per_names)):
+                d = (np.abs(x.astype(np.float64) - y)
+                     / np.maximum(np.abs(y), floor))
+                r = d / lim
+                i = np.unravel_index(int(r.argmax()), r.shape)
+                if r[i] > worst:
+                    worst, at = float(r[i]), (t, int(i[0]), cols[i[1]],
+                                              float(d[i]), float(x[i]),
+                                              float(y[i]))
+        same_cmds = sink_commands(card_f) == sink_commands(cpu_f)
+        rec["cpu"][name] = {"share_of_standard": worst, "at": at,
+                            "commands_identical": same_cmds}
+        log(f"# 14b {name} card vs CPU N={FLEET_N} x {FLEET_CPU_TICKS} "
+            f"ticks: the largest row difference is {worst:.3g} of its "
+            f"standard ({'1e-3, actions and divergences 5e-3' if flag else '1e-5'}"
+            f" relative; at tick, cluster, column, rel, card, cpu: {at}); "
+            f"command streams identical {same_cmds} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if worst > 1.0 or (not flag and not same_cmds):
+            fail(f"14b: {name}: the card's fleet and the CPU's disagree")
+        card_f.close()
+        cpu_f.close()
+
+    log(f"# 14b card against CPU {lap()}")
+
+    # Ledger-on against ledger-off, with the tournament roster; these
+    # fleets and the kill's take the traces sampled above (the same
+    # draw as a controller's own from FLEET_SEED).
+    import dataclasses
+    ck = cfg.with_overrides(**{"obs.tournament_roster": FLEET_ROSTER})
+    rec["ledger"] = {}
+    for name in ("rule", "ppo"):
+        off_f = fleet(backends[name], FLEET_N, c=ck,
+                      source=FixedTraces(traces))
+        off_rows = fleet_rows(off_f, 0, FLEET_TICKS)
+        obs = dataclasses.replace(
+            ck.obs, enabled=True,
+            decision_log_path=f"{out_dir}/decisions_{name}.jsonl",
+            tournament_log_path=f"{out_dir}/tournament_{name}.jsonl")
+        for p in (obs.decision_log_path, obs.tournament_log_path):
+            if os.path.exists(p):
+                os.remove(p)
+        dec = DecisionLedger(obs, ck.train, policy=name)
+        tour = TournamentLedger(obs, ck.train, FLEET_ROSTER, policy=name)
+        on_f = fleet(backends[name], FLEET_N, c=ck,
+                      source=FixedTraces(traces))
+        on_f.ledger = dec
+        on_rows = []
+        for t in range(FLEET_TICKS):
+            on_f.tick(t)
+            on_rows.append(on_f.last_rows[1:])
+            tour.observe_tick(t, on_f.last_rows[2], on_f._dec_layout)
+        dec.close()
+        tour.close()
+        bit = (all(np.array_equal(x, y) for ra, rb in zip(on_rows, off_rows)
+                   for x, y in zip(ra, rb))
+               and same_states(on_f.states, off_f.states)
+               and sink_commands(on_f) == sink_commands(off_f))
+        if not bit:
+            fail(f"14b: {name}: ledger-on and ledger-off fleets differ")
+        shares = [sum(r["objective"]["shares"].values()) for r in dec.rows]
+        if not all(abs(s - 1.0) <= 1e-9 for s in shares):
+            fail(f"14b: {name}: a decision row's term shares do not sum "
+                 f"to 1")
+        div = max(r["shadow"]["div_max_abs"] for r in dec.rows)
+        if name == "rule" and div != 0.0:
+            fail(f"14b: the rule fleet diverges from its rule shadow "
+                 f"({div})")
+        rec["ledger"][name] = {"rows": dec.rows_total,
+                               "div_max_abs": div,
+                               "board_ticks": tour.ticks_total}
+        log(f"# 14b {name} ledger-on vs off N={FLEET_N} x {FLEET_TICKS} "
+            f"ticks, roster {FLEET_ROSTER}: bitwise; {dec.rows_total} "
+            f"decision rows, shares sum to 1, largest divergence {div:.4g}")
+        off_f.close()
+        on_f.close()
+
+    log(f"# 14b ledgers {lap()}")
+
+    # Kill at tick 4, restore into a fresh controller; held to the
+    # flagship's sequential run of the full ticks above.
+    first = fleet(backends["ppo"], FLEET_N, source=FixedTraces(traces))
+    fleet_rows(first, 0, FLEET_KILL)
+    snap = first.write_snapshot(f"{out_dir}/fleet.snap", FLEET_KILL)
+    first.close()
+    # The restarted controller drives the same clusters (sinks).
+    resumed = fleet(backends["ppo"], FLEET_N, sinks=first.sinks,
+                    source=FixedTraces(traces))
+    t_next = resumed.restore(load_snapshot(snap))
+    res_rows = fleet_rows(resumed, t_next, FLEET_TICKS)
+    checks = {
+        "tick": t_next == FLEET_KILL,
+        "rows": all(np.array_equal(x, y)
+                    for ra, rb in zip(res_rows, full_rows[FLEET_KILL:])
+                    for x, y in zip(ra, rb)),
+        "states": same_states(resumed.states, full.states),
+        "commands": sink_commands(resumed) == sink_commands(full)}
+    if not all(checks.values()):
+        fail(f"14b: the resumed fleet is not bitwise the uninterrupted run: "
+             f"{checks}")
+    log(f"# 14b ppo N={FLEET_N} killed at tick {FLEET_KILL}, restored into a "
+        f"fresh controller: ticks {FLEET_KILL}-{FLEET_TICKS - 1} bitwise the "
+        f"uninterrupted run")
+    full.close()
+    resumed.close()
+    del traces
+
+    st = stats_for("fleet.tick")
+    caps = st.compiles - caps0
+    rec["compile"] = st.to_dict()
+    log(f"# 14b compile_report fleet.tick: {st.to_dict()}; {len(keys)} keys "
+        f"built on the card")
+    if caps != len(keys) or st.recompiles:
+        fail(f"14b: {caps} fleet.tick captures for {len(keys)} keys, "
+             f"{st.recompiles} recaptures")
+    fl._compiled_fleet_tick.cache_clear()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 14b: {rec['seconds']:.1f} s")
+    return rec
+
+
+def ledger_phase(dev) -> dict:
+    """14c: the controller's ledgers: multiregion, the shipped flagship,
+    48 ticks through a severe ChaosSink per region on the card, with
+    incident_log= (and its flight recorder) and decision_ledger= on, then
+    off: command streams and fingerprints bitwise; every incident count
+    equal to its trigger's counter. Then incidents list/show/timeline,
+    decisions list/explain and tournament list/board through cli.main on
+    the files written."""
+    import dataclasses
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.actuation.chaos import ChaosSink
+    from ccka_tpu_torch.actuation.sink import DryRunSink
+    from ccka_tpu_torch.config import CHAOS_PRESETS
+    from ccka_tpu_torch.harness.controller import Controller
+    from ccka_tpu_torch.harness.recovery import _fingerprint
+    from ccka_tpu_torch.obs.decisions import DecisionLedger
+    from ccka_tpu_torch.obs.incidents import IncidentLog
+    from ccka_tpu_torch.obs.recorder import FlightRecorder
+
+    t_phase = time.perf_counter()
+    cfg = PRESETS["multiregion"]()
+    out_dir = "runs/chip_smoke_fleet"
+    obs = dataclasses.replace(
+        cfg.obs, enabled=True, dump_dir=f"{out_dir}/dumps",
+        incident_log_path=f"{out_dir}/incidents.jsonl",
+        decision_log_path=f"{out_dir}/decisions.jsonl")
+    for p in (obs.incident_log_path, obs.decision_log_path):
+        if os.path.exists(p):
+            os.remove(p)
+
+    def session(ledgers: bool):
+        sinks = {r.name: DryRunSink() for r in cfg.cluster.regions}
+        chaos = {r: ChaosSink(s, CHAOS_PRESETS["severe"], seed=i + 3)
+                 for i, (r, s) in enumerate(sinks.items())}
+        kw = {}
+        if ledgers:
+            kw = dict(incident_log=IncidentLog(
+                obs.incident_log_path, recorder=FlightRecorder(obs)),
+                decision_ledger=DecisionLedger(obs, cfg.train, policy="ppo"))
+        ctrl = Controller(cfg, loop_backend(cfg, "ppo", dev), loop_source(cfg),
+                          chaos, device=dev, interval_s=0.0,
+                          reconcile_backoff_s=0.0, seed=LOOP_SEED,
+                          log_fn=lambda s: None, **kw)
+        reports, cmds = drive_loop(ctrl, 0, LEDGER_TICKS, sinks)
+        ctrl.close()
+        return ctrl, reports, cmds
+
+    (_off, r_off, c_off), s_off = synced(lambda: session(False))
+    (on, r_on, c_on), s_on = synced(lambda: session(True))
+    if c_on != c_off or [_fingerprint(r) for r in r_on] != \
+            [_fingerprint(r) for r in r_off]:
+        fail("14c: the controller with its ledgers on differs from the one "
+             "without")
+    log_ = on.incident_log
+    on.decision_ledger.close()
+    log_.close()
+    modes = [r.degraded for r in r_on]
+    want = {
+        "hold_fallback": sum(1 for i, m in enumerate(modes)
+                             if m == "fallback"
+                             and (i == 0 or modes[i - 1] != "fallback")),
+        "reconcile_giveup": sum(rc.giveups_total for rc in
+                                {id(x): x for x in
+                                 on._reconcilers.values()}.values()),
+        "policy_divergence": on.decision_ledger.spikes_total}
+    got = {k: log_.counts().get(k, 0) for k in want}
+    log(f"# 14c ppo multiregion {LEDGER_TICKS} ticks, severe chaos: ledgers "
+        f"off {s_off:.3f} s (the first session: loads included), on "
+        f"{s_on:.3f} s; command streams and "
+        f"fingerprints bitwise; incidents {got}, trigger counters {want}; "
+        f"{on.decision_ledger.rows_total} decision rows")
+    if got != want or not sum(got.values()):
+        fail(f"14c: incident counts {got} are not the trigger counters "
+             f"{want}")
+
+    t_row = on.decision_ledger.rows[-1]["t"]
+    tour = f"{out_dir}/tournament_ppo.jsonl"
+    for argv in (["incidents", "list", obs.incident_log_path],
+                 ["incidents", "show", obs.incident_log_path, "--id", "1"],
+                 ["incidents", "timeline", obs.incident_log_path],
+                 ["--preset", "multiregion", "decisions", "list",
+                  obs.decision_log_path],
+                 ["--preset", "multiregion", "decisions", "explain",
+                  obs.decision_log_path, "--t", str(t_row)],
+                 ["tournament", "list"],
+                 ["tournament", "board", tour]):
+        _rc, text, _err = run_cli(argv)
+        log(f"# 14c cli {' '.join(argv[:3])}: {len(text.splitlines())} "
+            f"lines")
+    rec = {"incidents": got, "on_s": s_on, "off_s": s_off,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"# 14c: {rec['seconds']:.1f} s")
     return rec
 
 
@@ -3222,12 +4024,29 @@ def main() -> None:
                                              "preroll"]
 
     clock("14")
-    # ---- 14. the kernels, the card, the result
+    # ---- 14. the fleet and replay on the card: see replay_phase,
+    # fleet_phase, ledger_phase.
+    t14 = time.perf_counter()
+    replay_rec = replay_phase(dev, setup, hold, plain, rule_fn, carbon_fn,
+                              zero_counters, read_counters)
+    fleet_rec = fleet_phase(dev, smi)
+    ledger_rec = ledger_phase(dev)
+    log(f"# phase 14: {time.perf_counter() - t14:.1f} s (14a "
+        f"{replay_rec['seconds']:.1f}, 14b {fleet_rec['seconds']:.1f}, 14c "
+        f"{ledger_rec['seconds']:.1f})")
+
+    clock("15")
+    # ---- 15. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
                 "train_flagship (phase 11e)":
                     train_rec["flagship"]["launches"][name]}
+
+    def replay_paths(name: str) -> dict:
+        return {"replayed day (phase 14a)": replay_rec["launches"][name],
+                "replay CEM generations (phase 14a)":
+                    replay_rec["cem_launches"][name]}
 
     kernels = [
         {"name": "rollout_profiles_kernel", "route": "cuda",
@@ -3239,7 +4058,12 @@ def main() -> None:
              "three-policy path (phase 7)":
                  launches["rollout_profiles_kernel"],
              **train_paths("rollout_profiles_kernel"),
-             **cli_paths["rollout_profiles_kernel"]},
+             **cli_paths["rollout_profiles_kernel"],
+             **replay_paths("rollout_profiles_kernel"),
+             "streamed replayed day (phase 14a), by instantiation":
+                 replay_rec["carry_launches"],
+             "replayed day through the streaming pipeline (phase 14a), "
+             "by instantiation": replay_rec["streaming_launches"]},
          "max_abs_err": main_abs, "ms": k_ms, "plain_ms": plain_ms,
          "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
          "issue_floor_ms": k_floor,
@@ -3276,7 +4100,8 @@ def main() -> None:
              "three-policy path (phase 7)":
                  launches["rollout_profiles_kernel<CARBON>"],
              **train_paths("rollout_profiles_kernel<CARBON>"),
-             **cli_paths["rollout_profiles_kernel<CARBON>"]},
+             **cli_paths["rollout_profiles_kernel<CARBON>"],
+             **replay_paths("rollout_profiles_kernel<CARBON>")},
          "max_abs_err": checks7["carbon"][1], "ms": main_ms["carbon"][0],
          "plain_ms": checks7["carbon"][0], "bound_ms": main_ms["carbon"][1],
          "bound_by": main_ms["carbon"][2], "library_ms": None,
@@ -3289,7 +4114,8 @@ def main() -> None:
          "launches": launches["rollout_mlp_kernel"],
          "launches_by_path": {
              "three-policy path (phase 7)": launches["rollout_mlp_kernel"],
-             **train_paths("rollout_mlp_kernel")},
+             **train_paths("rollout_mlp_kernel"),
+             **replay_paths("rollout_mlp_kernel")},
          "population_launch": {
              "shape": f"multiregion NP={TRAIN_POP} members x G={TRAIN_G} "
                       f"traces x T={T_DAY} stochastic, a CEM generation "
@@ -3331,6 +4157,16 @@ def main() -> None:
          "plain_shape": f"multiregion B={B_MULTI} T={T_PARITY} stochastic"},
     ] + lane_kernel_rows(boards, lanes_found) + carry_kernel_rows(
         carry_found, stream_rec)
+    for row in kernels:
+        wide = replay_rec["wide"].get(row["name"])
+        if wide is not None:
+            row.setdefault("launches_by_path", {})[
+                "widened replayed day (phase 14a)"] = replay_rec[
+                    "wide_launches"][row["name"]]
+            row["replayed"] = dict(wide, shape=f"default B={B_MAIN} "
+                                   f"T={T_DAY} stochastic, the replayed "
+                                   f"store with mild faults and the mixed "
+                                   f"families (phase 14a)")
     log(f"# build {build_s:.2f} s; total {time.perf_counter() - t_start:.1f}"
         f" s")
     print(json.dumps({"kernels": kernels}))

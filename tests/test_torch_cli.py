@@ -267,3 +267,30 @@ def test_python_dash_m_names_the_missing_device(tmp_path):
     ok = run("simulate", "--clusters", "4", "--days", "0.002", "--device",
              "cpu")
     assert ok.returncode == 0 and json.loads(ok.stdout)["clusters"] == 4
+
+
+# ---- the bare fleet (the service layer is the next slice)
+
+
+def test_fleet_reports_jax_s_keys():
+    """`fleet` without --service: JAX's report keys, finite values, every
+    dry-run apply through (the two frameworks sample other traces)."""
+    argv = ["fleet", "--clusters", "8", "--ticks", "4"]
+    want, got = _both(argv)
+    assert set(got) == set(want)
+    assert (got["clusters"], got["ticks"], got["applied_frac"]) == (8, 4,
+                                                                   1.0)
+    assert all(math.isfinite(v) for v in got.values())
+    want, got = _both(["--preset", "multiregion", "fleet", "--clusters",
+                       "4", "--ticks", "2", "--backend", "ppo"])
+    assert set(got) == set(want) and got["applied_frac"] == 1.0
+
+
+@pytest.mark.parametrize("flag", [["--obs", "default"],
+                                  ["--incidents-out", "x.jsonl"],
+                                  ["--decisions-out", "x.jsonl"]])
+def test_fleet_obs_flags_refuse_without_the_service(flag):
+    argv = ["fleet", "--clusters", "2", "--ticks", "1", *flag]
+    for main, extra in ((jmain, []), (tmain, CPU)):
+        with pytest.raises(SystemExit, match="ENABLED --service"):
+            main(argv + extra)

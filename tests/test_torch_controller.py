@@ -455,9 +455,12 @@ def test_entries_raise_without_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         recovery.recovery_scoreboard(ct, policies=("rule",), ticks=4,
                                      runs_per_cell=1, intensities=("off",))
-    with pytest.raises(NotImplementedError, match="A11b"):
-        Controller(ct, rule, src, DryRunSink(), device="cpu",
-                   decision_ledger=object())
+    # The ledgers are ported: a CPU controller takes them.
+    from ccka_tpu_torch.obs.decisions import DecisionLedger
+    ledger = DecisionLedger(ct.obs, ct.train, policy="rule")
+    Controller(ct, rule, src, DryRunSink(), device="cpu",
+               decision_ledger=ledger, **QUIET).tick(0)
+    assert ledger.rows_total == 1
     assert isinstance(controller_from_config(ct, rule, device="cpu",
                                              **QUIET).tick(0), TickReport)
 
@@ -479,8 +482,9 @@ def test_cli_run_resume_and_recover_eval(tmp_path, capsys):
     out = capsys.readouterr().out
     board = json.loads(out[out.index('{\n  "engine"'):])
     assert board["invariants"]["resume_bitwise_frac"] == 1.0
-    assert cli.main(["fleet"]) == 2
-    assert "ROADMAP A11b(i)" in capsys.readouterr().err
+    # The bare fleet is ported; the service layer is the next slice.
+    assert cli.main(["fleet", "--service", "default"]) == 2
+    assert "ROADMAP A11b(ii)" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="needs --snapshot"):
         cli.main(["run", "--device", "cpu", "--resume"])
 

@@ -257,7 +257,9 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "actuation.chaos", "actuation.guardrails",
              "actuation.bootstrap", "actuation.burst", "harness.preroll",
              "harness.watch", "harness.dashboard", "harness.pipeline",
-             "cli", "__main__"):
+             "harness.fleet", "obs.recorder", "obs.incidents",
+             "obs.decisions", "obs.tournament", "graphs", "cli",
+             "__main__"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -376,6 +378,16 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(
 rb = recovery_scoreboard(cfg, policies=("rule",), intensities=("severe",),
                          runs_per_cell=1, ticks=4, device="cpu")
 assert rb["invariants"]["resume_bitwise_frac"] == 1.0
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+# The fleet, its ledgers and replayed device windows.
+from ccka_tpu_torch.signals.replay import ReplaySignalSource
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    assert cli_main(["fleet", "--clusters", "2", "--ticks", "2",
+                     "--device", "cpu"]) == 0
+    assert cli_main(["tournament", "list"]) == 0
+ReplaySignalSource.from_file("data/replay_2day.npz").packed_trace_device(
+    8, 0, 2, device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

@@ -790,3 +790,81 @@ def test_controller_ticks_on_the_card_as_on_the_cpu(cuda):
                               atol=1e-6), f
     assert all(sp.cat == "device" for sp in tg.spans()
                if sp.name == "estimate")
+
+
+@pytest.mark.parametrize("backend", ["rule", "carbon", "ppo"])
+def test_fleet_graph_is_bitwise_its_eager_body(cuda, backend):
+    """The fleet tick captured as one CUDA graph gives bitwise what its
+    eager body gives, tick after tick, and is captured once."""
+    from ccka_tpu_torch.cli import make_backend
+    from ccka_tpu_torch.harness.fleet import fleet_controller_from_config
+    from ccka_tpu_torch.obs.compile import stats_for
+
+    cfg = PRESETS["multiregion"]()
+    ctrl = fleet_controller_from_config(
+        cfg, make_backend(cfg, backend, device=cuda), 64, horizon_ticks=32,
+        seed=3, device=cuda)
+    tick, xs = ctrl._tick_fn, ctrl._xs_all
+    s_e = s_g = ctrl.states
+    before = stats_for("fleet.tick").compiles if stats_for(
+        "fleet.tick") else 0
+    for t in range(6):
+        e, g = tick.eager(s_e, xs, t), tick(s_g, xs, t)
+        assert torch.equal(e[0], g[0]) and torch.equal(e[2], g[2])
+        assert all(torch.equal(a, b) for a, b in zip(e[1], g[1]))
+        s_e, s_g = e[1], type(g[1])(*(x.clone() for x in g[1]))
+    st = stats_for("fleet.tick")
+    assert st.compiles == before + 1 and st.recompiles == 0
+    reports = ctrl.run(3)
+    assert all(r.applied == 64 for r in reports)
+    ctrl.close()
+
+
+def test_replay_samplers_on_the_card(cuda):
+    """The replay device samplers on the card: the packed stream is the
+    pack of its windows, the blocks concatenate to it."""
+    from ccka_tpu_torch.signals.replay import ReplaySignalSource
+    from ccka_tpu_torch.signals.synthetic import family_generator
+
+    import os
+
+    src = ReplaySignalSource.from_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+        "replay_train_9day.npz"))
+    stream = src.packed_trace_device(360, 5, 256, device=cuda)
+    windows = src.batch_trace_device(360, family_generator(5, None, cuda),
+                                     256, device=cuda)
+    assert torch.equal(stream, mk._pack_exo(windows, 360))
+    blocks = [src.packed_block_trace_device(120, 5, 256, j, total_steps=360,
+                                            t_chunk=40, device=cuda)
+              for j in range(3)]
+    assert torch.equal(torch.cat(blocks), stream)
+    assert torch.equal(torch.cat(blocks), stream)
+
+
+def test_replay_samplers_reuse_buffers_on_the_card(cuda):
+    """A bare ``cuda`` device and a caller's ``out=`` buffer (``cuda:0``)
+    name the same card: the samplers write into the buffer (as the CEM
+    generations and the streaming pipeline reuse theirs) and hit the
+    cached extension instead of tiling the store again."""
+    from ccka_tpu_torch.signals.replay import ReplaySignalSource
+
+    import os
+
+    src = ReplaySignalSource.from_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+        "replay_train_9day.npz"))
+    want = src.packed_trace_device(360, 5, 256, device=cuda)
+    ext = src._ext_dev
+    buf = torch.empty_like(want)
+    got = src.packed_trace_device(360, 5, 256, out=buf, device=cuda)
+    assert got.data_ptr() == buf.data_ptr() and torch.equal(got, want)
+    assert src._ext_dev is ext
+    blk = torch.empty((120,) + tuple(want.shape[1:]), device=cuda)
+    for j in range(3):
+        got = src.packed_block_trace_device(120, 5, 256, j, total_steps=360,
+                                            out=blk, t_chunk=40, device=cuda)
+        assert got.data_ptr() == blk.data_ptr()
+        assert torch.equal(got, want[120 * j:120 * (j + 1)])
+        ext = ext if j else src._ext_dev  # sized once for the horizon
+        assert src._ext_dev is ext

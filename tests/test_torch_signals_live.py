@@ -273,8 +273,10 @@ def test_replay_source_from_file_equals_the_reference(offset):
     _same(ts.tick(33, device="cpu"), js.tick(33))
     _same(ts.forecast(30, 12, device="cpu"), js.forecast(30, 12))
     _same(ts.history(3, 10, device="cpu"), js.history(3, 10))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ts.batch_trace_device(8, None, 4)
+    # The device window samplers are ported (tests/test_torch_replay_
+    # device.py holds them against the reference's windows).
+    win = ts.batch_trace_device(8, torch.Generator(), 4, device="cpu")
+    assert tuple(win.is_peak.shape) == (4, 8)
 
 
 @pytest.mark.parametrize("preset", ["default", "multiregion"])

@@ -76,5 +76,8 @@ def test_guard_scans_the_control_loop():
                 ("actuation", "guardrails.py"), ("actuation", "bootstrap.py"),
                 ("actuation", "burst.py"), ("harness", "preroll.py"),
                 ("harness", "watch.py"), ("harness", "dashboard.py"),
-                ("harness", "pipeline.py"), ("cli.py",)):
+                ("harness", "pipeline.py"), ("harness", "fleet.py"),
+                ("obs", "decisions.py"), ("obs", "tournament.py"),
+                ("obs", "incidents.py"), ("obs", "recorder.py"),
+                ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel
