@@ -18,7 +18,10 @@ exit codes. Subcommand <-> script map:
   dashboard   <- demo_40 configure (Grafana stack)
   pipeline    <- 06_opencost collector stage
   fleet       the batched fleet loop over N dry-run sinks (one CUDA
-              graph a tick on the card)
+              graph a tick on the card); ``--service`` runs the
+              multi-tenant service layer over it
+  overload-eval
+              the paired stressed/calm multi-tenant service board
   incidents / decisions / tournament
               read the incident log, the decision ledger and the
               shadow tournament's board and audits
@@ -46,7 +49,6 @@ from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 # Subcommands of `ccka` the port has not yet, with the ROADMAP item that
 # ports them.
 NOT_PORTED = {
-    "overload-eval": "A11b(ii)",
     "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
     "geo": "item 13", "scenario-search": "item 13", "flywheel": "item 13",
 }
@@ -312,6 +314,37 @@ def _build_parser() -> argparse.ArgumentParser:
     sre.add_argument("--seed", type=int, default=101)
     device(sre)
 
+    sov = sub.add_parser(
+        "overload-eval", help="multi-tenant overload scoreboard "
+                              "(harness/overload.py): paired stressed/"
+                              "calm FleetService runs per {tenant count "
+                              "x chaos intensity x slow-tenant fraction} "
+                              "— healthy-tenant $/SLO-hr isolation "
+                              "ratios, p50/p99 tick latency vs the "
+                              "deadline, shed/deferral counts and "
+                              "breaker transitions")
+    sov.add_argument("--tenants", default="16,64",
+                     help="comma list of fleet sizes")
+    sov.add_argument("--intensities", default="off,moderate,severe",
+                     help="comma list of config.CHAOS_PRESETS names "
+                          "composed onto the stressed tenants' sinks")
+    sov.add_argument("--slow-fracs", default="0,0.25,0.5",
+                     help="comma list of stressed-tenant fractions in "
+                          "[0, 1); 0 is the zero-overhead control cell")
+    sov.add_argument("--profile", default="slow",
+                     help="stressed-tenant archetype "
+                          "(service.TENANT_PROFILES name)")
+    sov.add_argument("--service", default="default",
+                     help="config.SERVICE_PRESETS posture for the runs")
+    sov.add_argument("--policies", default="rule,flagship",
+                     help="comma list of rule,carbon,flagship (flagship "
+                          "rows need a committed checkpoint for the "
+                          "chosen preset's topology)")
+    sov.add_argument("--ticks", type=int, default=48,
+                     help="service ticks per run")
+    sov.add_argument("--seed", type=int, default=211)
+    device(sov)
+
     slsc = sub.add_parser(
         "scenarios", help="list the named workload scenario library: "
                           "family mix, fault preset and arrival shapes "
@@ -404,8 +437,8 @@ def _build_parser() -> argparse.ArgumentParser:
     sf.add_argument("--service", default="",
                     help="run the multi-tenant service layer at this "
                          "config.SERVICE_PRESETS posture instead of the "
-                         "bare fleet loop (not ported yet: ROADMAP "
-                         "A11b(ii))")
+                         "bare fleet loop (bounded ticks, per-tenant "
+                         "breakers, priority shed)")
     sf.add_argument("--profiles", default="healthy",
                     help="with --service: comma list of tenant profile "
                          "archetypes, cycled over the fleet")
@@ -1373,6 +1406,29 @@ def _cmd_recover_eval(cfg: FrameworkConfig, args) -> int:
     return 0
 
 
+def _cmd_overload_eval(cfg: FrameworkConfig, args) -> int:
+    from ccka_tpu_torch.harness.overload import overload_scoreboard
+
+    dev = _device(args.device)
+    try:
+        board = overload_scoreboard(
+            cfg,
+            tenants=tuple(int(s) for s in args.tenants.split(",")
+                          if s.strip()),
+            intensities=_names(args.intensities),
+            slow_fracs=tuple(float(s) for s in args.slow_fracs.split(",")
+                             if s.strip()),
+            slow_profile=args.profile,
+            service_preset=args.service,
+            policies=_names(args.policies),
+            ticks=args.ticks,
+            seed=args.seed, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    print(json.dumps(board, indent=2))
+    return 0
+
+
 def _cmd_scenarios(args) -> int:
     """The hand-named scenario library; minted scenarios are item 13."""
     from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
@@ -1445,15 +1501,113 @@ def _cmd_obs(args) -> int:
     return 0
 
 
+def _service_obs(args):
+    """The obs posture ``fleet --service`` runs under (None: the
+    config's), with the output flags folded in."""
+    import dataclasses
+    import os
+
+    from ccka_tpu_torch.config import OBS_PRESETS
+
+    if not (args.obs or args.incidents_out or args.decisions_out):
+        return None
+    preset = args.obs or "default"
+    if preset not in OBS_PRESETS:
+        raise SystemExit(f"ccka: unknown obs preset {preset!r}; "
+                         f"presets: {sorted(OBS_PRESETS)}")
+    obs = OBS_PRESETS[preset]
+    if (args.incidents_out or args.decisions_out) and args.obs \
+            and not obs.enabled:
+        # An explicit off posture must not be silently inverted by the
+        # output flags.
+        raise SystemExit(
+            f"ccka: --obs {args.obs} is the off posture but "
+            "--incidents-out/--decisions-out need the obs layer running "
+            "— drop one")
+    if args.incidents_out:
+        out_dir = os.path.dirname(os.path.abspath(args.incidents_out)) \
+            or "."
+        obs = dataclasses.replace(
+            obs, enabled=True, incident_log_path=args.incidents_out,
+            dump_dir=os.path.join(out_dir, "recorder-dumps"))
+    if args.decisions_out:
+        obs = dataclasses.replace(obs, enabled=True,
+                                  decision_log_path=args.decisions_out)
+    return obs
+
+
+def _run_service(cfg: FrameworkConfig, args, backend, dev):
+    """`fleet --service`: prints the service summary and returns None
+    (an enabled posture), or returns the delegated FleetTickReports and
+    the controller they ran on (the off gate)."""
+    from ccka_tpu_torch.config import SERVICE_PRESETS
+    from ccka_tpu_torch.harness.service import (fleet_service_from_config,
+                                                resolve_profiles)
+
+    if args.service not in SERVICE_PRESETS:
+        raise SystemExit(f"ccka: unknown service preset {args.service!r}; "
+                         f"presets: {sorted(SERVICE_PRESETS)}")
+    names = list(_names(args.profiles))
+    if not names:
+        raise SystemExit("ccka: --profiles needs at least one tenant "
+                         "profile name")
+    try:
+        resolve_profiles(names)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    profiles = [names[i % len(names)] for i in range(args.clusters)]
+    obs = _service_obs(args)
+    try:
+        service = fleet_service_from_config(
+            cfg, backend, args.clusters, profiles=profiles,
+            service=SERVICE_PRESETS[args.service], obs=obs,
+            horizon_ticks=max(args.ticks + 2, 8), seed=args.seed,
+            log_fn=lambda s: print(s, file=sys.stderr), device=dev)
+    except ValueError as e:  # e.g. corrupt incident log
+        raise SystemExit(f"ccka: {e}")
+    service.warmup()
+    sreports = service.run(args.ticks)
+    if not SERVICE_PRESETS[args.service].enabled:
+        # The off gate delegates: the bare-fleet summary over the
+        # delegated FleetTickReports.
+        return sreports, service.ctrl
+    last = sreports[-1]
+    summary = {
+        "clusters": args.clusters,
+        "ticks": args.ticks,
+        "service": args.service,
+        "admitted_frac": sum(r.admitted for r in sreports)
+        / (args.clusters * len(sreports)),
+        "sheds_total": last.sheds_total,
+        "deferrals_total": last.deferrals_total,
+        "breaker_transitions_total": last.breaker_transitions_total,
+        "tick_latency_ms_last": last.tick_latency_ms,
+        "fleet_cost_usd_hr_last": last.cost_usd_hr,
+    }
+    if service.incidents is not None:
+        summary["incidents_total"] = service.incidents.total
+        summary["incident_counts"] = service.incidents.counts()
+        summary["recorder_dumps_total"] = service.recorder.dumps_total
+        summary["slo_burn_rate_last"] = last.slo_burn_rate
+    if service.decisions is not None:
+        summary["decision_rows_total"] = service.decisions.rows_total
+        summary["policy_divergence_rate_last"] = \
+            last.policy_divergence_rate
+    service.close()
+    print(json.dumps(summary, indent=2))
+    return None
+
+
 def _cmd_fleet(cfg: FrameworkConfig, args) -> int:
-    """`fleet` (the bare fleet loop; ``--service`` is refused before the
-    parser, naming its ROADMAP item)."""
+    """`fleet`: the bare fleet loop, or with ``--service`` the
+    multi-tenant service layer over it."""
     from ccka_tpu_torch.harness.fleet import fleet_controller_from_config
 
     if args.clusters < 1 or args.ticks < 1:
         raise SystemExit("ccka: fleet needs --clusters >= 1 and "
                          "--ticks >= 1")
-    if args.obs or args.incidents_out or args.decisions_out:
+    if (args.obs or args.incidents_out or args.decisions_out) \
+            and (not args.service or args.service == "off"):
         # The obs layer rides the service loop; letting these flags
         # silently no-op would leave the operator believing incidents
         # were being recorded.
@@ -1463,11 +1617,17 @@ def _cmd_fleet(cfg: FrameworkConfig, args) -> int:
             "'off' delegates to the bare fleet)")
     dev = _device(args.device)
     backend = make_backend(cfg, args.backend, args.checkpoint, device=dev)
-    ctrl = fleet_controller_from_config(
-        cfg, backend, args.clusters, horizon_ticks=max(args.ticks + 2, 8),
-        seed=args.seed, log_fn=lambda s: print(s, file=sys.stderr),
-        device=dev)
-    reports = ctrl.run(args.ticks)
+    if args.service:
+        delegated = _run_service(cfg, args, backend, dev)
+        if delegated is None:
+            return 0
+        reports, ctrl = delegated
+    else:
+        ctrl = fleet_controller_from_config(
+            cfg, backend, args.clusters,
+            horizon_ticks=max(args.ticks + 2, 8), seed=args.seed,
+            log_fn=lambda s: print(s, file=sys.stderr), device=dev)
+        reports = ctrl.run(args.ticks)
     ctrl.close()
     ok = all(r.applied == r.n_clusters for r in reports)
     n = args.clusters * max(len(reports), 1)
@@ -1674,8 +1834,6 @@ def _command(argv: list[str]) -> str | None:
 def _not_ported(argv: list[str]) -> str | None:
     """The ROADMAP item of a subcommand the port has not yet, or None."""
     cmd = _command(argv)
-    if cmd == "fleet" and _flag(argv, "--service"):
-        return "A11b(ii)"
     if cmd == "simulate" and _flag(argv, "--mesh"):
         return "item 14"
     return NOT_PORTED.get(cmd)
@@ -1690,6 +1848,7 @@ _HANDLERS = {
     "evaluate": _cmd_evaluate, "train": _cmd_train,
     "forecast-eval": _cmd_forecast_eval, "chaos-eval": _cmd_board,
     "scenario-eval": _cmd_board, "recover-eval": _cmd_recover_eval,
+    "overload-eval": _cmd_overload_eval,
     "distill-factory": _cmd_distill_factory, "capture": _cmd_capture,
     "dashboard": _cmd_dashboard, "pipeline": _cmd_pipeline,
     "watch": _cmd_watch, "burst": _cmd_burst, "fleet": _cmd_fleet,
@@ -1703,7 +1862,7 @@ def main(argv: list[str] | None = None) -> int:
     item = _not_ported(argv)
     if item is not None:
         cmd = _command(argv)
-        what = {"fleet": " --service", "simulate": " --mesh"}
+        what = {"simulate": " --mesh"}
         print(f"ccka_tpu_torch: subcommand {cmd!r}"
               f"{what.get(cmd, '')} is not ported yet (ROADMAP {item})",
               file=sys.stderr)

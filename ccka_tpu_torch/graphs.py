@@ -30,7 +30,8 @@ class Graph:
 
 def static(tup):
     """A static copy of a tuple of tensors (a capture's input slots)."""
-    return type(tup)(*(x.clone() for x in tup))
+    clones = [x.clone() for x in tup]
+    return type(tup)(*clones) if hasattr(tup, "_fields") else tuple(clones)
 
 
 def copy_in(dst, src) -> None:

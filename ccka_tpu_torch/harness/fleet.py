@@ -176,13 +176,22 @@ def _require_capturable(backend, role: str) -> None:
 
 
 class _FleetTick:
-    """The tick body. On the card (``graphed``) it is captured once as a
-    CUDA graph at its first call and replayed at every later one: the
-    inputs live in static tensors copied into before each replay, and the
-    outputs are the graph's own tensors, overwritten by the next replay,
-    so a caller copies them out first. On the CPU every call runs the
-    body eagerly. :meth:`eager` runs the body without the graph (the
-    bitwise reference); ``captures`` counts the captures."""
+    """A batched tick body ``body(states, xs_all, *scalars_and_rows)``. On
+    the card (``graphed``) it is captured once as a CUDA graph at its
+    first call and replayed at every later one: the inputs live in static
+    tensors copied into before each replay, and the outputs are the
+    graph's own tensors, overwritten by the next replay, so a caller
+    copies them out first. On the CPU every call runs the body eagerly.
+    :meth:`eager` runs the body without the graph (the bitwise
+    reference); ``captures`` counts the captures.
+
+    After the states and the ``[N, T, ...]`` traces come the body's other
+    inputs: an int (the tick, a row offset) is a device int64 scalar
+    filled before each replay; a tensor (the service's lanes and held
+    rows) is copied into its static slot. The traces are copied into the
+    graph's slot only when another tensor than the last one is passed
+    (``stream_copies`` counts those copies): one caller replaying the
+    graph never copies its stream again."""
 
     def __init__(self, body, graphed: bool):
         self._body = body
@@ -190,31 +199,41 @@ class _FleetTick:
         self._graph = None
         self._xs_src = None
         self.captures = 0
+        self.stream_copies = 0
+
+    @staticmethod
+    def _scalars(args, device):
+        return tuple(a if isinstance(a, torch.Tensor)
+                     else torch.tensor(int(a), dtype=torch.int64,
+                                       device=device) for a in args)
 
     @torch.no_grad()
-    def eager(self, states, xs_all, t):
-        if not isinstance(t, torch.Tensor):
-            t = torch.tensor(int(t), dtype=torch.int64,
-                             device=xs_all.is_peak.device)
-        return self._body(states, xs_all, t)
+    def eager(self, states, xs_all, *args):
+        return self._body(states, xs_all,
+                          *self._scalars(args, xs_all.is_peak.device))
 
     @torch.no_grad()
-    def __call__(self, states, xs_all, t):
+    def __call__(self, states, xs_all, *args):
         if not self._graphed:
-            return self.eager(states, xs_all, t)
+            return self.eager(states, xs_all, *args)
         if self._graph is None:
             self._states, self._xs = static(states), static(xs_all)
             self._xs_src = xs_all
-            self._t = torch.zeros((), dtype=torch.int64,
-                                  device=states[0].device)
+            self._args = static(self._scalars(args, states[0].device))
             self._graph = Graph(lambda: self._body(self._states, self._xs,
-                                                   self._t))
+                                                   *self._args))
             self.captures += 1
+            self.stream_copies += 1
         copy_in(self._states, states)
         if xs_all is not self._xs_src:
             copy_in(self._xs, xs_all)
             self._xs_src = xs_all
-        self._t.fill_(int(t))
+            self.stream_copies += 1
+        for slot, a in zip(self._args, args):
+            if isinstance(a, torch.Tensor):
+                slot.copy_(a)
+            else:
+                slot.fill_(int(a))
         self._graph.graph.replay()
         return self._graph.out
 

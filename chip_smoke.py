@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eight main paths. The rule-profile fleet rollout: a batch of clusters
+Nine main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -22,7 +22,11 @@ boards, train and observe through `ccka_tpu_torch.cli.main` on the card.
 Replayed streams: windows of a stored trace sampled on the card and
 rolled out by the same kernels. The fleet controller: N clusters decided
 at once, one CUDA graph a tick, with the decision ledger, the shadow
-tournament and the incident log riding beside it.
+tournament and the incident log riding beside it. The multi-tenant
+service: the fleet behind per-tenant breakers, admission shedding and a
+tick deadline, its lanes selected inside one graph replayed for the
+whole fleet or for every tenant chunk, the overload board and the
+fleet-scale record.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -254,7 +258,35 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    counter; then `incidents list|show|timeline`, `decisions
    list|explain` and `tournament list|board` through `cli.main` on the
    files written (`runs/chip_smoke_fleet/`);
-15. one JSON line listing every kernel and lane instantiation, the
+15. the multi-tenant service (the main path of the twelfth slice; no
+   kernel: the service tick is plain PyTorch captured as a CUDA graph):
+   (a) multiregion with the shipped flagship, rule, carbon and ppo,
+   horizon 2880 (mpc refused, naming itself): N = 1024 as one graph and
+   N = 10240 as one 256-tenant chunk graph replayed 40 times a tick, 16
+   chained ticks whose lane vectors mix fresh, held and fallback rows,
+   every replay bitwise its eager body, the N = 1024 chunk graph's rows
+   bitwise the whole graph's; ms a tick (median, p99), graphed and
+   eager; the service's dispatch a tick, the bytes it copies, and the
+   stream copied into each graph once; (b) the card against the CPU,
+   N = 64 x 8 ticks on one world, a stressed tenant mix on the
+   deterministic clock: report counters and lanes equal, rows within
+   1e-5 relative (the flagship's 1e-3, actions 5e-3), rule and carbon
+   command streams byte-identical; (c) `overload_scoreboard` at
+   bench_overload's grid (multiregion; 16 and 64 tenants; off, moderate,
+   severe; slow fractions 0, 0.25, 0.5; rule and flagship; 48 ticks;
+   seed 211) on the real clock: every healthy tenant's paired ratio
+   exactly 1.0, each cell's p50/p99 against the 250 ms deadline and its
+   counters; (d) `fleet_scale_record` at its defaults (default preset,
+   N = 16 ... 10240, 12 ticks): vectorized bitwise object, chunked
+   bitwise unchunked, the healthy ratio exactly 1.0, the speedup and
+   the host us per tenant; (e) obs on (recorder, burn rate, decision and
+   tournament ledgers) against off, 16 tenants x 48 ticks, ppo: rows,
+   states and command streams bitwise, every incident dump verifies;
+   `fleet --service default --obs ...` and `overload-eval` through
+   `cli.main`; `compile_report()`: one service.tick capture per key,
+   one service.tick_chunk capture per (key, chunk), none again
+   (`runs/chip_smoke_service/`);
+16. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -3032,7 +3064,9 @@ def fleet_rows(ctrl, t0: int, t1: int) -> list:
 
 
 def sink_commands(ctrl) -> list:
-    return [[c.render() for c in s.commands] for s in ctrl.sinks]
+    """Per-sink rendered command streams (through any chaos wrap)."""
+    return [[c.render() for c in getattr(s, "inner", s).commands]
+            for s in ctrl.sinks]
 
 
 def same_states(a, b) -> bool:
@@ -3452,6 +3486,427 @@ def ledger_phase(dev) -> dict:
            "seconds": time.perf_counter() - t_phase}
     log(f"# 14c: {rec['seconds']:.1f} s")
     return rec
+
+
+# ---- the multi-tenant service on the card (phase 15) ------------------------
+
+SVC_NS = (1024, 10240)              # 15a: whole fleet, and in chunks
+SVC_CHUNK = 256                     # fleetscale._CHUNK
+SVC_CHAIN = 16                      # 15a: chained ticks a key
+SVC_SEED = 23
+SVC_CPU_N, SVC_CPU_TICKS = 64, 8    # 15b
+SVC_OBS_N, SVC_OBS_TICKS = 16, 48   # 15e
+# 15b's stressed mix (the fleet-scale parity gate's tenants); the
+# flagship's tenants carry no kubectl chaos (its rendered patches may
+# differ in a whole second of consolidateAfter across devices).
+SVC_MIX = ("healthy", "batch", "jittery", "slow", "flaky", "healthy")
+SVC_MIX_PPO = ("healthy", "batch", "jittery", "slow", "healthy", "batch")
+
+
+def zero_clock():
+    """The deterministic clock: scrape delays advance it, nothing else."""
+    from ccka_tpu_torch.harness.service import VirtualClock
+
+    return VirtualClock(base=lambda: 0.0)
+
+
+def service_rows(svc) -> list:
+    """Wrap ``svc._dispatch`` to keep each tick's host (packed, per)."""
+    rows = []
+    inner = svc._dispatch
+
+    def spy(t, lanes):
+        out = inner(t, lanes)
+        rows.append(out)
+        return out
+    svc._dispatch = spy
+    return rows
+
+
+def service_phase(dev, card: str) -> dict:
+    """15: the multi-tenant service (`harness/service.py`) on the card.
+    (a) the lane-selecting service tick, multiregion with the shipped
+    flagship, rule, carbon and ppo, horizon 2880: N = 1024 as one graph
+    and N = 10240 as one 256-tenant chunk graph replayed per chunk, 16
+    chained ticks with lane vectors mixing fresh, held and fallback rows,
+    every output of every replay bitwise its eager body, the N = 1024
+    chunk graph's rows bitwise the whole-fleet graph's; ms a tick
+    (median, p99), graphed and eager; the service's own dispatch (copies
+    in, replays, copies out) a tick, the bytes it copies, and the stream
+    copied into each graph once; (b) card against CPU, N = 64 x 8 ticks
+    on one world, the stressed mix, det clock: report counters, lanes,
+    rows within 1e-5 (the flagship's 1e-3, actions 5e-3), rule and carbon
+    command streams byte-identical; (c) `overload_scoreboard` at
+    bench_overload's grid on the real clock: the healthy ratio exactly
+    1.0 in every cell, each cell's p50/p99 against the deadline and its
+    counters; (d) `fleet_scale_record` at its defaults: its parity gates;
+    (e) obs on against off (recorder, burn rate, decision and tournament
+    ledgers), 16 tenants x 48 ticks, ppo: bitwise, every dump verifies;
+    `fleet --service ... --obs` and `overload-eval` through `cli.main`.
+    `compile_report()`: one capture per key, none again."""
+    import dataclasses
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.actuation.sink import DryRunSink
+    from ccka_tpu_torch.config import SERVICE_PRESETS
+    from ccka_tpu_torch.harness import service as sv
+    from ccka_tpu_torch.harness.fleetscale import (_report_counters,
+                                                   fleet_scale_record)
+    from ccka_tpu_torch.harness.overload import overload_scoreboard
+    from ccka_tpu_torch.obs.compile import stats_for
+    from ccka_tpu_torch.obs.decisions import decision_row_layout
+    from ccka_tpu_torch.obs.recorder import verify_dump
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    sv._compiled_service_tick.cache_clear()
+    sv._compiled_service_tick_chunk.cache_clear()
+    caps0 = {k: (stats_for(k).compiles if stats_for(k) else 0)
+             for k in ("service.tick", "service.tick_chunk")}
+    cfg = PRESETS["multiregion"]()
+    out_dir = "runs/chip_smoke_service"
+    os.makedirs(out_dir, exist_ok=True)
+    rec: dict = {"card": card, "chain": {}, "sections": {}}
+    cpu_keys = 0
+
+    def service(c, backend, n, source, *, device=dev, **kw):
+        return sv.FleetService(
+            c, backend, source, [DryRunSink() for _ in range(n)],
+            horizon_ticks=T_DAY, seed=SVC_SEED, device=device, **kw)
+
+    # ---- (a) the service graph, whole and chunked
+    syn = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    traces, synth_s = synced(lambda: syn.batch_trace_device(
+        T_DAY, torch.Generator(device=dev).manual_seed(SVC_SEED),
+        max(SVC_NS), device=dev))
+    stream_b = sum(x.numel() * x.element_size() for x in traces)
+    log(f"# 15a multiregion N={max(SVC_NS)} x {T_DAY}: batch_trace_device "
+        f"{synth_s:.3f} s, the stream {stream_b / 1e9:.3f} GB")
+    try:
+        service(cfg, loop_backend(cfg, "mpc", dev), 8, FixedTraces(traces))
+        fail("15a: the mpc backend was not refused by the service graph")
+    except (ValueError, RuntimeError) as e:
+        if "MPCBackend" not in str(e):
+            raise
+        log(f"# 15a mpc refused: {e}")
+    backends = {name: loop_backend(cfg, name, dev) for name in
+                FLEET_BACKENDS}
+    gen = torch.Generator(device=dev).manual_seed(SVC_SEED)
+    lane_p = torch.tensor([0.6, 0.25, 0.15], device=dev)
+    a_dim = decision_row_layout(cfg.cluster).a_dim
+    for name, backend in backends.items():
+        whole = service(cfg, backend, SVC_NS[0], FixedTraces(traces),
+                        service=SERVICE_PRESETS["default"])
+        part = service(cfg, backend, SVC_NS[0], FixedTraces(traces),
+                       service=SERVICE_PRESETS["default"],
+                       dispatch_chunk=SVC_CHUNK)
+        big = service(cfg, backend, SVC_NS[1], FixedTraces(traces),
+                       service=SERVICE_PRESETS["default"],
+                       dispatch_chunk=SVC_CHUNK)
+        for n, svc in ((SVC_NS[0], whole), (SVC_NS[1], big)):
+            tick, xs = svc._tick_fn, svc._xs
+            k = svc._chunk
+            s_g = type(svc.states)(*(x.clone() for x in svc.states))
+            ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                  for _ in range(SVC_CHAIN)]
+            counts = [0, 0, 0]
+            for t in range(SVC_CHAIN):
+                lanes = torch.multinomial(lane_p, n, replacement=True,
+                                          generator=gen).to(torch.int32)
+                held = torch.rand((n, a_dim), generator=gen, device=dev)
+                for j in range(3):
+                    counts[j] += int((lanes == j).sum())
+                chunks = [(lo, lo + k) for lo in range(0, n, k)]
+                args = [((t, lanes, held) if svc._n_chunks == 1 else
+                         (t, lo, lanes[lo:hi], held[lo:hi]))
+                        for lo, hi in chunks]
+                ev[t][0].record()
+                eager = [tick.eager(sv._rows(s_g, lo, hi), xs, *a)
+                         for (lo, hi), a in zip(chunks, args)]
+                ev[t][1].record()
+                graph = []
+                for (lo, hi), a in zip(chunks, args):
+                    g = tick(sv._rows(s_g, lo, hi), xs, *a)
+                    graph.append((g[0].clone(),
+                                  type(g[1])(*(x.clone() for x in g[1])),
+                                  g[2].clone()))
+                ev[t][2].record()
+                for e, g in zip(eager, graph):
+                    if not (torch.equal(e[0], g[0]) and torch.equal(e[2], g[2])
+                            and same_states(e[1], g[1])):
+                        fail(f"15a: {name} N={n}: a replay differs from its "
+                             f"eager body at tick {t}")
+                if n == SVC_NS[0]:
+                    # The chunk graph over the same inputs: the whole
+                    # graph's rows, bitwise.
+                    for lo in range(0, n, SVC_CHUNK):
+                        hi = lo + SVC_CHUNK
+                        c = part._tick_fn(sv._rows(s_g, lo, hi), part._xs, t,
+                                          lo, lanes[lo:hi], held[lo:hi])
+                        if not (torch.equal(c[0], graph[0][0][lo:hi])
+                                and torch.equal(c[2], graph[0][2][lo:hi])
+                                and same_states(c[1], sv._rows(
+                                    graph[0][1], lo, hi))):
+                            fail(f"15a: {name}: the N={n} chunk graph "
+                                 f"differs from the whole fleet's at tick "
+                                 f"{t}, rows {lo}-{hi}")
+                s_g = type(s_g)(*(torch.cat(xs_, 0) for xs_ in
+                                  zip(*(g[1] for g in graph))))
+            # Tick 0 holds the captures: the times are ticks 1-15's.
+            e_ms = [ev[t][0].elapsed_time(ev[t][1])
+                    for t in range(1, SVC_CHAIN)]
+            g_ms = [ev[t][1].elapsed_time(ev[t][2])
+                    for t in range(1, SVC_CHAIN)]
+            # The service's own dispatch: lanes and held rows in, every
+            # chunk's replay, states and rows out, one synchronize.
+            lanes_np = np.zeros(n, np.int32)
+            svc._dispatch(0, lanes_np)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(1, 5):
+                svc._dispatch(t, lanes_np)
+            disp_ms = (time.perf_counter() - t0) * 1e3 / 4
+            w = svc._dec_layout.width
+            state_b = sum(x[:1].numel() * x.element_size()
+                          for x in svc.states) * n
+            moved = (4 * n + 4 * n * a_dim            # lanes, held in
+                     + 2 * 2 * state_b                # states in, out
+                     + 4 * n * (a_dim + 1 + w))       # packed, per out
+            r = {"eager_ms": [float(np.median(e_ms)), pct(e_ms, 99)],
+                 "graph_ms": [float(np.median(g_ms)), pct(g_ms, 99)],
+                 "dispatch_ms": disp_ms, "chunks": svc._n_chunks,
+                 "bytes_a_tick": moved,
+                 "stream_copies": tick.stream_copies,
+                 "lanes": counts}
+            rec["chain"][f"{name} N={n}"] = r
+            log(f"# 15a {name} N={n} ({svc._n_chunks} x {k}): {SVC_CHAIN} "
+                f"chained ticks, lanes fresh/held/fallback {counts}, every "
+                f"replay bitwise its eager body"
+                f"{', the chunk graph bitwise the whole' if n == SVC_NS[0] else ''}"
+                f"; ms a tick (median, p99): eager {r['eager_ms'][0]:.4f}, "
+                f"{r['eager_ms'][1]:.4f}; graph {r['graph_ms'][0]:.4f}, "
+                f"{r['graph_ms'][1]:.4f}; the service's dispatch "
+                f"{disp_ms:.4f} ms a tick, {moved / 1e6:.3f} MB copied a "
+                f"tick against the {n * stream_b / max(SVC_NS) / 1e9:.3f} GB "
+                f"stream, copied into its graph {tick.stream_copies} time(s)")
+            if tick.stream_copies != 1:
+                fail(f"15a: {name} N={n}: the stream was copied "
+                     f"{tick.stream_copies} times")
+        for s in (whole, part, big):
+            s.close()
+        del whole, part, big, s_g, eager, graph
+        torch.cuda.empty_cache()
+    rec["sections"]["a"] = time.perf_counter() - laps[-1]
+    log(f"# 15a {lap()}")
+
+    # ---- (b) card against CPU on one world
+    rec["cpu"] = {}
+    layout = decision_row_layout(cfg.cluster)
+    pend = [3] + [layout.col(c) for c in ("pend_c0", "pend_c1",
+                                          "shadow_pend_c0", "shadow_pend_c1")]
+    small = type(traces)(*(x[:SVC_CPU_N, :T_DAY].contiguous().cpu()
+                           for x in traces))
+    del traces
+    torch.cuda.empty_cache()
+    for name in FLEET_BACKENDS:
+        flag = name == "ppo"
+        mix = SVC_MIX_PPO if flag else SVC_MIX
+        profiles = [mix[i % len(mix)] for i in range(SVC_CPU_N)]
+        post = dataclasses.replace(SERVICE_PRESETS["default"],
+                                   admission_queue_cap=SVC_CPU_N - 8,
+                                   breaker_failures=2)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            b = backends[name] if d.type == "cuda" else \
+                loop_backend(cfg, name, d)
+            s = service(cfg, b, SVC_CPU_N, FixedTraces(small), device=d,
+                        profiles=profiles, service=post, clock=zero_clock())
+            cpu_keys += d.type == "cpu"
+            rows = service_rows(s)
+            s.warmup()
+            reps, lanes = [], []
+            for t in range(SVC_CPU_TICKS):
+                reps.append(s.tick(t))
+                lanes.append(s.last_lanes.copy())
+            runs.append((reps, lanes, rows, sink_commands(s)))
+            s.close()
+        (ra, la, qa, ca), (rb, lb, qb, cb) = runs
+        ints_equal = all(
+            {k: v for k, v in _report_counters(x).items()
+             if k not in ("cost_usd_hr", "carbon_g_hr", "pending_pods",
+                          "program_dispatches_total")}
+            == {k: v for k, v in _report_counters(y).items()
+                if k not in ("cost_usd_hr", "carbon_g_hr", "pending_pods",
+                             "program_dispatches_total")}
+            for x, y in zip(ra, rb))
+        lanes_equal = all(np.array_equal(x, y) for x, y in zip(la, lb))
+        lim_p = 5e-3 if flag else 1e-5
+        lim_q = np.full(layout.width, 1e-3 if flag else 1e-5)
+        lim_q[[layout.col("div_max_abs"), layout.col("div_l2")]] = lim_p
+        floor_q = np.full(layout.width, 1e-6)
+        floor_q[pend] = float(cfg.workload.total_pods)
+        worst = 0.0
+        for (pa, qa_), (pb, qb_) in zip(qa, qb):
+            worst = max(worst, float(np.max(
+                np.abs(pa.astype(np.float64) - pb)
+                / np.maximum(np.abs(pb), 1e-6) / lim_p)))
+            worst = max(worst, float(np.max(
+                np.abs(qa_.astype(np.float64) - qb_)
+                / np.maximum(np.abs(qb_), floor_q) / lim_q)))
+        same = ca == cb
+        n_lanes = sorted({int(x) for l_ in la for x in l_})
+        rec["cpu"][name] = {"counters_equal": ints_equal,
+                            "lanes_equal": lanes_equal,
+                            "share_of_standard": worst,
+                            "commands_identical": same, "lanes": n_lanes}
+        log(f"# 15b {name} card vs CPU N={SVC_CPU_N} x {SVC_CPU_TICKS} "
+            f"ticks, mix {mix}: counters equal {ints_equal}, lanes equal "
+            f"{lanes_equal} (lanes seen {n_lanes}); the largest row "
+            f"difference {worst:.3g} of its standard "
+            f"({'1e-3, actions 5e-3' if flag else '1e-5'}); command streams "
+            f"identical {same}")
+        if not (ints_equal and lanes_equal and worst <= 1.0
+                and (flag or same)):
+            fail(f"15b: {name}: the card's service and the CPU's disagree")
+    rec["sections"]["b"] = time.perf_counter() - laps[-1]
+    log(f"# 15b {lap()}")
+
+    # ---- (c) the overload board at bench_overload's grid
+    board = overload_scoreboard(cfg, device=dev)
+    with open(f"{out_dir}/overload.json", "w") as fh:
+        json.dump(board, fh, indent=1)
+    rec["overload"] = {"invariants": board["invariants"], "cells": {}}
+    for key, cell in board["cells"].items():
+        for p, row in cell["rows"].items():
+            rec["overload"]["cells"][f"{key}/{p}"] = [
+                row["latency_ms"]["p50"], row["latency_ms"]["p99"],
+                row["deadline_violations"], row["sheds_total"],
+                row["deferrals_total"], row["bulkhead_skips_total"],
+                row["breaker_transitions"]["opened"]]
+            if row["healthy_usd_ratio_max"] != 1.0 or \
+                    row["healthy_usd_ratio_mean"] != 1.0:
+                fail(f"15c: {key}/{p}: healthy tenants' ratio "
+                     f"{row['healthy_usd_ratio_max']} is not 1.0")
+    log(f"# 15c overload board ({card}; deadline "
+        f"{SERVICE_PRESETS['default'].tick_deadline_ms} ms): "
+        f"{json.dumps(board['invariants'])}; per cell [p50 ms, p99 ms, "
+        f"deadline violations, sheds, deferrals, bulkhead skips, breakers "
+        f"opened]: {json.dumps(rec['overload']['cells'])}")
+    rec["sections"]["c"] = time.perf_counter() - laps[-1]
+    log(f"# 15c {lap()}")
+
+    # ---- (d) the fleet-scale record at its defaults
+    fsr = fleet_scale_record(PRESETS["default"](), device=dev)
+    with open(f"{out_dir}/fleet_scale.json", "w") as fh:
+        json.dump(fsr, fh, indent=1)
+    inv = fsr["invariants"]
+    rec["fleet_scale"] = {
+        "invariants": inv, "speedup": fsr["speedup"],
+        "cells": {k: [c["latency_ms"]["p50"], c["latency_ms"]["p99"],
+                      c["host_loop_us_per_tenant"], c["sheds_total"],
+                      c["deadline_violations"]]
+                  for k, c in fsr["cells"].items()}}
+    log(f"# 15d fleet-scale record ({card}): {json.dumps(inv)}; speedup "
+        f"{json.dumps(fsr['speedup'])}; per cell [p50 ms, p99 ms, host "
+        f"us/tenant, sheds, deadline violations]: "
+        f"{json.dumps(rec['fleet_scale']['cells'])}")
+    if not (inv["parity_bitwise"] and inv["chunk_parity_bitwise"]
+            and inv["healthy_ratio_exact_all"]):
+        fail(f"15d: a fleet-scale gate failed: {inv}")
+    rec["sections"]["d"] = time.perf_counter() - laps[-1]
+    log(f"# 15d {lap()}")
+
+    # ---- (e) obs on against off, and the command line
+    ck = cfg.with_overrides(**{"obs.tournament_roster": FLEET_ROSTER})
+    obs_on = dataclasses.replace(
+        ck.obs, enabled=True, dump_dir=f"{out_dir}/dumps",
+        incident_log_path=f"{out_dir}/incidents.jsonl",
+        decision_log_path=f"{out_dir}/decisions.jsonl",
+        tournament_log_path=f"{out_dir}/tournament.jsonl")
+    for p in (obs_on.incident_log_path, obs_on.decision_log_path,
+              obs_on.tournament_log_path):
+        if os.path.exists(p):
+            os.remove(p)
+    syn_k = SyntheticSignalSource(ck.cluster, ck.workload, ck.sim,
+                                  ck.signals)
+    profiles = [("healthy", "slow", "flaky", "healthy")[i % 4]
+                for i in range(SVC_OBS_N)]
+    runs = []
+    for obs in (None, obs_on):
+        s = service(ck, backends["ppo"], SVC_OBS_N, syn_k, obs=obs,
+                    profiles=profiles, clock=zero_clock(),
+                    service=SERVICE_PRESETS["default"])
+        rows = service_rows(s)
+        s.warmup()
+        s.run(SVC_OBS_TICKS)
+        runs.append((rows, [x.cpu() for x in s.states],
+                     sink_commands(s), s))
+        s.close()
+    (qa, sa, ca, _off), (qb, sb, cb, on) = runs
+    bit = (all(np.array_equal(x, y) for ra_, rb_ in zip(qa, qb)
+               for x, y in zip(ra_, rb_))
+           and same_states(sa, sb) and ca == cb)
+    if not bit:
+        fail("15e: the service with its obs layer on differs from off")
+    dumps = [verify_dump(i.dump_path)["t"] == i.t
+             for i in on.incidents.incidents]
+    if not dumps or not all(dumps):
+        fail(f"15e: incident dumps do not verify ({len(dumps)} incidents)")
+    rec["obs"] = {"incidents": on.incidents.counts(),
+                  "decision_rows": on.decisions.rows_total,
+                  "tournament_ticks": on.tournament.ticks_total}
+    log(f"# 15e ppo N={SVC_OBS_N} x {SVC_OBS_TICKS}, mix healthy/slow/flaky, "
+        f"roster {FLEET_ROSTER}: obs on bitwise off (rows, states, command "
+        f"streams); incidents {on.incidents.counts()}, every dump verifies; "
+        f"{on.decisions.rows_total} decision rows")
+    for argv in (["--preset", "multiregion", "fleet", "--service", "default",
+                  "--clusters", "16", "--ticks", "8", "--backend", "ppo",
+                  "--profiles", "healthy,slow,flaky", "--obs", "default",
+                  "--incidents-out", f"{out_dir}/cli_incidents.jsonl",
+                  "--decisions-out", f"{out_dir}/cli_decisions.jsonl"],
+                 ["--preset", "multiregion", "overload-eval", "--tenants",
+                  "16", "--intensities", "off,severe", "--slow-fracs",
+                  "0,0.5", "--policies", "rule,flagship", "--ticks", "8"]):
+        _rc, text, _err = run_cli(argv)
+        out = json.loads(text[text.index("{"):])
+        log(f"# 15e cli {' '.join(argv[2:4])}: exit 0, "
+            f"{json.dumps(out.get('invariants', out))}")
+    rec["sections"]["e"] = time.perf_counter() - laps[-1]
+    log(f"# 15e {lap()}")
+
+    caps, keys = {}, {}
+    for name, fn in (("service.tick", sv._compiled_service_tick),
+                     ("service.tick_chunk", sv._compiled_service_tick_chunk)):
+        st = stats_for(name)
+        caps[name] = (st.compiles - caps0[name], st.recompiles)
+        keys[name] = fn.cache_info().currsize
+    keys["service.tick"] -= cpu_keys
+    rec["compile"] = {"captures": caps, "keys": keys}
+    log(f"# 15 compile_report: service.tick "
+        f"{stats_for('service.tick').to_dict()}; service.tick_chunk "
+        f"{stats_for('service.tick_chunk').to_dict()}; captures (this "
+        f"phase, recaptures) {caps}, keys built on the card {keys}")
+    for name in caps:
+        if caps[name] != (keys[name], 0):
+            fail(f"15: {name}: {caps[name][0]} captures and {caps[name][1]} "
+                 f"recaptures for {keys[name]} keys")
+    sv._compiled_service_tick.cache_clear()
+    sv._compiled_service_tick_chunk.cache_clear()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 15: {rec['seconds']:.1f} s (a {rec['sections']['a']:.1f}, b "
+        f"{rec['sections']['b']:.1f}, c {rec['sections']['c']:.1f}, d "
+        f"{rec['sections']['d']:.1f}, e {rec['sections']['e']:.1f})")
+    return rec
+
 
 
 def main() -> None:
@@ -4036,7 +4491,11 @@ def main() -> None:
         f"{ledger_rec['seconds']:.1f})")
 
     clock("15")
-    # ---- 15. the kernels, the card, the result
+    # ---- 15. the multi-tenant service on the card: see service_phase.
+    service_rec = service_phase(dev, smi)
+
+    clock("16")
+    # ---- 16. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],

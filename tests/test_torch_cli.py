@@ -216,7 +216,6 @@ def test_simulate_profile_dir_writes_a_trace(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     *[([name], item) for name, item in sorted(cli.NOT_PORTED.items())],
-    (["fleet", "--service", "default"], "A11b(ii)"),
     (["--preset", "multiregion", "simulate", "--mesh"], "item 14"),
     (["scenarios", "--minted-dir", "x"], "item 13")],
     ids=lambda a: " ".join(a) if isinstance(a, list) else a)
@@ -235,6 +234,8 @@ DEVICE_ARGV = {
     "distill-factory": ["distill-factory"],
     "capture": ["capture", "--out", "x.npz"],
     "run": ["run", "--ticks", "1"], "recover-eval": ["recover-eval"],
+    "overload-eval": ["overload-eval", "--tenants", "2"],
+    "fleet --service": ["fleet", "--service", "default"],
 }
 
 
@@ -269,7 +270,7 @@ def test_python_dash_m_names_the_missing_device(tmp_path):
     assert ok.returncode == 0 and json.loads(ok.stdout)["clusters"] == 4
 
 
-# ---- the bare fleet (the service layer is the next slice)
+# ---- the fleet, bare and behind the service layer
 
 
 def test_fleet_reports_jax_s_keys():
@@ -284,6 +285,36 @@ def test_fleet_reports_jax_s_keys():
     want, got = _both(["--preset", "multiregion", "fleet", "--clusters",
                        "4", "--ticks", "2", "--backend", "ppo"])
     assert set(got) == set(want) and got["applied_frac"] == 1.0
+
+
+def test_fleet_service_refusals_are_jax_s():
+    for argv, msg in (
+            (["--service", "nope"], "unknown service preset"),
+            (["--service", "default", "--profiles", "bogus"],
+             "unknown tenant profiles"),
+            (["--service", "default", "--obs", "nope"], "unknown obs preset"),
+            (["--service", "off", "--obs", "default"], "ENABLED --service")):
+        errs = []
+        for main, extra in ((jmain, []), (tmain, CPU)):
+            with pytest.raises(SystemExit, match=msg) as e:
+                main(["fleet", "--clusters", "2", "--ticks", "1", *argv,
+                      *extra])
+            errs.append(str(e.value))
+        assert errs[0] == errs[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["fleet", "--service", "default", "--clusters", "2", "--ticks", "1"],
+    ["overload-eval", "--tenants", "2", "--intensities", "off",
+     "--slow-fracs", "0", "--policies", "rule", "--ticks", "4"]],
+    ids=["fleet --service default", "overload-eval"])
+def test_formerly_unported_commands_now_run(argv):
+    """The two commands that exited 2 before the service layer was
+    ported now run (their JAX comparisons: test_torch_service.py and
+    test_torch_overload.py)."""
+    rc, out, err = _run(tmain, argv + CPU)
+    assert rc == 0, err[-2000:]
+    assert "not ported" not in err and _json_out(out)
 
 
 @pytest.mark.parametrize("flag", [["--obs", "default"],

@@ -482,9 +482,11 @@ def test_cli_run_resume_and_recover_eval(tmp_path, capsys):
     out = capsys.readouterr().out
     board = json.loads(out[out.index('{\n  "engine"'):])
     assert board["invariants"]["resume_bitwise_frac"] == 1.0
-    # The bare fleet is ported; the service layer is the next slice.
-    assert cli.main(["fleet", "--service", "default"]) == 2
-    assert "ROADMAP A11b(ii)" in capsys.readouterr().err
+    # The fleet's service layer runs through the command line too.
+    assert cli.main(["fleet", "--service", "default", "--device", "cpu",
+                     "--clusters", "2", "--ticks", "1"]) == 0
+    out = capsys.readouterr().out
+    assert json.loads(out[out.index("{"):])["service"] == "default"
     with pytest.raises(SystemExit, match="needs --snapshot"):
         cli.main(["run", "--device", "cpu", "--resume"])
 
@@ -552,6 +554,49 @@ def test_exposition_series_and_profiler_capture(tmp_path):
     with profile_trace(str(tmp_path / "prof")):
         torch.ones(4).sum()
     assert os.listdir(tmp_path / "prof")
+
+
+def test_service_series_resolve_from_the_service_report():
+    """Every service-only series resolves from the port's
+    ServiceTickReport, and one report's exposition text is JAX's."""
+    from ccka_tpu.harness.promexport import SERVICE_ONLY_SERIES as JONLY
+    from ccka_tpu.harness.service import ServiceTickReport as JReport
+    from ccka_tpu_torch.harness.promexport import (SERIES,
+                                                   SERVICE_ONLY_SERIES,
+                                                   render_exposition,
+                                                   resolve_field)
+    from ccka_tpu_torch.harness.service import ServiceTickReport
+
+    fields = dict(
+        t=5, n_tenants=8, admitted=4, deferred=1, shed=2,
+        cadence_skipped=0, bulkhead_skipped=1, scrape_failed=1, probes=1,
+        applied=6, fanout_deferred=0, slo_ok=7, cost_usd_hr=1.5,
+        carbon_g_hr=300.0, pending_pods=2.0, tick_latency_ms=112.5,
+        admission_queue_depth=8, sheds_total=24, deferrals_total=9,
+        breaker_transitions_total=3, cadence_divisor=2, decide_ms=2.1,
+        fanout_ms=4.2, breaker_states={"0": 0, "1": 2, "2": 1},
+        slo_burn_rate=0.25, slo_burn_rate_slow=0.125, incident_active=1,
+        incidents_total=3, recorder_dumps_total=2,
+        program_dispatches_total=123, achieved_roofline_fraction=0.75,
+        pipeline_occupancy={"generation": 0.3, "kernel": 0.6, "host": 0.1},
+        shard_imbalance=1.25, policy_divergence_rate=0.375,
+        objective_term_shares={"cost": 0.7, "carbon": 0.2,
+                               "slo_pending": 0.06, "slo_violation": 0.04},
+        shadow_slo_delta=-1.0, shadow_usd_delta=0.0125,
+        candidate_win_rate={"carbon": 0.7, "rule": 0.4},
+        tournament_leader=1, region_migration_rate={"mean": 0.12},
+        region_carbon_intensity={"r0": 380.0, "r1": 420.0},
+        host_loop_us_per_tenant=0.875, active_tenants=4)
+    rec = dataclasses.asdict(ServiceTickReport(**fields))
+    assert SERVICE_ONLY_SERIES == JONLY
+    names = {f.name for f in dataclasses.fields(ServiceTickReport)}
+    for name in SERVICE_ONLY_SERIES:
+        spec = SERIES[name][0]
+        assert spec.split(".", 1)[0] in names, name
+        assert resolve_field(rec, spec) is not None, name
+    assert resolve_field(rec, SERIES["ccka_tenant_breaker_state"][0]) == 3
+    assert render_exposition(ServiceTickReport(**fields), cluster="f") == \
+        jrender(dataclasses.asdict(JReport(**fields)), cluster="f")
 
 
 class _Feed:

@@ -12,8 +12,13 @@
   ledger-on and ledger-off fleets are bitwise, and a spike stamps one
   `policy_divergence` incident.
 
-The non-service cases of `tests/test_decisions.py`; the service's wait
-for its slice.
+The service cases of `tests/test_decisions.py` too: through
+`FleetService` the shadow rows are bitwise a standalone rule decide on
+the same pre-step states and exo, a rule service is its own shadow on
+every fresh lane, a carbon service diverges and stamps one edge-triggered
+`policy_divergence` incident with a verifying dump, ledger-on and
+ledger-off services are bitwise, and on JAX's traces the service's
+ledger counts, lanes and incidents are JAX's.
 """
 
 from __future__ import annotations
@@ -270,3 +275,199 @@ def test_explain_renderer_names_action_deltas():
         row, action_names=["zone_weight[0][0]", "zone_weight[0][1]"])
     assert "action labels omitted" in dec.explain_row(
         row, action_names=["a", "b", "c"])
+
+
+# ---- the service cases ------------------------------------------------------
+
+
+def det_clock():
+    from ccka_tpu_torch.harness.service import VirtualClock
+
+    state = {"s": 0.0}
+
+    def base():
+        state["s"] += 1e-4
+        return state["s"]
+    return VirtualClock(base=base)
+
+
+def _obs(tmp_path=None, **kw):
+    base = dict(enabled=True)
+    if tmp_path is not None:
+        base.update(dump_dir=str(tmp_path / "dumps"),
+                    incident_log_path=str(tmp_path / "incidents.jsonl"),
+                    decision_log_path=str(tmp_path / "decisions.jsonl"))
+    base.update(kw)
+    return tcfg.ObsConfig(**base)
+
+
+def _service(ct, backend, n, obs, *, ticks=8, seed=11, profiles=None,
+             capture_states=False):
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+
+    svc = fleet_service_from_config(
+        ct, backend, n, profiles=profiles or ["healthy"] * n,
+        service=tcfg.SERVICE_PRESETS["default"], obs=obs, horizon_ticks=16,
+        seed=seed, clock=det_clock(), device="cpu")
+    states_pre = []
+    for t in range(ticks):
+        if capture_states:
+            states_pre.append(type(svc.states)(*(x.clone()
+                                                 for x in svc.states)))
+        svc.tick(t)
+    return svc, states_pre
+
+
+@pytest.fixture(scope="module")
+def t_carbon(cfgs):
+    return CarbonAwarePolicy(cfgs[1].cluster, device="cpu")
+
+
+def test_service_shadow_rows_bitwise_standalone_rule(cfgs, t_carbon):
+    _, ct = cfgs
+    svc, states_pre = _service(ct, t_carbon, 3, _obs(), ticks=4,
+                               capture_states=True)
+    rule_fn = RulePolicy(ct.cluster, device="cpu").action_fn()
+    rows = list(svc.decisions.rows)
+    assert len(rows) == 4 * 3
+    for t in range(4):
+        exo_n = fl.exo_at(svc.ctrl._xs_all, torch.tensor(t), 16)
+        expect = fl.flatten_actions(fl.batched_action(
+            rule_fn(states_pre[t], exo_n, torch.tensor(t)), 3), 3).numpy()
+        for i in range(3):
+            row = next(r for r in rows if r["t"] == t and r["tenant"] == i)
+            np.testing.assert_array_equal(
+                np.asarray(row["shadow"]["action"], np.float32), expect[i])
+            assert row["exo"]["is_peak"] == bool(float(exo_n.is_peak[i])
+                                                 > 0.5)
+            assert row["exo"]["demand_pods"] == pytest.approx(
+                float(exo_n.demand_pods[i].sum()), rel=1e-6)
+    svc.close()
+
+
+def test_service_rule_rows_are_their_own_shadow(cfgs):
+    _, ct = cfgs
+    svc, _ = _service(ct, RulePolicy(ct.cluster, device="cpu"), 3, _obs(),
+                      ticks=6)
+    rows = list(svc.decisions.rows)
+    assert rows and all(r["lane"] == "fresh" for r in rows)
+    for r in rows:
+        assert r["shadow"]["div_max_abs"] == 0.0 == r["shadow"]["div_l2"]
+        assert r["shadow"]["diverged"] is False
+        assert r["shadow"]["action"] == r["action"]
+        assert r["shadow"]["objective"]["terms"] == r["objective"]["terms"]
+        assert r["shadow"]["usd_delta"] == 0.0 == r["shadow"]["slo_delta"]
+    assert svc.decisions.diverged_total == 0 == svc.decisions.spikes_total
+    assert svc.incidents.counts().get("policy_divergence", 0) == 0
+    svc.close()
+
+
+def test_service_carbon_diverges_and_shares_sum_to_one(cfgs, t_carbon):
+    _, ct = cfgs
+    svc, _ = _service(ct, t_carbon, 3, _obs(), ticks=6)
+    assert svc.decisions.diverged_total > 0
+    for r in svc.decisions.rows:
+        for side in (r["objective"], r["shadow"]["objective"]):
+            assert sum(side["shares"].values()) == pytest.approx(1.0,
+                                                                 abs=1e-9)
+            assert set(side["shares"]) == set(dec.TERM_NAMES)
+            assert side["total"] > 0.0
+    svc.close()
+
+
+def _on_off_run(ct, backend, decisions_enabled, tmp_path=None):
+    obs = (_obs(tmp_path, decisions_enabled=decisions_enabled)
+           if tmp_path is not None
+           else tcfg.ObsConfig(enabled=True,
+                               decisions_enabled=decisions_enabled))
+    svc, _ = _service(ct, backend, 5, obs, ticks=10,
+                      profiles=["healthy"] * 3 + ["slow", "flaky"])
+    out = {
+        "usd": svc.tenant_usd_per_slo_hr().copy(),
+        "fresh": svc.tenant_fresh_ticks.copy(),
+        "states": [x.clone() for x in svc.states],
+        "commands": [[c.render() for c in getattr(s, "inner", s).commands]
+                     for s in svc.sinks],
+        "rows": svc.decisions.rows_total if svc.decisions else 0,
+        "diverged": svc.decisions.diverged_total if svc.decisions else 0,
+    }
+    svc.close()
+    return out
+
+
+def test_service_ledger_on_off_bitwise(cfgs, t_carbon, tmp_path):
+    _, ct = cfgs
+    off = _on_off_run(ct, t_carbon, False)
+    on = _on_off_run(ct, t_carbon, True, tmp_path)
+    np.testing.assert_array_equal(off["usd"], on["usd"])
+    np.testing.assert_array_equal(off["fresh"], on["fresh"])
+    assert all(torch.equal(a, b) for a, b in zip(off["states"],
+                                                 on["states"]))
+    assert off["commands"] == on["commands"]
+    assert off["rows"] == 0 and on["rows"] > 0 and on["diverged"] > 0
+
+
+def test_service_decisions_off_builds_no_ledger(cfgs):
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+
+    _, ct = cfgs
+    svc = fleet_service_from_config(
+        ct, RulePolicy(ct.cluster, device="cpu"), 2,
+        service=tcfg.SERVICE_PRESETS["default"],
+        obs=tcfg.ObsConfig(enabled=True, decisions_enabled=False),
+        horizon_ticks=16, seed=1, device="cpu")
+    assert svc.decisions is None
+    rep = svc.tick(0)
+    assert rep.policy_divergence_rate is None
+    assert rep.objective_term_shares == {} and rep.shadow_slo_delta is None
+    svc.close()
+
+
+def test_service_divergence_incident(cfgs, t_carbon, tmp_path):
+    from ccka_tpu_torch.obs.recorder import verify_dump
+
+    _, ct = cfgs
+    svc, _ = _service(ct, t_carbon, 4, _obs(tmp_path), ticks=8,
+                      profiles=["healthy"] * 3 + ["slow"])
+    counts = svc.incidents.counts()
+    assert svc.decisions.spikes_total == counts["policy_divergence"] == 1
+    for i in svc.incidents.incidents:
+        if i.trigger == "policy_divergence":
+            assert verify_dump(i.dump_path)["t"] == i.t
+            assert i.details["rate"] >= i.details["threshold"]
+    rep = svc.tick(8)
+    assert 0.0 < rep.policy_divergence_rate <= 1.0
+    assert sum(rep.objective_term_shares.values()) == pytest.approx(
+        1.0, abs=1e-5)
+    assert rep.shadow_slo_delta is not None
+    assert rep.shadow_usd_delta is not None
+    rows = dec.read_decisions(svc.obs.decision_log_path)
+    assert len(rows) == svc.decisions.rows_total
+    assert rows[0]["t"] == 0 and "shadow" in rows[0]
+    svc.close()
+
+
+@pytest.mark.parametrize("name", ["rule", "carbon"])
+def test_service_ledger_matches_jax(name):
+    """On JAX's traces the service's ledger records the same lanes, the
+    same divergence verdicts and spikes, and stamps the same incidents;
+    its rows' numbers within 1e-5 of JAX's."""
+    from test_torch_service import MIX, run_pair, service_pair
+
+    js, ts = service_pair(name, "default", 6, MIX,
+                          obs_j=jcfg.ObsConfig(enabled=True),
+                          obs_t=tcfg.ObsConfig(enabled=True))
+    run_pair(js, ts, 8)
+    jrows, trows = list(js.decisions.rows), list(ts.decisions.rows)
+    assert len(jrows) == len(trows) == 48
+    for a, b in zip(jrows, trows):
+        assert (a["t"], a["tenant"], a["lane"], a["shadow"]["diverged"]) \
+            == (b["t"], b["tenant"], b["lane"], b["shadow"]["diverged"])
+        np.testing.assert_allclose(b["action"], a["action"], rtol=1e-5,
+                                   atol=1e-6)
+    assert (ts.decisions.diverged_total, ts.decisions.spikes_total) == \
+        (js.decisions.diverged_total, js.decisions.spikes_total)
+    assert [(i.trigger, i.t, i.tenant) for i in ts.incidents.incidents] \
+        == [(i.trigger, i.t, i.tenant) for i in js.incidents.incidents]
+    js.close()
+    ts.close()

@@ -259,7 +259,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "harness.watch", "harness.dashboard", "harness.pipeline",
              "harness.fleet", "obs.recorder", "obs.incidents",
              "obs.decisions", "obs.tournament", "graphs", "cli",
-             "__main__"):
+             "__main__", "obs.burnrate", "obs.costmodel", "harness.service",
+             "harness.overload", "harness.fleetscale"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -386,6 +387,13 @@ with contextlib.redirect_stdout(io.StringIO()), \
     assert cli_main(["fleet", "--clusters", "2", "--ticks", "2",
                      "--device", "cpu"]) == 0
     assert cli_main(["tournament", "list"]) == 0
+    # The multi-tenant service layer and its overload board.
+    assert cli_main(["fleet", "--service", "default", "--clusters", "4",
+                     "--ticks", "2", "--profiles", "healthy,slow",
+                     "--device", "cpu"]) == 0
+    assert cli_main(["overload-eval", "--tenants", "2", "--intensities",
+                     "off", "--slow-fracs", "0", "--policies", "rule",
+                     "--ticks", "4", "--device", "cpu"]) == 0
 ReplaySignalSource.from_file("data/replay_2day.npz").packed_trace_device(
     8, 0, 2, device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)

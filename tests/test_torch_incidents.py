@@ -13,7 +13,15 @@ against the JAX package's.
   ``decision_ledger=`` the records agree within 1e-5 (rule, carbon:
   float32 estimate steps in two frameworks; pending pods at the
   demand's scale), and ledger-on and ledger-off runs are bitwise;
-- `incidents list|show|timeline` print what JAX's command line prints.
+- `incidents list|show|timeline` print what JAX's command line prints;
+- the burn-rate engine's windows, rates and the two-window AND are
+  JAX's on the same series;
+- the service cases of `tests/test_incidents.py`: a seeded chaos and
+  slow-tenant service run stamps one incident per breaker open,
+  give-up and overshoot, each with a verifying dump and a place on the
+  timeline, the same trigger sequence as JAX's service on the same
+  traces; shed spikes and a hold→fallback escalation stamp once each;
+  recorder-on and recorder-off services are bitwise.
 """
 
 from __future__ import annotations
@@ -327,3 +335,199 @@ def test_incidents_cli_matches_jax(tmp_path, capsys):
             main(["incidents", "show", path])
         with pytest.raises(SystemExit, match="no incident with id"):
             main(["incidents", "show", path, "--id", "42"])
+
+
+# ---- the burn-rate engine ---------------------------------------------------
+
+
+def test_burn_windows_and_two_window_and():
+    from ccka_tpu_torch.obs.burnrate import BurnRate
+
+    br = BurnRate(fast_ticks=2, slow_ticks=8, threshold=0.5)
+    assert br.fast_rate == 0.0 and not br.burning
+    for _ in range(2):
+        br.update(1.0, 1.0)
+    assert br.fast_rate == 1.0 and br.slow_rate == 1.0 and br.burning
+    for _ in range(6):
+        br.update(0.0, 1.0)
+    assert br.fast_rate == 0.0
+    assert br.slow_rate == pytest.approx(2.0 / 8.0)
+    assert not br.burning
+    blip = BurnRate(fast_ticks=1, slow_ticks=8, threshold=0.5)
+    for _ in range(8):
+        blip.update(0.0, 1.0)
+    blip.update(1.0, 1.0)
+    assert blip.fast_rate == 1.0 and not blip.burning
+    with pytest.raises(ValueError, match="fast window"):
+        BurnRate(fast_ticks=8, slow_ticks=2)
+
+
+def test_burn_engine_series_equal_jax():
+    import numpy as np
+
+    from ccka_tpu.obs.burnrate import BurnRateEngine as JEngine
+    from ccka_tpu_torch.obs.burnrate import BurnRateEngine
+
+    rng = np.random.default_rng(3)
+    a, b = BurnRateEngine(3, 9, 0.4), JEngine(3, 9, 0.4)
+    for _ in range(40):
+        for name in ("slo", "deadline", "shed"):
+            total = float(rng.integers(1, 12))
+            bad = float(rng.integers(0, int(total) + 1))
+            a.update(name, bad, total)
+            b.update(name, bad, total)
+        assert a.rates() == b.rates()
+        assert a.any_burning == b.any_burning
+        for name in ("slo", "deadline", "shed"):
+            for w in ("fast", "slow"):
+                assert a.rate(name, w) == b.rate(name, w)
+
+
+# ---- the service cases ------------------------------------------------------
+
+
+def _svc_obs(tmp_path):
+    return tcfg.ObsConfig(enabled=True, dump_dir=str(tmp_path / "dumps"),
+                          incident_log_path=str(tmp_path / "i.jsonl"))
+
+
+def _service(ct, profiles, obs, *, service=None, seed=3, ticks=12):
+    from test_torch_decisions import det_clock
+
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+
+    svc = fleet_service_from_config(
+        ct, RulePolicy(ct.cluster, device="cpu"), len(profiles),
+        profiles=profiles,
+        service=service or tcfg.SERVICE_PRESETS["default"], obs=obs,
+        horizon_ticks=16, seed=seed, clock=det_clock(), device="cpu")
+    return svc, svc.run(ticks) if ticks else []
+
+
+def test_service_triggers_under_chaos(tmp_path):
+    ct = tcfg.default_config().with_overrides(**{"sim.horizon_steps": 16})
+    obs = _svc_obs(tmp_path)
+    svc, reports = _service(ct, ["healthy"] * 3 + ["slow", "flaky",
+                                                    "flaky"], obs)
+    counts = svc.incidents.counts()
+    opens = sum(b.transitions["opened"] for b in svc.breakers)
+    assert opens > 0 and counts.get("breaker_open", 0) == opens
+    assert svc.actuation_giveups_total > 0
+    assert counts.get("reconcile_giveup", 0) == svc.actuation_giveups_total
+    for i in svc.incidents.incidents:
+        body = rec.verify_dump(i.dump_path)
+        assert body["t"] == i.t
+        if i.tenant is not None:
+            ring = body["rings"][str(i.tenant)]
+            assert ring and ring[-1]["t"] == i.t
+    recs = inc.read_incidents(obs.incident_log_path)
+    tl = inc.build_timeline(recs, spans=[sp.to_record()
+                                         for sp in svc.tracer.spans()])
+    incidents = [r for r in tl if r["source"] == "incident"]
+    assert len(incidents) == svc.incidents.total
+    span_ticks = {r["t"] for r in tl if r["source"] == "span"}
+    assert all(r["t"] in span_ticks and r["trigger"] in inc.TRIGGERS
+               for r in incidents)
+    last = reports[-1]
+    assert last.incidents_total == svc.incidents.total
+    assert last.recorder_dumps_total == svc.recorder.dumps_total
+    assert 0.0 <= last.slo_burn_rate <= 1.0
+    lastinc = svc.incidents.last_tick()
+    assert last.incident_active == int(
+        svc.burn.any_burning or (lastinc is not None and last.t - lastinc
+                                 < svc.obs.burn_fast_window))
+    # The obs layer's device surfaces: the dispatch count is the
+    # session's, no observatory snapshot was published, no geo rollout
+    # ran — skip values, not fake zeros.
+    assert last.program_dispatches_total >= 12
+    assert last.achieved_roofline_fraction is None
+    assert last.region_migration_rate == {} == last.region_carbon_intensity
+    svc.close()
+
+
+def test_service_trigger_sequence_matches_jax():
+    from test_torch_service import MIX, run_pair, service_pair
+
+    js, ts = service_pair("rule", "default", 6, MIX,
+                          obs_j=jcfg.ObsConfig(enabled=True),
+                          obs_t=tcfg.ObsConfig(enabled=True))
+    (jreps, _), (treps, _) = run_pair(js, ts, 12)
+    seq = [(i.trigger, i.t, i.tenant) for i in ts.incidents.incidents]
+    assert seq and seq == [(i.trigger, i.t, i.tenant)
+                           for i in js.incidents.incidents]
+    assert {i.trigger for i in ts.incidents.incidents} >= {
+        "breaker_open", "hold_fallback"}
+    assert [(r.slo_burn_rate, r.slo_burn_rate_slow, r.incident_active)
+            for r in treps] == [(r.slo_burn_rate, r.slo_burn_rate_slow,
+                                 r.incident_active) for r in jreps]
+    js.close()
+    ts.close()
+
+
+def test_service_deadline_overshoot_one_incident_per_tick(tmp_path):
+    ct = tcfg.default_config().with_overrides(**{"sim.horizon_steps": 16})
+    svc, _ = _service(ct, ["healthy"] * 3, _svc_obs(tmp_path), seed=7,
+                      ticks=0)
+    orig = svc._tick_fn
+
+    def slow_dispatch(*a, **kw):
+        out = orig(*a, **kw)
+        svc.clock.advance(0.3)     # 300 ms > the 250 ms deadline
+        return out
+
+    svc._tick_fn = slow_dispatch
+    reports = svc.run(4)
+    assert sum(r.tick_latency_ms > svc.svc.tick_deadline_ms
+               for r in reports) == 4
+    assert svc.incidents.counts()["deadline_overshoot"] == 4
+    for i in svc.incidents.incidents:
+        if i.trigger == "deadline_overshoot":
+            assert i.details["latency_ms"] > i.details["deadline_ms"]
+    svc.close()
+
+
+def test_service_shed_spike_and_hold_fallback_stamped_once_each(tmp_path):
+    import math
+
+    ct = tcfg.default_config().with_overrides(**{"sim.horizon_steps": 16})
+    post = tcfg.ServiceConfig(enabled=True, tick_deadline_ms=200.0,
+                              admission_queue_cap=3, breaker_failures=1,
+                              hold_fallback_after=2, breaker_probe_ticks=32)
+    svc, reports = _service(
+        ct, ["healthy", "healthy", "slow"] + ["batch"] * 3,
+        _svc_obs(tmp_path), service=post, seed=5, ticks=8)
+    counts = svc.incidents.counts()
+    bar = max(1, math.ceil(svc.obs.shed_spike_frac * 6))
+    spike_ticks = sum(1 for r in reports if r.shed >= bar)
+    assert spike_ticks > 0 and counts["shed_spike"] == spike_ticks
+    fallback = [i for i in svc.incidents.incidents
+                if i.trigger == "hold_fallback"]
+    assert len(fallback) == 1 and fallback[0].tenant == 2
+    svc.close()
+
+
+def test_service_recorder_on_off_bitwise(tmp_path):
+    import numpy as np
+    import torch
+
+    ct = tcfg.default_config().with_overrides(**{"sim.horizon_steps": 16})
+    runs = []
+    for obs in (None, _svc_obs(tmp_path)):
+        svc, _ = _service(ct, ["healthy"] * 4 + ["slow"], obs, seed=11,
+                          ticks=10)
+        runs.append((svc.tenant_usd_per_slo_hr().copy(),
+                     svc.tenant_fresh_ticks.copy(),
+                     [x.clone() for x in svc.states],
+                     [[c.render() for c in s.commands] for s in svc.sinks],
+                     svc.incidents.total if svc.incidents else 0))
+        if obs is None:
+            assert svc.recorder is None and svc.incidents is None \
+                and svc.burn is None
+        svc.close()
+    off, on = runs
+    np.testing.assert_array_equal(off[0], on[0])
+    np.testing.assert_array_equal(off[1], on[1])
+    assert all(torch.equal(a, b) for a, b in zip(off[2], on[2]))
+    assert off[3] == on[3]
+    assert on[4] > 0
+    assert tcfg.OBS_PRESETS["off"].enabled is False

@@ -820,6 +820,66 @@ def test_fleet_graph_is_bitwise_its_eager_body(cuda, backend):
     ctrl.close()
 
 
+@pytest.mark.parametrize("backend", ["rule", "carbon", "ppo"])
+def test_service_graph_is_bitwise_its_eager_body(cuda, backend):
+    """The service tick captured as one CUDA graph, whole-fleet and as
+    one k-tenant chunk graph replayed per chunk, gives bitwise what its
+    eager body gives on mixed fresh/held/fallback lanes; a chunked
+    service run is bitwise the unchunked one; each graph is captured
+    once and the stream is copied into it once."""
+    from ccka_tpu_torch.cli import make_backend
+    from ccka_tpu_torch.config import SERVICE_PRESETS
+    from ccka_tpu_torch.harness.service import (VirtualClock, _rows,
+                                                fleet_service_from_config)
+
+    cfg = PRESETS["multiregion"]()
+    b = make_backend(cfg, backend, device=cuda)
+    mk_svc = dict(service=SERVICE_PRESETS["default"], horizon_ticks=32,
+                  seed=3, device=cuda)
+    whole = fleet_service_from_config(cfg, b, 64, **mk_svc)
+    chunked = fleet_service_from_config(cfg, b, 64, dispatch_chunk=16,
+                                        **mk_svc)
+    g = torch.Generator().manual_seed(1)
+    a = whole._held.shape[1]
+    for t in range(4):
+        lanes = torch.randint(0, 3, (64,), generator=g,
+                              dtype=torch.int32).to(cuda)
+        held = torch.rand((64, a), generator=g).to(cuda)
+        st = whole.states
+        e = whole._tick_fn.eager(st, whole._xs, t, lanes, held)
+        gw = whole._tick_fn(st, whole._xs, t, lanes, held)
+        assert torch.equal(e[0], gw[0]) and torch.equal(e[2], gw[2])
+        assert all(torch.equal(x, y) for x, y in zip(e[1], gw[1]))
+        for lo in range(0, 64, 16):
+            rows = _rows(st, lo, lo + 16)
+            ec = chunked._tick_fn.eager(rows, chunked._xs, t, lo,
+                                        lanes[lo:lo + 16],
+                                        held[lo:lo + 16])
+            gc = chunked._tick_fn(rows, chunked._xs, t, lo,
+                                  lanes[lo:lo + 16], held[lo:lo + 16])
+            assert torch.equal(ec[0], gc[0]) and torch.equal(ec[2], gc[2])
+            assert torch.equal(gc[0], e[0][lo:lo + 16])
+            assert torch.equal(gc[2], e[2][lo:lo + 16])
+    assert whole._tick_fn.captures == chunked._tick_fn.captures == 1
+    assert chunked._tick_fn.stream_copies == 1
+    runs = []
+    for chunk in (None, 16):
+        svc = fleet_service_from_config(
+            cfg, b, 64, profiles=["healthy", "slow", "flaky", "batch"] * 16,
+            clock=VirtualClock(base=lambda: 0.0), dispatch_chunk=chunk,
+            **mk_svc)
+        svc.warmup()
+        reps = svc.run(6)
+        runs.append(([r.admitted for r in reps], svc.tenant_cost_usd.copy(),
+                     [x.cpu() for x in svc.states], svc._held.copy()))
+        svc.close()
+    (ra, ca, sa, ha), (rb, cb, sb, hb) = runs
+    assert ra == rb and np.array_equal(ca, cb) and np.array_equal(ha, hb)
+    assert all(torch.equal(x, y) for x, y in zip(sa, sb))
+    whole.close()
+    chunked.close()
+
+
 def test_replay_samplers_on_the_card(cuda):
     """The replay device samplers on the card: the packed stream is the
     pack of its windows, the blocks concatenate to it."""

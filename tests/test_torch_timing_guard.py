@@ -79,5 +79,7 @@ def test_guard_scans_the_control_loop():
                 ("harness", "pipeline.py"), ("harness", "fleet.py"),
                 ("obs", "decisions.py"), ("obs", "tournament.py"),
                 ("obs", "incidents.py"), ("obs", "recorder.py"),
+                ("harness", "service.py"), ("harness", "overload.py"),
+                ("harness", "fleetscale.py"), ("obs", "burnrate.py"),
                 ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel

@@ -14,8 +14,14 @@
 - in the port: a ("rule",) roster's lanes are bitwise the rule shadow's
   columns, and ledger-on and ledger-off fleets are bitwise.
 
-The non-service cases of `tests/test_tournament.py`; the service's wait
-for its slice.
+The service cases of `tests/test_tournament.py` too: through
+`FleetService` a ("rule",) roster's candidate columns are bitwise its
+shadow columns, tournament-on and -off services are bitwise, an empty
+roster builds no ledger, an obs override naming another roster is
+refused with JAX's message, and the over-provisioned incumbent's seeded
+scenario stamps exactly one edge-triggered `challenger_sustained_win`
+with a verifying dump and a signed audit — the same incident, board and
+audit verdict as JAX's service on the same traces.
 """
 
 from __future__ import annotations
@@ -370,3 +376,172 @@ def test_overprovision_incumbent_loses_to_the_carbon_lane():
         s = led.observe_tick(t, ctrl.last_rows[2], ctrl._dec_layout)
     assert s["candidate_win_rate"]["carbon"] >= 0.6
     assert led.challengers_total == 1
+
+
+# ---- the service cases ------------------------------------------------------
+
+
+def _service(run_cfg, backend, n, obs, *, ticks=8, seed=11, profiles=None,
+             capture_rows=False):
+    from test_torch_decisions import det_clock
+
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+
+    svc = fleet_service_from_config(
+        run_cfg, backend, n, profiles=profiles or ["healthy"] * n,
+        service=tcfg.SERVICE_PRESETS["default"], obs=obs, horizon_ticks=16,
+        seed=seed, clock=det_clock(), device="cpu")
+    rows = []
+    if capture_rows and svc.tournament is not None:
+        orig = svc.tournament.observe_tick
+
+        def spy(t, per_np, layout, **kw):
+            rows.append(np.array(per_np))
+            return orig(t, per_np, layout, **kw)
+        svc.tournament.observe_tick = spy
+    return svc, svc.run(ticks), rows
+
+
+def _tobs(tmp_path=None, **kw):
+    base = dict(enabled=True)
+    if tmp_path is not None:
+        base.update(dump_dir=str(tmp_path / "dumps"),
+                    incident_log_path=str(tmp_path / "incidents.jsonl"),
+                    tournament_log_path=str(tmp_path / "tournament.jsonl"))
+    base.update(kw)
+    return tcfg.ObsConfig(**base)
+
+
+def test_service_k1_candidate_columns_bitwise_shadow_columns(tmp_path):
+    ct = tcfg.default_config().with_overrides(
+        **OVERRIDES, **{"obs.tournament_roster": ("rule",)})
+    svc, _reports, rows = _service(
+        ct, CarbonAwarePolicy(ct.cluster, device="cpu"), 3,
+        _tobs(tmp_path), ticks=4, capture_rows=True)
+    assert len(rows) == 4
+    lay = svc._dec_layout
+    for per in rows:
+        for cand_col, shadow_col in (("cand_cost_usd", "shadow_cost_usd"),
+                                     ("cand_carbon_g", "shadow_carbon_g"),
+                                     ("cand_pend_c0", "shadow_pend_c0"),
+                                     ("cand_pend_c1", "shadow_pend_c1"),
+                                     ("cand_slo_ok", "shadow_slo_ok"),
+                                     ("cand_div_max", "div_max_abs")):
+            np.testing.assert_array_equal(
+                per[:, lay.cand_col("rule", cand_col)],
+                per[:, lay.col(shadow_col)], err_msg=cand_col)
+    svc.close()
+
+
+def test_service_tournament_on_off_bitwise(tmp_path):
+    ct = tcfg.default_config().with_overrides(
+        **OVERRIDES, **{"obs.tournament_roster": ("rule", "carbon")})
+    backend = CarbonAwarePolicy(ct.cluster, device="cpu")
+    runs = {}
+    for on in (False, True):
+        obs = (_tobs(tmp_path, tournament_enabled=True) if on
+               else tcfg.ObsConfig(enabled=True, tournament_enabled=False))
+        svc, _r, _ = _service(ct, backend, 5, obs, ticks=10,
+                              profiles=["healthy"] * 3 + ["slow", "flaky"])
+        runs[on] = (svc.tenant_usd_per_slo_hr().copy(),
+                    svc.tenant_fresh_ticks.copy(),
+                    [x.clone() for x in svc.states],
+                    [[c.render() for c in getattr(k, "inner", k).commands]
+                     for k in svc.sinks], svc.tournament)
+        svc.close()
+    off, on = runs[False], runs[True]
+    np.testing.assert_array_equal(off[0], on[0])
+    np.testing.assert_array_equal(off[1], on[1])
+    assert all(torch.equal(a, b) for a, b in zip(off[2], on[2]))
+    assert off[3] == on[3]
+    assert off[4] is None
+    assert on[4].ticks_total == 10 and on[4].comparisons_total == 10 * 5 * 2
+
+
+def test_service_empty_roster_and_roster_override(cfgs):
+    import ccka_tpu.harness.service as jsvc
+    from ccka_tpu.policy import RulePolicy as JRule
+
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+
+    cj, ct = cfgs
+    svc, reports, _ = _service(ct, RulePolicy(ct.cluster, device="cpu"), 2,
+                               tcfg.ObsConfig(enabled=True), ticks=1)
+    assert svc.tournament is None
+    assert reports[-1].candidate_win_rate == {}
+    assert reports[-1].tournament_leader is None
+    svc.close()
+    k2 = {"obs.tournament_roster": ("rule", "carbon")}
+    with pytest.raises(ValueError) as want:
+        jsvc.fleet_service_from_config(
+            cj.with_overrides(**k2), JRule(cj.cluster), 2,
+            service=jcfg.SERVICE_PRESETS["default"],
+            obs=jcfg.ObsConfig(enabled=True, tournament_roster=("carbon",)),
+            horizon_ticks=16, seed=1)
+    with pytest.raises(ValueError) as got:
+        fleet_service_from_config(
+            ct.with_overrides(**k2), RulePolicy(ct.cluster, device="cpu"), 2,
+            service=tcfg.SERVICE_PRESETS["default"],
+            obs=tcfg.ObsConfig(enabled=True, tournament_roster=("carbon",)),
+            horizon_ticks=16, seed=1, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "program-shaping" in str(got.value)
+
+
+CHALLENGER = {"sim.horizon_steps": 16,
+              "obs.tournament_roster": ("carbon",),
+              "obs.tournament_window": 8,
+              "obs.tournament_sustain_ticks": 4,
+              "obs.tournament_win_rate": 0.6}
+
+
+def test_service_challenger_incident_matches_jax(tmp_path):
+    """The seeded scenario on JAX's traces in both packages: exactly one
+    edge-triggered challenger_sustained_win, dump-attributable, with a
+    signed audit that never auto-switches — the same tick, board leader
+    and audit verdict as JAX's service."""
+    from test_torch_service import run_pair, service_pair
+
+    from ccka_tpu.obs.tournament import OverProvisionPolicy as JOver
+    from ccka_tpu_torch.obs.recorder import verify_dump
+
+    cj = jcfg.default_config().with_overrides(**CHALLENGER)
+    ct = tcfg.default_config().with_overrides(**CHALLENGER)
+    kw = dict(tournament_roster=("carbon",), tournament_window=8,
+              tournament_sustain_ticks=4, tournament_win_rate=0.6)
+    paths = {k: tmp_path / k for k in ("jax", "port")}
+    js, ts = service_pair(
+        "rule", "default", 4, ["healthy", "healthy", "batch", "flaky"],
+        service=dict(enabled=True, tick_deadline_ms=250.0,
+                     scrape_budget_frac=0.4),
+        backends=(JOver(cj.cluster),
+                  tour.OverProvisionPolicy(ct.cluster, device="cpu")),
+        obs_j=jcfg.ObsConfig(enabled=True, **{
+            k: str(paths["jax"] / f) for k, f in (
+                ("dump_dir", "dumps"), ("incident_log_path", "i.jsonl"),
+                ("tournament_log_path", "t.jsonl"))}, **kw),
+        obs_t=_tobs(paths["port"], **kw), configs=(cj, ct))
+    (jreps, _), (treps, _) = run_pair(js, ts, 24)
+    assert ts.incidents.counts().get("challenger_sustained_win", 0) == 1
+    assert ts.tournament.challengers_total == 1
+    assert treps[-1].candidate_win_rate["carbon"] >= 0.6
+    assert treps[-1].tournament_leader == 0
+    inc = [i for i in ts.incidents.incidents
+           if i.trigger == "challenger_sustained_win"][0]
+    assert verify_dump(inc.dump_path)["t"] == inc.t
+    assert inc.details["candidate"] == "carbon"
+    assert inc.details["incumbent"] == "overprovision"
+    audits = [r for r in tour.read_tournament(ts.obs.tournament_log_path)
+              if r.get("kind") == "promotion_audit"]
+    assert len(audits) == 1
+    assert tour.verify_audit(audits[0], ct.obs.tournament_audit_key)
+    assert audits[0]["decision"] == "needs-bench-recheck"
+    assert audits[0]["auto_switch"] is False
+    jinc = [i for i in js.incidents.incidents
+            if i.trigger == "challenger_sustained_win"]
+    assert [(i.t, i.details["candidate"]) for i in jinc] == \
+        [(inc.t, inc.details["candidate"])]
+    assert [r.tournament_leader for r in treps] == \
+        [r.tournament_leader for r in jreps]
+    js.close()
+    ts.close()
