@@ -25,6 +25,7 @@ exit codes. Subcommand <-> script map:
   incidents / decisions / tournament
               read the incident log, the decision ledger and the
               shadow tournament's board and audits
+  geo         the geo-arbitrage Pareto scoreboard (regions/pareto.py)
   simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
   recover-eval, scenarios, distill-factory, capture, report, obs,
   show-config
@@ -50,7 +51,7 @@ from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 # ports them.
 NOT_PORTED = {
     "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
-    "geo": "item 13", "scenario-search": "item 13", "flywheel": "item 13",
+    "scenario-search": "item 13", "flywheel": "item 13",
 }
 _DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
                 "version)")
@@ -552,6 +553,31 @@ def _build_parser() -> argparse.ArgumentParser:
     spl.add_argument("--live", action="store_true")
     spl.add_argument("--json", action="store_true",
                      help="print the manifests instead of applying")
+
+    sgeo = sub.add_parser(
+        "geo", help="geo-arbitrage scoreboard (regions/pareto): run "
+                    "the regional scenario suite (spot storms, "
+                    "capacity denials, carbon seesaws) under the "
+                    "migration-policy library and print the cost/"
+                    "carbon/SLO Pareto front per workload class")
+    sgeo.add_argument("--scenarios", default="",
+                      help="comma-separated scenario names (default: "
+                           "every library scenario); unknown names "
+                           "are rejected up front")
+    sgeo.add_argument("--policies", default="",
+                      help="comma-separated migration-policy names "
+                           "(default: every library policy); the "
+                           "'none' baseline is always included")
+    sgeo.add_argument("--steps", type=int, default=192,
+                      help="rollout horizon in ticks (default 192)")
+    sgeo.add_argument("--batch", type=int, default=8,
+                      help="batched rollouts per scenario (default 8)")
+    sgeo.add_argument("--seed", type=int, default=0,
+                      help="suite seed (default 0)")
+    sgeo.add_argument("--json", action="store_true",
+                      help="print the raw suite record instead of "
+                           "the rendered scoreboard")
+    device(sgeo)
 
     sub.add_parser("show-config", help="print the resolved config")
     return p
@@ -1429,6 +1455,50 @@ def _cmd_overload_eval(cfg: FrameworkConfig, args) -> int:
     return 0
 
 
+def _cmd_geo(cfg: FrameworkConfig, args) -> int:
+    """The Pareto scoreboard: the migration-policy library on the
+    regional scenario suite, rendered as the cost / carbon / SLO front
+    per workload class."""
+    from ccka_tpu_torch.regions.migrate import GEO_POLICIES
+    from ccka_tpu_torch.regions.pareto import GEO_SCENARIOS, run_geo_suite
+
+    scenarios = list(_names(args.scenarios)) or sorted(GEO_SCENARIOS)
+    policies = list(_names(args.policies)) or sorted(GEO_POLICIES)
+    dev = _device(args.device)
+    try:
+        suite = run_geo_suite(
+            scenarios=scenarios, policies=policies,
+            zone_region_index=cfg.cluster.zone_region_index,
+            seed=args.seed, steps=max(args.steps, 8),
+            batch=max(args.batch, 1), dt_s=cfg.sim.dt_s, device=dev)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    if args.json:
+        print(json.dumps(suite, indent=2, sort_keys=True))
+        return 0
+    for scn in suite["scenarios"]:
+        print(f"== {scn['scenario']}: {scn['description']}")
+        for klass in suite["classes"]:
+            fr = scn["pareto"][klass]
+            print(f"  {klass}: front = {', '.join(fr['front'])}"
+                  + (f"; dominates none: "
+                     f"{', '.join(fr['dominates_none'])}"
+                     if fr["dominates_none"] else ""))
+            for pname in suite["policies"]:
+                usd, kg, slo = fr["points"][pname]
+                tag = ("*" if pname in fr["front"] else " ")
+                print(f"   {tag} {pname:<12s} ${usd:9.4f}  "
+                      f"{kg:8.3f} kgCO2e  slo {slo:10.2f}")
+        res = max(scn["conservation_residual"].values())
+        print(f"  conservation residual: {res:.2e} pods")
+    print(f"# geo: {len(suite['scenarios'])} scenario(s), "
+          f"{len(suite['policies'])} policies, dominance_found="
+          f"{suite['dominance_found']}, max residual "
+          f"{suite['max_conservation_residual']:.2e} pods",
+          file=sys.stderr)
+    return 0
+
+
 def _cmd_scenarios(args) -> int:
     """The hand-named scenario library; minted scenarios are item 13."""
     from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
@@ -1853,7 +1923,7 @@ _HANDLERS = {
     "dashboard": _cmd_dashboard, "pipeline": _cmd_pipeline,
     "watch": _cmd_watch, "burst": _cmd_burst, "fleet": _cmd_fleet,
     "incidents": _cmd_incidents, "decisions": _cmd_decisions,
-    "tournament": _cmd_tournament,
+    "tournament": _cmd_tournament, "geo": _cmd_geo,
 }
 
 

@@ -1657,16 +1657,21 @@ class FleetService:
         }
 
     def _geo_surfaces(self) -> dict:
-        """Geo-arbitrage gauges: the JAX service reads whatever rollout
-        snapshot its geo overlay (`regions/geo.py`) last published. The
-        port has no geo rollout yet (ROADMAP item 13), so nothing can
-        have published one: with the obs layer on, both fields hold the
-        no-snapshot skip value ({} -> the exporter skips both series,
-        never-fake-zeros), exactly what the JAX service reports before
-        any geo rollout ran. Same "off" gate as the perf surfaces."""
+        """Geo-arbitrage gauges: whatever rollout snapshot the geo
+        overlay last published (`regions/geo.py::publish_geo_snapshot`,
+        from `regions/pareto.py::run_geo_suite` and `geo`) — dict lookups
+        only, the perf surfaces' budget rule and "off" gate. Before any
+        publish both fields hold the skip value {} (the exporter then
+        skips both series, never fake zeros)."""
         if self.burn is None:  # the obs layer's hard "off" gate
             return {}
-        return {"region_migration_rate": {}, "region_carbon_intensity": {}}
+        from ccka_tpu_torch.regions import geo as geo_dyn
+
+        snap = geo_dyn.geo_snapshot() or {}
+        return {
+            "region_migration_rate": snap.get("migration_rate") or {},
+            "region_carbon_intensity": snap.get("carbon_intensity") or {},
+        }
 
     def _observe_tick(self, t: int, t0: float, lanes, shed: int,
                       scraped_ok, per_np, packed_np, applied: int,

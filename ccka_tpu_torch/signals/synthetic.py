@@ -10,7 +10,9 @@ The PyTorch form of `ccka_tpu/signals/synthetic.py`. Four generators:
 - :meth:`packed_trace_device` synthesizes the kernels' packed
   ``[T_pad, rows, B]`` stream directly, time-major, with the fault and
   workload lane blocks of the source's ``faults=`` and ``workloads=``
-  configs appended. Each lane family draws from its own generator,
+  configs appended, then the blocks of its ``extra_lanes=`` families
+  (the region block of `regions/process.py`). Each lane family draws
+  from its own generator,
   seeded from (seed, the family's tag), so widening a stream leaves its
   exo rows bitwise those of the plain stream on the same seed;
 - :meth:`packed_block_trace_device` synthesizes one time block of such a
@@ -57,7 +59,8 @@ class SyntheticSignalSource(SignalSource):
 
     def __init__(self, cluster: ClusterConfig, workload: WorkloadConfig,
                  sim: SimConfig, signals: SignalsConfig, *,
-                 start_unix_s: float = 0.0, faults=None, workloads=None):
+                 start_unix_s: float = 0.0, faults=None, workloads=None,
+                 extra_lanes: dict | None = None):
         self.cluster = cluster
         self.workload = workload
         self.sim = sim
@@ -69,6 +72,19 @@ class SyntheticSignalSource(SignalSource):
             else None
         self.workloads = (workloads if workloads is not None
                           and workloads.enabled else None)
+        # Further lane families, {name: config} (``{"regions": geo}``),
+        # synthesized through their generators (`sim/lanes.py::
+        # lane_generator`) after the built-in blocks.
+        for name in (extra_lanes or {}):
+            if name in ("faults", "workloads"):
+                raise ValueError(
+                    f"extra_lanes[{name!r}]: pass the built-in families "
+                    "via the faults=/workloads= arguments")
+            if name not in {f.name for f in lanes.LANE_FAMILIES}:
+                raise ValueError(
+                    f"unknown lane family {name!r}; registered: "
+                    f"{sorted(f.name for f in lanes.LANE_FAMILIES)}")
+        self.extra_lanes = dict(extra_lanes or {})
         self._zp = self._zone_params()
         # Longest trace assembled so far per seed, on the CPU. Generation
         # is prefix-stable (numpy's per-seed streams draw step by step),
@@ -139,13 +155,20 @@ class SyntheticSignalSource(SignalSource):
         )
         return self._assemble(steps, noise)
 
+    def _lane_configs(self) -> list:
+        """``(family, config)`` of every lane block of the packed stream,
+        in the stream's order."""
+        configs = {"faults": self.faults, "workloads": self.workloads,
+                   **self.extra_lanes}
+        return [(fam, configs[fam.name]) for fam in lanes.LANE_FAMILIES
+                if configs.get(fam.name) is not None]
+
     def packed_rows(self) -> int:
         """Rows of this source's packed stream: the exo block and each
         present lane block."""
         z = self.cluster.n_zones
-        return (lanes.exo_rows(z)
-                + (lanes.fault_rows(z) if self.faults else 0)
-                + (lanes.workload_rows(z) if self.workloads else 0))
+        return lanes.exo_rows(z) + sum(fam.rows(z)
+                                       for fam, _ in self._lane_configs())
 
     def packed_generate_fn(self, steps: int, batch: int, *,
                            t_pad: int | None = None, device=None):
@@ -199,17 +222,28 @@ class SyntheticSignalSource(SignalSource):
                 steps, t_pad, z, batch, price_dev=noise[0])
             base = hi
         del noise
+        offset = None
+        if t0_ticks is not None:
+            offset = np.full(batch, np.float32(t0_ticks)
+                             * np.float32(self.sim.dt_s), np.float32)
         if self.workloads is not None:
-            offset = None
-            if t0_ticks is not None:
-                offset = np.full(batch, np.float32(t0_ticks)
-                                 * np.float32(self.sim.dt_s), np.float32)
             out[:, base:base + lanes.workload_rows(z)] = \
                 packed_workload_lanes(
                     self.workloads, family_generator(
                         seed, lanes.WORKLOAD_KEY_TAG, dev),
                     steps, t_pad, z, batch, dt_s=self.sim.dt_s,
                     start_unix_s=self.start_unix_s, start_offset_s=offset)
+            base += lanes.workload_rows(z)
+        ctx = dict(dt_s=self.sim.dt_s, start_unix_s=self.start_unix_s,
+                   start_offset_s=offset)
+        for fam, cfg in self._lane_configs():
+            if fam.name in ("faults", "workloads"):
+                continue
+            hi = base + fam.rows(z)
+            lanes.lane_generator(fam.name)(
+                cfg, family_generator(seed, fam.key_tag, dev), steps, t_pad,
+                z, batch, ctx=ctx, out=out[:, base:hi])
+            base = hi
         return out
 
     def packed_trace_device(self, steps: int, seed: int, batch: int, *,
@@ -248,7 +282,9 @@ class SyntheticSignalSource(SignalSource):
         unblocked one on the same seed, with the same marginals (use one
         or the other within an experiment). Each lane family draws from
         the block's seed under its own tag, so widening a blocked stream
-        leaves its exo and fault rows bitwise the same."""
+        leaves its exo and fault rows bitwise the same. The workload and
+        region lanes read the block's clock (``t0_ticks`` as each trace's
+        ``start_offset_s``)."""
         lanes.block_layout(block_T, block_T, t_chunk)  # divisibility
         dev = resolve_device(device)
 

@@ -8,9 +8,12 @@ its layout from the row count alone, through :func:`resolve_layout`.
 
 The three built-in families are a plain table here: (name, rows(Z), key
 tag). Their block sizes are chosen so that every subset of families gives
-a different total for any zone count, which is what lets the row count
-name the layout. The region family (``region_rows``) resolves and rides a
-stream but nothing in the port consumes or synthesizes it yet.
+a different total at every zone count of :data:`_AMBIGUITY_ZS`, which is
+what lets the row count name the layout. The fault and workload blocks
+are synthesized by the signal sources and read by the rollout kernels;
+the region block is synthesized through :func:`lane_generator` (its
+generator lives in `regions/process.py`) and read by the geo overlay
+(`regions/geo.py`), while the kernels stride past it.
 
 Block sizes (each padded to a multiple of 8 rows):
 
@@ -23,6 +26,7 @@ Block sizes (each padded to a multiple of 8 rows):
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import math
 from typing import NamedTuple
@@ -65,6 +69,45 @@ LANE_FAMILIES = (
 )
 FAULT_KEY_TAG = LANE_FAMILIES[0].key_tag
 WORKLOAD_KEY_TAG = LANE_FAMILIES[1].key_tag
+REGION_KEY_TAG = LANE_FAMILIES[2].key_tag
+
+# Zone counts at which every subset of families must total a distinct row
+# count: the presets' (default Z=3, multiregion Z=4) and the spread a
+# scenario suite could configure.
+_AMBIGUITY_ZS = (1, 2, 3, 4, 5, 6, 8)
+
+# Families whose blocks the signal sources synthesize through a generator
+# supplied by another module (the built-in two are synthesized inline):
+# name -> the module that supplies it, imported on first use.
+_PROVIDERS = {"regions": "ccka_tpu_torch.regions.process"}
+_GENERATORS: dict = {}
+
+
+def provide_lane_generator(name: str, generate) -> None:
+    """Attach the synthesis function of family ``name`` (called by the
+    module that owns the family when it is imported). ``generate(config,
+    generator, steps, t_pad, Z, batch, *, ctx, out)`` writes the
+    ``[t_pad, rows(Z), B]`` block into ``out``; ``ctx`` holds the stream's
+    clock (``dt_s``, ``start_unix_s``, ``start_offset_s``). A second,
+    different function for one family is refused."""
+    if name not in _PROVIDERS:
+        raise ValueError(f"lane family {name!r} takes no generator; "
+                         f"have {sorted(_PROVIDERS)}")
+    have = _GENERATORS.get(name)
+    if have is not None and have is not generate:
+        raise ValueError(f"lane family {name!r} already has a generator")
+    _GENERATORS[name] = generate
+
+
+def lane_generator(name: str):
+    """The synthesis function of family ``name``, importing the module
+    that supplies it on first use."""
+    if name not in _PROVIDERS:
+        raise ValueError(f"lane family {name!r} takes no generator; "
+                         f"have {sorted(_PROVIDERS)}")
+    if name not in _GENERATORS:
+        importlib.import_module(_PROVIDERS[name])
+    return _GENERATORS[name]
 
 
 def _subset_sums(Z: int) -> dict[int, tuple[str, ...]]:

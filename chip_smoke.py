@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Nine main paths. The rule-profile fleet rollout: a batch of clusters
+Ten main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -26,7 +26,9 @@ tournament and the incident log riding beside it. The multi-tenant
 service: the fleet behind per-tenant breakers, admission shedding and a
 tick deadline, its lanes selected inside one graph replayed for the
 whole fleet or for every tenant chunk, the overload board and the
-fleet-scale record.
+fleet-scale record. Geo arbitrage: a fleet-day widened by per-region
+lanes under the rollout kernels, the migration policies' expectation
+dynamics over those lanes, and their Pareto fronts.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -184,7 +186,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    warm-up; (b) the same four sessions on the CPU: rule and carbon must
    give byte-identical command streams and every report float within
    1e-5 relative (pending pods at the demand's scale); ppo and mpc print
-   the ticks whose patches differ and the largest field difference; (c)
+   the ticks whose patches differ and the largest field difference
+   (mpc's CPU session runs in a process of its own beside (a), (c) and
+   (d), and is read after them); (c)
    each card run killed at three seeded ticks and resumed from its
    snapshot in a fresh Controller with a fresh backend (mpc's sharing
    (a)'s captured planner graph, a pure function): fingerprints
@@ -286,7 +290,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    `cli.main`; `compile_report()`: one service.tick capture per key,
    one service.tick_chunk capture per (key, chunk), none again
    (`runs/chip_smoke_service/`);
-16. one JSON line listing every kernel and lane instantiation, the
+16. geo arbitrage (the main path of the thirteenth slice; no new kernel:
+   the rollout kernels on a stream widened by the region block), multi-
+   region, the spot-storm GeoConfig: (a) a day of B = 32768 widened to 80
+   rows, its first 16 bitwise the plain stream, the region block's
+   synthesis timed; the rule, carbon, MLP and plan kernels on it, counted
+   and timed, bitwise the plain stream's, every field; the
+   <FAULTS,WL_D=16> instantiations on 104 rows (faults, workloads and
+   regions, B = 8192) bitwise on the 40-row stream; each kernel against
+   its plain version on a widened stream (B = 1024 x T = 360, the MLP
+   also at T = 32); (b) the widened day in 8 blocks through the
+   synchronous and double-buffered drives (rule, carbon, flagship: the
+   CARRY kernels), bitwise the plain stream's drives; (c) the Pareto
+   suite at the command line's shape, its lanes drawn on the card,
+   card against CPU on those lanes (every number but the residuals
+   within 1e-4 relative, fronts equal, residuals within 0.01 pods),
+   then every migration policy on the 16a block (T = 2880 x
+   B = 32768): `none` bitwise a zero override, seconds a rollout,
+   residual within 0.01 pods (with the queues' rounding ledger; the
+   JAX package's formula without it reported), dominance reported;
+   (d) `geo --json` in a process of its own equal to the direct call, a
+   service's geo gauges {} before the publish and the snapshot after it,
+   with both exporter series;
+17. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -323,6 +349,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -2153,6 +2180,73 @@ def drive_loop(ctrl, t0: int, t1: int, sinks: dict) -> tuple[list, list]:
     return reports, cmds
 
 
+def start_side_process(args: list, **env) -> dict:
+    """Start ``python3 <args>`` from the checkout's root in a process of
+    its own (killed at exit if still running), ``env`` added to this
+    process's environment; a thread waits for it and fills in "rc",
+    "out", "err" and its wall "s" (join "thread" first)."""
+    import atexit
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]), **env)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, *args], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    side: dict = {}
+
+    def wait() -> None:
+        out, err = proc.communicate()
+        side.update(rc=proc.returncode, out=out, err=err,
+                    s=time.perf_counter() - t0)
+
+    side["thread"] = threading.Thread(target=wait, daemon=True)
+    side["thread"].start()
+    return side
+
+
+def join_side_process(side: dict, what: str, timeout_s: float) -> str:
+    """The standard output of a :func:`start_side_process` process once it
+    has ended; fails if it runs past ``timeout_s`` or exits nonzero."""
+    side["thread"].join(timeout=timeout_s)
+    if side["thread"].is_alive() or "rc" not in side:
+        fail(f"{what} did not end within {timeout_s:.0f} s")
+    if side["rc"] != 0:
+        fail(f"{what} exited {side['rc']}: {side['err'][-2000:]}")
+    return side["out"]
+
+
+LOOP_REPORT_FIELDS = ("t", "profile", "is_peak", "slo_ok", "applied",
+                      "verified") + LOOP_FLOATS
+
+
+def cpu_loop_session(name: str) -> None:
+    """12b's CPU session of backend ``name`` (96 ticks from 08:36), as
+    loop_phase drives it, printed as one JSON line: each tick's report
+    fields, its rendered commands and the session's wall. Run by
+    loop_phase in a process of its own, on the CPU only."""
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.harness.controller import controller_from_config
+
+    cfg = PRESETS["multiregion"]()
+    ctrl = controller_from_config(cfg, loop_backend(cfg, name, "cpu"),
+                                  device="cpu", interval_s=0.0,
+                                  log_fn=lambda s: None, seed=LOOP_SEED)
+    ctrl.source = loop_source(cfg)
+    t0 = time.perf_counter()
+    reports, cmds = drive_loop(ctrl, 0, LOOP_TICKS, ctrl.region_sinks)
+    wall = time.perf_counter() - t0
+    ctrl.close()
+    kinds = dict(t=int, profile=str, is_peak=bool, slo_ok=bool,
+                 applied=bool, verified=bool)
+    rows = [{f: kinds.get(f, float)(getattr(r, f))
+             for f in LOOP_REPORT_FIELDS} for r in reports]
+    print(json.dumps({"reports": rows, "cmds": cmds, "cpu_wall_s": wall}))
+
+
 def pct(vals, q) -> float:
     return float(np.percentile(np.asarray(vals, np.float64), q))
 
@@ -2166,7 +2260,9 @@ def loop_phase(dev, card: str) -> dict:
     stage's median and p99; the Chrome trace validated; compile_report
     with no hot entry captured again after its warm-up; (b) the same four
     sessions on the CPU: rule and carbon byte-identical command streams
-    and every report float within 1e-5 relative, ppo and mpc reported;
+    and every report float within 1e-5 relative, ppo and mpc reported
+    (mpc's eager planner, the longest of them, runs in a process of its
+    own from the phase's start and is read after (d));
     (c) each card run killed at three seeded ticks and resumed from its
     snapshot in a fresh Controller (a fresh backend; mpc's reuses (a)'s
     captured planner graph), bitwise; (d) the recovery scoreboard at
@@ -2193,6 +2289,11 @@ def loop_phase(dev, card: str) -> dict:
     names = ("rule", "carbon", "ppo", "mpc")
     quiet = dict(interval_s=0.0, log_fn=lambda s: None, seed=LOOP_SEED)
     rec: dict = {"card": card, "ticks": LOOP_TICKS, "stages": {}}
+    # (b)'s mpc session on the CPU: its eager planner, by far the longest
+    # CPU session, runs beside (a), (c) and (d) and is read after them.
+    cpu_mpc = start_side_process(
+        ["-c", "import chip_smoke; chip_smoke.cpu_loop_session('mpc')"],
+        CUDA_VISIBLE_DEVICES="")
 
     # ---- (a) the loop on the card
     tracer = SpanTracer()
@@ -2278,14 +2379,8 @@ def loop_phase(dev, card: str) -> dict:
 
     # ---- (b) the same sessions on the CPU
     rec["cpu"] = {}
-    for name in names:
-        backend = loop_backend(cfg, name, "cpu")
-        ctrl = controller_from_config(cfg, backend, device="cpu", **quiet)
-        ctrl.source = loop_source(cfg)
-        t0 = time.perf_counter()
-        reports, cmds = drive_loop(ctrl, 0, LOOP_TICKS, ctrl.region_sinks)
-        cpu_wall = time.perf_counter() - t0
-        ctrl.close()
+
+    def against_cpu(name, reports, cmds, cpu_wall) -> None:
         g_reports, g_cmds, _ = runs[name]
         diff_ticks = [t for t in range(LOOP_TICKS) if cmds[t] != g_cmds[t]]
         worst, worst_at = 0.0, None
@@ -2311,6 +2406,18 @@ def loop_phase(dev, card: str) -> dict:
         if name in ("rule", "carbon") and (
                 diff_ticks or worst > 1e-5 or not same_exact):
             fail(f"phase 12b: {name} on the card is not the CPU run")
+
+    for name in names:
+        if name == "mpc":
+            continue              # in its own process: read after (d)
+        backend = loop_backend(cfg, name, "cpu")
+        ctrl = controller_from_config(cfg, backend, device="cpu", **quiet)
+        ctrl.source = loop_source(cfg)
+        t0 = time.perf_counter()
+        reports, cmds = drive_loop(ctrl, 0, LOOP_TICKS, ctrl.region_sinks)
+        cpu_wall = time.perf_counter() - t0
+        ctrl.close()
+        against_cpu(name, reports, cmds, cpu_wall)
 
     # ---- (c) kill and resume, bitwise
     def fresh(name):
@@ -2375,6 +2482,13 @@ def loop_phase(dev, card: str) -> dict:
         fail("phase 12d: the recovery board broke its invariants")
     rec["recovery"] = {"wall_s": board_s, "invariants": inv,
                        "n_paired_runs": board["n_paired_runs"]}
+
+    # (b)'s mpc session, from its own process.
+    got = json.loads(join_side_process(cpu_mpc, "phase 12b: the CPU mpc "
+                                       "session", 900).splitlines()[-1])
+    against_cpu("mpc", [types.SimpleNamespace(**r) for r in got["reports"]],
+                got["cmds"], got["cpu_wall_s"])
+    rec["cpu"]["mpc"]["process_wall_s"] = cpu_mpc["s"]
     with open(f"{out_dir}/loop_record.json", "w") as fh:
         json.dump(rec, fh, indent=1, default=str)
     return rec
@@ -3909,6 +4023,492 @@ def service_phase(dev, card: str) -> dict:
 
 
 
+# ---- geo arbitrage on the card (phase 16) -----------------------------------
+
+GEO_SEED = 131                      # the widened day's stream seed
+GEO_SCENARIO = "spot-storm"         # the 16a block's GeoConfig
+GEO_KERNELS = ("rule", "carbon", "mlp", "plan")
+GEO_ROUTES = ("rule", "carbon", "mlp")   # 16b's CARRY drives
+GEO_LANE_B = 8192                   # 16a: faults + workloads + regions
+GEO_SVC_N = 4                       # 16d: the service whose gauges read
+# 16c at the command line's shape (`geo`'s defaults): every number of the
+# card's record but the residuals within this relative standard of the
+# CPU's (the float32 sums of the tick loop in another order), fronts and
+# dominance equal, the residuals of both within the gate.
+GEO_CLI_STEPS, GEO_CLI_BATCH = 192, 8
+GEO_CARD_CPU_RTOL = 1e-4
+# The JAX bench's conservation gate, in pods, held on the residual that
+# counts the queues' float32 rounding (`conservation_residual`); the
+# residual without it (JAX's formula, `ledger=False`) is reported beside.
+GEO_RESIDUAL_GATE = 0.01
+
+
+def geo_label(policy: str, faults: bool, wl_depth: int,
+              carry: bool = False) -> str:
+    from ccka_tpu_torch.kernels import build
+
+    return (("rollout_mlp_kernel" if policy == "mlp"
+             else "rollout_profiles_kernel")
+            + build.instantiation(policy, faults, wl_depth, carry))
+
+
+def kernel_counts(clear: bool = False) -> dict:
+    """The launch counters of every rollout kernel instantiation, by the
+    `kernels` line's names (``clear``: set them to 0 first)."""
+    from ccka_tpu_torch.kernels import build
+
+    out: dict = {}
+    for counter, prefix in (
+            (build.launch_rollout_profiles, "rollout_profiles_kernel"),
+            (build.launch_rollout_plan, "rollout_profiles_kernel"),
+            (build.launch_rollout_mlp, "rollout_mlp_kernel")):
+        if clear:
+            counter.launches.clear()
+        for k, v in counter.launches.items():
+            out[prefix + k] = out.get(prefix + k, 0) + v
+    return out
+
+
+def suite_numbers(rec, path: str = "") -> dict:
+    """{path: number} of every number in a suite record."""
+    out = {}
+    if isinstance(rec, dict):
+        for k, v in rec.items():
+            out.update(suite_numbers(v, f"{path}.{k}"))
+    elif isinstance(rec, list):
+        for i, v in enumerate(rec):
+            out.update(suite_numbers(v, f"{path}[{i}]"))
+    elif isinstance(rec, (int, float)) and not isinstance(rec, bool):
+        out[path] = float(rec)
+    return out
+
+
+def geo_phase(dev, card: str, setup, hold, plain, rule_fn,
+              carbon_fn) -> dict:
+    """16: geo arbitrage (`regions/`) on the card, multiregion (Z = 4 in
+    R = 2 regions), the spot-storm GeoConfig.
+    (a) a day of B = 32768 synthesized widened by the region block (80
+    rows, 30.2 GB), its first 16 rows bitwise the plain stream of the
+    same seed; the region block's own synthesis timed; the rule, carbon,
+    MLP (shipped flagship) and plan kernels on it, counted (each once),
+    timed, and bitwise the same kernels on the plain stream, every field;
+    the <FAULTS,WL_D=16> instantiations on the mixed scenario's stream
+    widened by the block (104 rows, B = 8192) bitwise on the 40-row one;
+    each kernel against its plain version on a widened stream, rule and
+    carbon at B = 1024 x T = 360 both modes, the plan stochastic (phase
+    4's standard), the MLP per cluster at T = 32 (5a's) and at T = 360
+    by NEURAL_MEAN_PARITY_TOLERANCES.
+    (b) the widened day in 8 blocks of 360 through the synchronous and
+    the double-buffered drive (`sim/streaming.py`), rule, carbon and the
+    flagship: CARRY launches counted, each drive bitwise the same drive
+    on the plain stream.
+    (c) the suite (`regions/pareto.py::run_geo_suite`) at the command
+    line's shape, its lanes drawn on the card, card against CPU on the
+    same lanes; then on the 16a block (T = 2880 x B = 32768): `none`
+    bitwise a zero override, its migration term 0.0, every policy timed
+    a rollout, its residual within 0.01 pods with the queues' rounding
+    ledger (the raw residual, JAX's formula, reported), dominance
+    reported.
+    (d) `python -m ccka_tpu_torch --preset multiregion geo --json` in a
+    process of its own (started beside 16a's plain versions) equal to
+    16c's direct call; a service on the card
+    (obs on) reports {} gauges before any publish, then the published
+    snapshot and both exporter series."""
+    import dataclasses
+
+    from ccka_tpu_torch.config import ObsConfig, ServiceConfig
+    from ccka_tpu_torch.harness.promexport import render_exposition
+    from ccka_tpu_torch.harness.service import fleet_service_from_config
+    from ccka_tpu_torch.policy.rule import RulePolicy
+    from ccka_tpu_torch.regions import geo as geo_dyn
+    from ccka_tpu_torch.regions.migrate import GEO_POLICIES
+    from ccka_tpu_torch.regions.pareto import (GEO_SCENARIOS, fronts,
+                                               run_geo_suite, scenario_lanes)
+    from ccka_tpu_torch.regions.process import (REGION_KEY_TAG,
+                                                packed_region_lanes,
+                                                unpack_region_lanes)
+    from ccka_tpu_torch.signals.synthetic import (SyntheticSignalSource,
+                                                  family_generator)
+    from ccka_tpu_torch.sim import lanes
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    rec: dict = {"launches_by_path": {}}
+    cfg, _, params, _off, _peak, net = setup("multiregion")
+    Z = cfg.cluster.n_zones
+    geo = GEO_SCENARIOS[GEO_SCENARIO].geo.bound_to(cfg.cluster)
+
+    def sources(**kw):
+        def make(**extra):
+            return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                         cfg.signals, **kw, **extra)
+        return make(), make(extra_lanes={"regions": geo})
+
+    # The service's gauges before any publish: the skip values.
+    svc = fleet_service_from_config(
+        cfg, RulePolicy(cfg.cluster, dev), GEO_SVC_N,
+        service=ServiceConfig(enabled=True), obs=ObsConfig(enabled=True),
+        horizon_ticks=64, device=dev, log_fn=lambda *a: None)
+    if geo_dyn.geo_snapshot() is not None:
+        fail("16: a geo snapshot was published before phase 16")
+    before = svc.tick(0)
+    if before.region_migration_rate or before.region_carbon_intensity:
+        fail(f"16d: the service's geo gauges before a publish: "
+             f"{before.region_migration_rate}, "
+             f"{before.region_carbon_intensity}")
+
+    # ---- 16a: the widened day
+    plain_src, wide_src = sources()
+    plain_s, plain_sec = synced(lambda: plain_src.packed_trace_device(
+        T_DAY, GEO_SEED, B_MAIN, device=dev))
+    wide_s, wide_sec = synced(lambda: wide_src.packed_trace_device(
+        T_DAY, GEO_SEED, B_MAIN, device=dev))
+    rows = plain_s.shape[1]
+    lo, hi = lanes.resolve_layout(wide_s.shape[1], Z).block("regions")
+    if (rows, wide_s.shape[1], lo, hi) != (16, 80, 16, 80):
+        fail(f"16a: stream rows {rows} / {wide_s.shape[1]}, region block "
+             f"{lo}:{hi}")
+    if not torch.equal(wide_s[:, :rows], plain_s):
+        fail("16a: the widened stream's first 16 rows are not the plain "
+             "stream of the same seed")
+    probe = wide_s[:, lo:hi, :1024].clone()
+    block_ms = cuda_ms(lambda: packed_region_lanes(
+        geo, family_generator(GEO_SEED, REGION_KEY_TAG, dev), T_DAY, T_DAY,
+        Z, B_MAIN, dt_s=cfg.sim.dt_s, out=wide_s[:, lo:hi]), 3)
+    if not torch.equal(wide_s[:, lo:hi, :1024], probe):
+        fail("16a: the region block synthesized again differs")
+    used = wide_s[:T_DAY, lo:lo + 6 * Z]
+    if not bool(torch.isfinite(used).all()) or float(used.abs().max()) == 0:
+        fail("16a: the region block is not finite, or all zero")
+    del probe, used
+    rec["synthesis"] = {"plain_s": plain_sec, "widened_s": wide_sec,
+                        "region_block_ms": float(np.median(block_ms)),
+                        "stream_gb": wide_s.numel() * 4 / 1e9}
+    log(f"# 16a widened day B={B_MAIN} T={T_DAY}: {wide_s.shape[1]} rows "
+        f"({rec['synthesis']['stream_gb']:.1f} GB), the first {rows} "
+        f"bitwise the plain stream; synthesis plain {plain_sec:.3f} s, "
+        f"widened {wide_sec:.3f} s, the region block alone "
+        f"{rec['synthesis']['region_block_ms']:.2f} ms (median of 3) "
+        f"{lap()}")
+
+    plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
+    kernel_counts(clear=True)
+    wide_out = {p: run_entry(p, cfg, params, net, wide_s, T_DAY, True,
+                             seed=5, plan=plan) for p in GEO_KERNELS}
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    want = {geo_label(p, False, 0): 1 for p in GEO_KERNELS}
+    if counts != want:
+        fail(f"16a: the widened day launched {counts}, not {want}")
+    rec["launches_by_path"]["widened geo day (phase 16a)"] = counts
+    rec["kernels"] = {}
+    for p in GEO_KERNELS:
+        got = run_entry(p, cfg, params, net, plain_s, T_DAY, True, seed=5,
+                        plan=plan)
+        if not bitwise(wide_out[p], got):
+            bad = [f for f in got._fields if not torch.equal(
+                getattr(got, f), getattr(wide_out[p], f))]
+            fail(f"16a: {p} on the widened day differs from the plain "
+                 f"stream's in {bad}")
+        for f in ("usd_per_slo_hour", "g_co2_per_kreq", "slo_attainment"):
+            v = getattr(got, f)
+            if v.shape != (B_MAIN,) or not bool(torch.isfinite(v).all()):
+                fail(f"16a: {p}.{f} malformed")
+        ms_w = median_ms(lambda: run_entry(p, cfg, params, net, wide_s,
+                                           T_DAY, True, seed=5, plan=plan))
+        ms_p = median_ms(lambda: run_entry(p, cfg, params, net, plain_s,
+                                           T_DAY, True, seed=5, plan=plan))
+        b_ms, b_by, _terms, _ops = lane_bound(cfg, p, "plain", net)
+        rec["kernels"][geo_label(p, False, 0)] = {
+            "ms": ms_w, "plain_stream_ms": ms_p, "bound_ms": b_ms,
+            "bound_by": b_by}
+        log(f"#   {geo_label(p, False, 0)}: bitwise the plain stream's, "
+            f"every field; {ms_w:.4f} ms on the widened day, {ms_p:.4f} "
+            f"ms on the plain one (median of {N_TIMED}); bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    step = unpack_region_lanes(wide_s, T_DAY, Z, geo)   # 16c's block
+    del wide_out, got, wide_s, plain_s, plan
+    torch.cuda.empty_cache()
+    log(f"#   the four kernels on the widened day {lap()}")
+
+    # <FAULTS,WL_D=16> on faults + workloads + regions, B = 8192.
+    msrc, wl = lane_source(cfg, "mixed")
+    p40, p104 = sources(faults=msrc.faults, workloads=wl)
+    wparams = lane_params(cfg, wl, dev)
+    s40 = p40.packed_trace_device(T_DAY, GEO_SEED, GEO_LANE_B, device=dev)
+    s104 = p104.packed_trace_device(T_DAY, GEO_SEED, GEO_LANE_B,
+                                    device=dev)
+    if (s40.shape[1], s104.shape[1]) != (40, 104) or not torch.equal(
+            s104[:, :40], s40):
+        fail(f"16a: the {s104.shape[1]}-row stream's first rows are not "
+             f"the {s40.shape[1]}-row stream")
+    plan = random_plan(cfg, GEO_LANE_B, T_DAY, T_DAY, dev)
+    kernel_counts(clear=True)
+    out104 = {p: run_entry(p, cfg, wparams, net, s104, T_DAY, True, seed=5,
+                           plan=plan) for p in GEO_KERNELS}
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    want = {geo_label(p, True, 16): 1 for p in GEO_KERNELS}
+    if counts != want:
+        fail(f"16a: the 104-row stream launched {counts}, not {want}")
+    rec["launches_by_path"]["faults + workloads + regions stream, B=8192 "
+                            "(phase 16a)"] = counts
+    for p in GEO_KERNELS:
+        got = run_entry(p, cfg, wparams, net, s40, T_DAY, True, seed=5,
+                        plan=plan)
+        if not bitwise(out104[p], got):
+            fail(f"16a: {geo_label(p, True, 16)} on the 104-row stream "
+                 f"differs from the 40-row stream's")
+        ms = median_ms(lambda: run_entry(p, cfg, wparams, net, s104, T_DAY,
+                                         True, seed=5, plan=plan))
+        rec["kernels"][geo_label(p, True, 16)] = {"ms_104_rows_b8192": ms}
+        log(f"#   {geo_label(p, True, 16)}: bitwise on 104 rows and on 40, "
+            f"B={GEO_LANE_B}; {ms:.4f} ms on 104 rows")
+    del out104, got, s40, s104, plan
+    torch.cuda.empty_cache()
+    log(f"#   the lane instantiations on the 104-row stream {lap()}")
+
+    # 16d's `geo --json` runs in a process of its own beside the plain
+    # versions (host-bound, like its start-up); it is read in 16d.
+    shell = start_side_process(["-m", "ccka_tpu_torch", "--preset",
+                                "multiregion", "geo", "--json"])
+
+    # Each kernel against its plain version on a widened stream.
+    short = wide_src.packed_trace_device(T_PARITY, GEO_SEED + 1, B_MULTI,
+                                         device=dev)
+    views = mk.unpack_exo(short, T_PARITY, Z)
+    rec["parity"] = {}
+    for p, fn in (("rule", rule_fn(cfg)), ("carbon", carbon_fn(cfg))):
+        for st in (False, True):
+            k = run_entry(p, cfg, params, net, short, T_PARITY, st)
+            pv, p_s = synced(lambda: plain(cfg, params, views, LANE_SEED,
+                                           st, fn))
+            same, max_abs = hold(
+                f"16a {p} widened B={B_MULTI} T={T_PARITY} "
+                f"{'stochastic' if st else 'deterministic'}", k, pv, st)
+            rec["parity"][f"{p} {'stochastic' if st else 'deterministic'}"] \
+                = {"bitwise": same, "max_abs_err": max_abs,
+                   "plain_ms": p_s * 1e3}
+    plan = random_plan(cfg, B_MULTI, T_PARITY, T_PARITY, dev)
+    k = run_entry("plan", cfg, params, net, short, T_PARITY, True, plan=plan)
+    pv, p_s = synced(lambda: lane_plain("plan", cfg, params, net, short,
+                                        T_PARITY, True, plan=plan))
+    same, max_abs = hold(f"16a plan widened B={B_MULTI} T={T_PARITY} "
+                         f"stochastic", k, pv, True)
+    rec["parity"]["plan stochastic"] = {"bitwise": same,
+                                        "max_abs_err": max_abs,
+                                        "plain_ms": p_s * 1e3}
+    mshort = wide_src.packed_trace_device(T_SHORT, GEO_SEED + 2, B_MULTI,
+                                          device=dev)
+    k = run_entry("mlp", cfg, params, net, mshort, T_SHORT, False)
+    pv = lane_plain("mlp", cfg, params, net, mshort, T_SHORT, False)
+    rel = field_rel(k, pv)
+    bad = {f: r for f, r in rel.items()
+           if r > (SHORT_LOOSE_TOL if f in SHORT_LOOSE else SHORT_TOL)}
+    worst = max(rel, key=rel.get)
+    log(f"# parity 16a mlp widened B={B_MULTI} T={T_SHORT} deterministic: "
+        f"bitwise {bitwise(k, pv)}; largest per-cluster rel diff {worst} "
+        f"{rel[worst]:.3g}")
+    if bad:
+        fail(f"16a: mlp parity on the widened stream: {bad}")
+    k = run_entry("mlp", cfg, params, net, short, T_PARITY, False)
+    pv, p_s = synced(lambda: lane_plain("mlp", cfg, params, net, short,
+                                        T_PARITY, False))
+    viol = mk.mean_parity_violations(k, pv, mk.NEURAL_MEAN_PARITY_TOLERANCES)
+    log(f"# parity 16a mlp widened B={B_MULTI} T={T_PARITY} deterministic: "
+        f"bitwise {bitwise(k, pv)}; mean_parity_violations {viol}")
+    if viol:
+        fail("16a: mlp mean parity on the widened stream")
+    rec["parity"]["mlp deterministic"] = {
+        "bitwise": bitwise(k, pv), "plain_ms": p_s * 1e3,
+        "max_abs_err": float(max((getattr(k, f).double()
+                                  - getattr(pv, f).double()).abs().max()
+                                 for f in k._fields))}
+    del short, views, mshort, k, pv, plan
+    torch.cuda.empty_cache()
+    rec["seconds_a"] = time.perf_counter() - t_phase
+    log(f"#   plain versions on the widened stream {lap()}")
+
+    # ---- 16b: the widened day streamed in 8 blocks
+    t_b = time.perf_counter()
+    rec["streamed"] = {}
+    carry_counts: dict = {}
+    for route in GEO_ROUTES:
+        for pipelined in (False, True):
+            kw = dict(key=GEO_SEED, batch=B_MAIN, T=T_DAY, block_T=BLOCK_DAY,
+                      seed=STREAM_SEED, t_chunk=T_CHUNK_STREAM,
+                      stochastic=True, pipelined=pipelined,
+                      net_params=net if route == "mlp" else None, device=dev)
+            kernel_counts(clear=True)
+            (ws, wrep), w_s = synced(lambda: stm.streaming_rollout_summary(
+                wide_src, params, cfg.cluster, BLOCK_MODE[route], **kw))
+            for label, n in kernel_counts().items():
+                carry_counts[label] = carry_counts.get(label, 0) + n
+            (ps, _), p_s = synced(lambda: stm.streaming_rollout_summary(
+                plain_src, params, cfg.cluster, BLOCK_MODE[route], **kw))
+            drive = "double-buffered" if pipelined else "sync"
+            if not bitwise(ws, ps):
+                fail(f"16b: {route} {drive} drive on the widened day is not "
+                     f"bitwise the plain stream's")
+            rec["streamed"][f"{route} {drive}"] = {
+                "widened_s": w_s, "plain_s": p_s,
+                "stream_buffers": wrep.get("stream_buffers")}
+            log(f"# 16b {route} {drive}: bitwise the plain stream's drive; "
+                f"wall {w_s:.4f} s widened, {p_s:.4f} s plain")
+    want = {geo_label(r, False, 0, carry=True): 2 * (T_DAY // BLOCK_DAY)
+            for r in GEO_ROUTES}
+    if carry_counts != want:
+        fail(f"16b: the widened drives launched {carry_counts}, not {want}")
+    rec["launches_by_path"]["streamed widened geo day, sync and "
+                            "double-buffered (phase 16b)"] = carry_counts
+    rec["seconds_b"] = time.perf_counter() - t_b
+    torch.cuda.empty_cache()
+    log(f"#   16b {rec['seconds_b']:.1f} s {lap()}")
+
+    # ---- 16c: the suite on the card
+    t_c = time.perf_counter()
+    suite_kw = dict(scenarios=sorted(GEO_SCENARIOS),
+                    policies=sorted(GEO_POLICIES),
+                    zone_region_index=cfg.cluster.zone_region_index, seed=0,
+                    steps=GEO_CLI_STEPS, batch=GEO_CLI_BATCH,
+                    dt_s=cfg.sim.dt_s)
+    # The card's suite draws its lanes on the card (as `geo` does); the
+    # CPU scores the same lanes, drawn again on the card and copied over.
+    card_suite, card_s = synced(lambda: run_geo_suite(device=dev,
+                                                      **suite_kw))
+    drawn = scenario_lanes(device=dev, **{
+        k: v for k, v in suite_kw.items() if k != "policies"})
+    cpu_suite, cpu_s = synced(lambda: run_geo_suite(
+        device="cpu", lanes={k: v.cpu() for k, v in drawn.items()},
+        **suite_kw))
+    del drawn
+    a, b = suite_numbers(card_suite), suite_numbers(cpu_suite)
+    if set(a) != set(b):
+        fail(f"16c: the card's suite record has other keys: "
+             f"{sorted(set(a) ^ set(b))[:8]}")
+    # The residuals are float32 rounding noise themselves: each is held
+    # to the gate, not to the other device's.
+    rel = {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in a
+           if "conservation_residual" not in k}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > GEO_CARD_CPU_RTOL:
+        fail(f"16c: the suite on the card against the CPU: {worst} "
+             f"{a[worst]} vs {b[worst]} (rel {rel[worst]:.3g})")
+    for sc_a, sc_b in zip(card_suite["scenarios"], cpu_suite["scenarios"]):
+        for klass, fr in sc_a["pareto"].items():
+            other = sc_b["pareto"][klass]
+            if (fr["front"], fr["dominates_none"]) != (
+                    other["front"], other["dominates_none"]):
+                fail(f"16c: {sc_a['scenario']}/{klass}: front or dominance "
+                     f"differs card against CPU")
+    for suite in (card_suite, cpu_suite):
+        if suite["max_conservation_residual"] > GEO_RESIDUAL_GATE:
+            fail(f"16c: the suite's residual on {suite['device']}: "
+                 f"{suite['max_conservation_residual']} pods")
+    rec["suite_cli_shape"] = {
+        "card_s": card_s, "cpu_s": cpu_s, "worst_rel": rel[worst],
+        "worst_field": worst,
+        "max_conservation_residual": card_suite["max_conservation_residual"],
+        "max_conservation_residual_raw":
+            card_suite["max_conservation_residual_raw"],
+        "dominance_found": card_suite["dominance_found"]}
+    log(f"# 16c suite, {len(suite_kw['scenarios'])} scenarios x "
+        f"{len(suite_kw['policies'])} policies, steps {GEO_CLI_STEPS} x "
+        f"batch {GEO_CLI_BATCH}: card {card_s:.3f} s, CPU {cpu_s:.3f} s; "
+        f"largest rel diff {rel[worst]:.3g} ({worst}); fronts and dominance "
+        f"equal; residual {card_suite['max_conservation_residual']:.3g} "
+        f"pods ({card_suite['max_conservation_residual_raw']:.3g} without "
+        f"the rounding ledger); dominance_found {card_suite['dominance_found']} {lap()}")
+
+    R = geo.n_regions
+    summaries, residuals, raw, roll_s = {}, {}, {}, {}
+    for pname, pol in sorted(GEO_POLICIES.items()):
+        torch.cuda.reset_peak_memory_stats()
+        roll, roll_s[pname] = synced(lambda: geo_dyn.geo_rollout(
+            geo, pol, step))
+        summaries[pname] = geo_dyn.rollout_summary(geo, roll)
+        residuals[pname] = geo_dyn.conservation_residual(step, roll)
+        raw[pname] = geo_dyn.conservation_residual(step, roll, ledger=False)
+        if pname != "none":
+            snap = geo_dyn.publish_geo_snapshot(geo, step, roll)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if pname == "none":
+            zero = geo_dyn.geo_rollout(
+                geo, GEO_POLICIES["balanced"], step,
+                rates_override=torch.zeros((R, R, 3), device=dev))
+            if not bitwise(roll, zero):
+                fail("16c: `none` is not bitwise the zero-rate override on "
+                     "the day")
+            if float(roll.migration_cost_usd.abs().max()) != 0.0:
+                fail("16c: `none`'s migration term is not exactly 0.0")
+            del zero
+        del roll
+        torch.cuda.empty_cache()
+        log(f"#   16c {pname} on the day (T={T_DAY} x B={B_MAIN}): "
+            f"{roll_s[pname]:.3f} s a rollout ({T_DAY} eager ticks), "
+            f"residual {residuals[pname]:.3g} pods "
+            f"({raw[pname]:.3g} without the rounding ledger), total $ "
+            f"{summaries[pname]['total_cost_usd']:.4f}, kg "
+            f"{summaries[pname]['carbon_kg']:.4f}, peak {peak_gb:.2f} GB")
+        if residuals[pname] > GEO_RESIDUAL_GATE:
+            fail(f"16c: {pname}'s residual {residuals[pname]} pods on the "
+                 f"day")
+    day_fronts = fronts(summaries)
+    rec["suite_day"] = {
+        "rollout_s": roll_s, "residuals": residuals, "residuals_raw": raw,
+        "dominance_found": any(f["dominates_none"]
+                               for f in day_fronts.values()),
+        "dominates_none": {k: f["dominates_none"]
+                           for k, f in day_fronts.items()}}
+    rec["seconds_c"] = time.perf_counter() - t_c
+    log(f"# 16c the day's policies dominating none: "
+        f"{json.dumps(rec['suite_day']['dominates_none'])}; dominance_found "
+        f"{rec['suite_day']['dominance_found']} (reported, not gated); "
+        f"`none` bitwise the zero override {lap()}")
+    del step
+
+    # ---- 16d: the shell, and the service's gauges after the publish
+    t_d = time.perf_counter()
+    shell_out = join_side_process(shell, "16d: `geo --json`", 600)
+    shell_s = shell["s"]
+    if json.loads(shell_out) != json.loads(json.dumps(card_suite)):
+        fail("16d: `geo --json` from the shell is not the direct call's "
+             "record")
+    after = svc.tick(1)
+    if (after.region_migration_rate != snap["migration_rate"]
+            or after.region_carbon_intensity != snap["carbon_intensity"]):
+        fail(f"16d: the service's gauges after the publish: "
+             f"{after.region_migration_rate}, "
+             f"{after.region_carbon_intensity} against {snap}")
+    text = render_exposition(dataclasses.asdict(after))
+    for series in ("ccka_region_migration_rate",
+                   "ccka_region_carbon_intensity"):
+        if f"\n{series} " not in text:
+            fail(f"16d: the exporter emits no {series}")
+    svc.close()
+    rec["shell_s"] = shell_s
+    rec["seconds_d"] = time.perf_counter() - t_d
+    log(f"# 16d `geo --json` from the shell ({shell_s:.2f} s, beside 16a's "
+        f"plain versions) equals the direct call; the service's gauges "
+        f"read the published snapshot "
+        f"({after.region_migration_rate}, "
+        f"{after.region_carbon_intensity}) and the exporter emits both "
+        f"series {lap()}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 16: {rec['seconds']:.1f} s (16a {rec['seconds_a']:.1f}, "
+        f"16b {rec['seconds_b']:.1f}, 16c {rec['seconds_c']:.1f}, 16d "
+        f"{rec['seconds_d']:.1f}); card {card}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3954,6 +4554,13 @@ def main() -> None:
     profiles = ProfileBuilds()
     build_s = time.perf_counter() - t0
     log(f"# build: {build_s:.2f} s wall, {len(built)} nvcc processes")
+    # Every library's SASS at once: one cuobjdump process each.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(built)) as pool:
+        sass = dict(zip(built, pool.map(build.sass_summary,
+                                        [lib for lib, _, _ in
+                                         built.values()])))
     for unit, (lib, text, secs) in built.items():
         log(f"#   {unit} -> {lib.name} ({secs:.2f} s nvcc)")
         entry = None
@@ -3965,7 +4572,7 @@ def main() -> None:
             elif entry is not None and "Used" in line and "registers" in line:
                 profiles.regs[entry] = int(line.split("Used")[1].split()[0])
         build.library(*unit)
-        for fn, counts in build.sass_summary(lib).items():
+        for fn, counts in sass[unit].items():
             log(f"#   sass: {fn}: {counts}")
             key = profile_key(fn)
             if unit[0] == "rollout_mlp.cu" and counts["HMMA"] < 1:
@@ -4495,7 +5102,11 @@ def main() -> None:
     service_rec = service_phase(dev, smi)
 
     clock("16")
-    # ---- 16. the kernels, the card, the result
+    # ---- 16. geo arbitrage on the card: see geo_phase.
+    geo_rec = geo_phase(dev, smi, setup, hold, plain, rule_fn, carbon_fn)
+
+    clock("17")
+    # ---- 17. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -4626,6 +5237,22 @@ def main() -> None:
                                    f"T={T_DAY} stochastic, the replayed "
                                    f"store with mild faults and the mixed "
                                    f"families (phase 14a)")
+    names = {row["name"] for row in kernels}
+    for path, counts in geo_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 16 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for row in kernels:
+        if row["name"] in geo_rec["kernels"]:
+            row["geo"] = dict(geo_rec["kernels"][row["name"]],
+                              shape=f"multiregion B={B_MAIN} T={T_DAY} "
+                                    f"stochastic on the region-widened "
+                                    f"stream (phase 16a)")
     log(f"# build {build_s:.2f} s; total {time.perf_counter() - t_start:.1f}"
         f" s")
     print(json.dumps({"kernels": kernels}))

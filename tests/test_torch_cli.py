@@ -236,6 +236,7 @@ DEVICE_ARGV = {
     "run": ["run", "--ticks", "1"], "recover-eval": ["recover-eval"],
     "overload-eval": ["overload-eval", "--tenants", "2"],
     "fleet --service": ["fleet", "--service", "default"],
+    "geo": ["geo", "--steps", "8"],
 }
 
 
@@ -325,3 +326,63 @@ def test_fleet_obs_flags_refuse_without_the_service(flag):
     for main, extra in ((jmain, []), (tmain, CPU)):
         with pytest.raises(SystemExit, match="ENABLED --service"):
             main(argv + extra)
+
+
+# ---- geo: the Pareto scoreboard
+
+
+@pytest.fixture
+def geo_snapshots(monkeypatch):
+    """Run geo tests without leaving a published geo snapshot behind in
+    either package (other files hold the service's skip values)."""
+    from ccka_tpu.regions import geo as jgeo
+    from ccka_tpu_torch.regions import geo as tgeo
+
+    monkeypatch.setattr(tgeo, "_GEO_SNAPSHOT", None)
+    monkeypatch.setattr(jgeo, "_GEO_SNAPSHOT", None)
+
+
+GEO_ARGV = ["--preset", "multiregion", "geo", "--steps", "16", "--batch",
+            "2", "--scenarios", "spot-storm,calm"]
+
+
+def test_geo_json_is_the_direct_suite(geo_snapshots):
+    from ccka_tpu_torch.config import PRESETS
+    from ccka_tpu_torch.regions.migrate import GEO_POLICIES
+    from ccka_tpu_torch.regions.pareto import run_geo_suite
+
+    rc, out, _ = _run(tmain, GEO_ARGV + ["--json"] + CPU)
+    cfg = PRESETS["multiregion"]()
+    want = run_geo_suite(scenarios=["spot-storm", "calm"],
+                         policies=sorted(GEO_POLICIES),
+                         zone_region_index=cfg.cluster.zone_region_index,
+                         seed=0, steps=16, batch=2, dt_s=cfg.sim.dt_s,
+                         device="cpu")
+    assert rc == 0 and json.loads(out) == json.loads(json.dumps(want))
+
+
+@pytest.mark.parametrize("flag,value", [("--scenarios", "nope"),
+                                        ("--policies", "teleport")])
+def test_geo_unknown_names_exit_as_jax_s(geo_snapshots, flag, value):
+    argv = ["--preset", "multiregion", "geo", flag, value]
+    with pytest.raises(SystemExit) as jerr:
+        _run(jmain, argv)
+    with pytest.raises(SystemExit) as terr:
+        _run(tmain, argv + CPU)
+    assert str(terr.value) == str(jerr.value)
+    assert "unknown geo" in str(terr.value)
+
+
+def test_geo_renders_as_jax_s(geo_snapshots, monkeypatch):
+    """JAX's `_cmd_geo` and the port's render the port's record (the JAX
+    suite swapped for it) to the same text on stdout and stderr."""
+    import ccka_tpu.regions.pareto as jpareto
+
+    rc, out, _ = _run(tmain, GEO_ARGV + ["--json"] + CPU)
+    record = json.loads(out)
+    monkeypatch.setattr(jpareto, "run_geo_suite", lambda **kw: record)
+    jrc, jout, jerr = _run(jmain, GEO_ARGV)
+    trc, tout, terr = _run(tmain, GEO_ARGV + CPU)
+    assert rc == jrc == trc == 0
+    assert tout == jout and terr == jerr
+    assert "== spot-storm" in tout and "conservation residual" in tout

@@ -260,7 +260,9 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "harness.fleet", "obs.recorder", "obs.incidents",
              "obs.decisions", "obs.tournament", "graphs", "cli",
              "__main__", "obs.burnrate", "obs.costmodel", "harness.service",
-             "harness.overload", "harness.fleetscale"):
+             "harness.overload", "harness.fleetscale", "regions",
+             "regions.process", "regions.migrate", "regions.geo",
+             "regions.pareto"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -396,6 +398,20 @@ with contextlib.redirect_stdout(io.StringIO()), \
                      "--ticks", "4", "--device", "cpu"]) == 0
 ReplaySignalSource.from_file("data/replay_2day.npz").packed_trace_device(
     8, 0, 2, device="cpu")
+# Geo arbitrage: a region-widened stream and the Pareto scoreboard.
+from ccka_tpu_torch import PRESETS
+from ccka_tpu_torch.regions.pareto import GEO_SCENARIOS
+mcfg = PRESETS["multiregion"]()
+assert SyntheticSignalSource(
+    mcfg.cluster, mcfg.workload, mcfg.sim, mcfg.signals,
+    extra_lanes={"regions": GEO_SCENARIOS["calm"].geo.bound_to(
+        mcfg.cluster)}).packed_trace_device(8, 0, 2,
+                                            device="cpu").shape[1] == 80
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    assert cli_main(["--preset", "multiregion", "geo", "--steps", "8",
+                     "--batch", "1", "--scenarios", "calm",
+                     "--device", "cpu"]) == 0
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

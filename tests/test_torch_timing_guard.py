@@ -81,5 +81,7 @@ def test_guard_scans_the_control_loop():
                 ("obs", "incidents.py"), ("obs", "recorder.py"),
                 ("harness", "service.py"), ("harness", "overload.py"),
                 ("harness", "fleetscale.py"), ("obs", "burnrate.py"),
+                ("regions", "process.py"), ("regions", "migrate.py"),
+                ("regions", "geo.py"), ("regions", "pareto.py"),
                 ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel
