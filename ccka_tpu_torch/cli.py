@@ -26,6 +26,9 @@ exit codes. Subcommand <-> script map:
               read the incident log, the decision ledger and the
               shadow tournament's board and audits
   geo         the geo-arbitrage Pareto scoreboard (regions/pareto.py)
+  scenario-search
+              the adversarial scenario search (search/adversarial.py):
+              CEM over the scenario axis, the worst case minted
   simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
   recover-eval, scenarios, distill-factory, capture, report, obs,
   show-config
@@ -51,7 +54,7 @@ from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 # ports them.
 NOT_PORTED = {
     "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
-    "scenario-search": "item 13", "flywheel": "item 13",
+    "flywheel": "item 13",
 }
 _DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
                 "version)")
@@ -351,8 +354,52 @@ def _build_parser() -> argparse.ArgumentParser:
                           "family mix, fault preset and arrival shapes "
                           "per scenario")
     slsc.add_argument("--minted-dir", default="",
-                      help="search-minted scenarios (not ported yet: "
-                           "ROADMAP item 13)")
+                      help="a --mint-out JSON file or a directory of "
+                           "them; entries are digest-validated on load "
+                           "and listed with a 'minted' provenance "
+                           "column (search/adversarial.py)")
+
+    ssrch = sub.add_parser(
+        "scenario-search",
+        help="adversarial scenario search (ccka_tpu_torch/search): CEM "
+             "over the ScenarioParams axis, every iteration's population "
+             "scored with one stream and one kernel launch, and the worst "
+             "case minted as a named reproducible scenario (params + "
+             "digest + eval geometry)")
+    ssrch.add_argument("--policy", default="rule",
+                       help="packed policy mode to attack: rule|carbon "
+                            "(artifact-free modes only)")
+    ssrch.add_argument("--objective", default="usd_per_slo_hour",
+                       help="scoreboard row field the search degrades "
+                            "(e.g. usd_per_slo_hour, slo_attainment, "
+                            "inf_slo_violations, batch_deadline_misses)")
+    ssrch.add_argument("--iters", type=int, default=5,
+                       help="CEM iterations (default 5)")
+    ssrch.add_argument("--pop", type=int, default=12,
+                       help="candidates per iteration = the scenario "
+                            "axis S (default 12)")
+    ssrch.add_argument("--elite-frac", type=float, default=0.25)
+    ssrch.add_argument("--intensity", default="",
+                       help="scale the whole search box: mild|moderate|"
+                            "severe ('' = the full validated box)")
+    ssrch.add_argument("--bound", action="append", default=[],
+                       metavar="NAME=LO:HI",
+                       help="override one knob's box, e.g. "
+                            "--bound storm_hazard=0:2 (repeatable; "
+                            "unknown names rejected up front)")
+    ssrch.add_argument("--mint-out", default="",
+                       help="write the minted scenario document "
+                            "(scenario + objective + eval geometry) to "
+                            "this JSON path; `scenarios --minted-dir` "
+                            "lists it, replay_minted reproduces it")
+    ssrch.add_argument("--name", default="",
+                       help="minted scenario name (default: "
+                            "minted-<policy>-<digest8>)")
+    ssrch.add_argument("--runlog", default="",
+                       help="append search_iter/search_mint events to "
+                            "this RunLog JSONL path")
+    ssrch.add_argument("--seed", type=int, default=0)
+    device(ssrch)
 
     ssc = sub.add_parser(
         "scenario-eval", help="per-family workload scoreboard: policies x "
@@ -1500,16 +1547,19 @@ def _cmd_geo(cfg: FrameworkConfig, args) -> int:
 
 
 def _cmd_scenarios(args) -> int:
-    """The hand-named scenario library; minted scenarios are item 13."""
-    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+    """The scenario library, with the minted scenarios of
+    ``--minted-dir`` (digest-checked) after the hand-named ones."""
+    from ccka_tpu_torch.workloads.scenarios import (WORKLOAD_SCENARIOS,
+                                                    load_minted_scenarios)
 
+    library = dict(WORKLOAD_SCENARIOS)
     if args.minted_dir:
-        print("ccka_tpu_torch: scenarios --minted-dir (search-minted "
-              "scenarios) is not ported yet (ROADMAP item 13)",
-              file=sys.stderr)
-        return 2
+        try:
+            library.update(load_minted_scenarios(args.minted_dir))
+        except (ValueError, OSError, KeyError) as e:
+            raise SystemExit(f"ccka: {e}")
     listing = []
-    for name, sc in WORKLOAD_SCENARIOS.items():
+    for name, sc in library.items():
         wl = sc.workloads
         listing.append({
             "name": name,
@@ -1532,6 +1582,76 @@ def _cmd_scenarios(args) -> int:
             },
         })
     print(json.dumps({"scenarios": listing}, indent=2))
+    return 0
+
+
+def _parse_bounds(specs: list) -> dict:
+    """``--bound NAME=LO:HI`` overrides -> {name: (lo, hi)}. Shape errors
+    here; unknown names and out-of-box ranges are validate_bounds'."""
+    out = {}
+    for spec in specs:
+        name, eq, rng = spec.partition("=")
+        lo, colon, hi = rng.partition(":")
+        if not eq or not colon or not name:
+            raise ValueError(f"malformed --bound {spec!r} "
+                             "(want NAME=LO:HI)")
+        try:
+            out[name] = (float(lo), float(hi))
+        except ValueError:
+            raise ValueError(f"non-numeric --bound {spec!r}")
+    return out
+
+
+def _cmd_scenario_search(cfg: FrameworkConfig, args) -> int:
+    """`scenario-search`: the CEM adversarial search on ``--device``; prints
+    (and with ``--mint-out`` writes) the minted scenario document. Unknown
+    policy, objective, intensity and knob names are refused before the
+    device is touched."""
+    from ccka_tpu_torch.obs.runlog import RunLog
+    from ccka_tpu_torch.search.adversarial import (SEARCH_POLICIES,
+                                                   intensity_bounds,
+                                                   resolve_objective,
+                                                   search_scenarios)
+    from ccka_tpu_torch.search.params import validate_bounds
+
+    try:
+        if args.policy not in SEARCH_POLICIES:
+            raise ValueError(f"unknown search policy {args.policy!r}; "
+                             f"artifact-free policies: "
+                             f"{list(SEARCH_POLICIES)}")
+        resolve_objective(args.objective)
+        intensity_bounds(args.intensity or None)
+        bounds = _parse_bounds(args.bound)
+        validate_bounds(bounds)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+    dev = _device(args.device)
+    runlog = RunLog(args.runlog or None, kind="scenario-search",
+                    echo=lambda s: None,
+                    meta={"policy": args.policy,
+                          "objective": args.objective})
+    try:
+        result = search_scenarios(
+            cfg, policy=args.policy, objective=args.objective,
+            iters=args.iters, pop=args.pop, elite_frac=args.elite_frac,
+            seed=args.seed, bounds=bounds or None,
+            intensity=args.intensity or None,
+            mint_name=args.name or None, runlog=runlog, device=dev)
+    except ValueError as e:
+        runlog.close(status="error")
+        raise SystemExit(f"ccka: {e}")
+    runlog.close()
+    doc = result.to_doc()
+    if args.mint_out:
+        with open(args.mint_out, "w", encoding="utf-8") as fh:
+            json.dump(doc, fh, indent=2, sort_keys=True)
+        print(f"# minted {result.scenario.name!r} -> {args.mint_out}",
+              file=sys.stderr)
+    print(json.dumps(doc, indent=2))
+    print(f"# worst case: {result.objective}="
+          f"{result.best_value:.6g} ({'DOMINATES' if result.dominates else 'does not dominate'} "
+          f"the hand-named library) after {result.evals} cells",
+          file=sys.stderr)
     return 0
 
 
@@ -1924,6 +2044,7 @@ _HANDLERS = {
     "watch": _cmd_watch, "burst": _cmd_burst, "fleet": _cmd_fleet,
     "incidents": _cmd_incidents, "decisions": _cmd_decisions,
     "tournament": _cmd_tournament, "geo": _cmd_geo,
+    "scenario-search": _cmd_scenario_search,
 }
 
 

@@ -20,6 +20,11 @@ the family's generator, and :func:`fault_lanes_from_latents` turns
 latents into lanes, a pure function (the tests feed it the JAX package's
 latents). With every intensity at 0 the lanes are exactly (hazard 1,
 deny 0, delay 0, stale 0): consuming them is bitwise a no-op.
+
+The scenario axis (`search/axis.py`) takes the intensities per cell:
+:func:`draw_fault_normals` draws the unit normals once at the inner
+width, and :func:`fault_lanes_p` makes the block of S cells from them,
+each cell bitwise the baked block of its config on the same draws.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import math
 from statistics import NormalDist
 
+import numpy as np
 import torch
 
 from ccka_tpu_torch.config import FaultsConfig
@@ -125,6 +131,100 @@ def packed_fault_lanes(faults: FaultsConfig, generator: torch.Generator,
         t_pad, Z, price_dev=price_dev)
 
 
+def _cells(values, dev, ndim: int) -> torch.Tensor:
+    """Float32 [S] values as a tensor of ``ndim`` dims with the cell axis
+    at dim 1 (the scenario axis's [T, S, ...] layout)."""
+    v = torch.as_tensor(np.asarray(values, np.float32), device=dev)
+    return v.reshape((1, -1) + (1,) * (ndim - 2))
+
+
+def _window_p(latent: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """:func:`_window` with a float32 threshold per cell (a +inf
+    threshold, frac 0, gives exact zeros)."""
+    return (latent > thresh).to(torch.float32)
+
+
+def _block_out(out: torch.Tensor | None, shape: tuple, dev) -> torch.Tensor:
+    """``out`` checked against ``shape``, or a new float32 block."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if tuple(out.shape) != shape or out.dtype != torch.float32:
+        raise ValueError(f"out must be float32 {list(shape)}, got "
+                         f"{out.dtype} {list(out.shape)}")
+    return out
+
+
+def draw_fault_normals(generator: torch.Generator, steps: int,
+                       batch: int) -> tuple:
+    """The unit normals behind :func:`draw_fault_latents`, in its draw
+    order (storm, ICE, delay burst, outage), each an (initial [1, B],
+    innovations [T, B]) pair: the draws every cell of the scenario axis
+    shares."""
+    from ccka_tpu_torch.signals.synthetic import _ar1_normals
+
+    return tuple(_ar1_normals(generator, (steps, batch)) for _ in range(4))
+
+
+def fault_lanes_p(derived: dict, normals: tuple, steps: int, t_pad: int,
+                  Z: int, *, price_dev: torch.Tensor | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``[T_pad, fault_rows(Z), S, B]`` fault block of S cells on one
+    set of draws (:func:`draw_fault_normals`, width B): cell s from the
+    float32 [S] values of ``derived`` (`search/params.py::ScenarioParams.
+    derived()["faults"]`). Each cell repeats :func:`fault_lanes_from_
+    latents`' float32 operations in its order, so a cell is bitwise the
+    baked block of its config on the same draws; the baked path's host
+    gates become arithmetic that is exact at the neutral value (coupling
+    0 multiplies by exactly 1.0; ``abs`` turns the delay lane's -0.0 at
+    frac 0 into the baked +0.0). ``price_dev`` [T, Z, B] is shared by
+    every cell; ``out`` takes a [T_pad, fault_rows(Z), S, B] view."""
+    from ccka_tpu_torch.signals.synthetic import _ar1_from_normals
+
+    d = derived
+    storm_n, ice_n, burst_n, outage_n = normals
+    dev, batch = storm_n[1].device, storm_n[1].shape[1]
+    S = len(d["storm_thresh"])
+    out = _block_out(out, (t_pad, lanes.fault_rows(Z), S, batch), dev)
+
+    def window(pair, name: str) -> torch.Tensor:            # [T, S, B]
+        return _window_p(_ar1_from_normals(*pair, d[name + "_rho64"]),
+                         _cells(d[name + "_thresh"], dev, 3))
+
+    hazard = 1.0 + _cells(d["storm_hazard"], dev, 3) * window(storm_n,
+                                                              "storm")
+    if price_dev is not None:
+        torch.mul(hazard[:, None], 1.0 + (
+            _cells(d["price_coupling"], dev, 3)[:, None]
+            * torch.clamp(price_dev, min=0.0)[:, :, None, :])
+            / PRICE_DEV_SIGMA, out=out[:steps, 0:Z])
+    else:
+        out[:steps, 0:Z] = hazard[:, None]
+    del hazard
+    out[:steps, Z] = _cells(d["ice_deny"], dev, 3) * window(ice_n, "ice")
+    burst = _ar1_from_normals(*burst_n, 0.8)
+    out[:steps, Z + 1] = torch.abs(torch.clamp(
+        _cells(d["delay_frac"], dev, 3) * (1.0 + 0.5 * burst)[:, None],
+        0.0, 0.9))
+    out[:steps, Z + 2] = window(outage_n, "outage")
+    out[:steps, Z + 3:] = 0.0
+    out[steps:] = 0.0
+    return out
+
+
+def packed_fault_lanes_p(derived: dict, generator: torch.Generator,
+                         steps: int, t_pad: int, Z: int, batch: int, *,
+                         price_dev: torch.Tensor | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`packed_fault_lanes` with the searchable intensities per
+    cell (every continuous field of the section arrives through
+    ``derived``): the draws at the inner width ``batch`` from
+    ``generator`` (the fault family's), then :func:`fault_lanes_p`'s
+    ``[T_pad, fault_rows(Z), S, batch]`` block, every cell on the same
+    storms (common random numbers)."""
+    return fault_lanes_p(derived, draw_fault_normals(generator, steps, batch),
+                         steps, t_pad, Z, price_dev=price_dev, out=out)
+
+
 def has_fault_lanes(exo_packed: torch.Tensor, Z: int) -> bool:
     """Whether a packed stream carries the fault block (from its row
     count; an unknown count raises)."""
@@ -152,3 +252,17 @@ def sample_fault_steps(faults: FaultsConfig, generator: torch.Generator,
     return FaultStep(preempt_hazard=block[:, 0:Z, 0],
                      deny_frac=block[:, Z, 0], delay_frac=block[:, Z + 1, 0],
                      signal_stale=block[:, Z + 2, 0])
+
+
+def _generate_p(cfg: FaultsConfig, derived: dict, generator: torch.Generator,
+                steps: int, t_pad: int, Z: int, batch: int, *, ctx: dict,
+                out: torch.Tensor) -> torch.Tensor:
+    """The "faults" family's traced-parameter generator
+    (`sim/lanes.py::lane_param_generator`): :func:`packed_fault_lanes_p`
+    coupled to the stream's spot noise (``cfg`` adds nothing: every
+    searchable field arrives through ``derived``)."""
+    return packed_fault_lanes_p(derived, generator, steps, t_pad, Z, batch,
+                                price_dev=ctx.get("price_dev"), out=out)
+
+
+lanes.provide_lane_param_generator("faults", _generate_p)

@@ -25,7 +25,9 @@ signal generator's `_bump` on the workload family's clock
 (`workloads/process.py::_time_of_day`). The seven latents are drawn in a
 fixed order whatever the config, so every config of one seed shares its
 draws. The neutral contract: with every rate and sigma at 0 the lanes
-are exactly 0.
+are exactly 0. For the scenario axis, :func:`draw_region_normals` and
+:func:`region_lanes_p` make the block of S cells whose spot storms
+differ (the other blocks keep their config gates) on shared draws.
 """
 
 from __future__ import annotations
@@ -179,6 +181,122 @@ def packed_region_lanes(geo: GeoConfig, generator: torch.Generator,
     return out
 
 
+def draw_region_normals(geo: GeoConfig, generator: torch.Generator,
+                        steps: int, Z: int, batch: int) -> tuple:
+    """The unit normals behind :func:`packed_region_lanes`' seven latents,
+    in its draw order (price, storm window, carbon, capacity denial,
+    inference, batch and background noise), each an (initial
+    [1, R, B], innovations [T, R, B]) pair."""
+    from ccka_tpu_torch.signals.synthetic import _ar1_normals
+
+    R = max(_zone_region_index(geo, Z)) + 1
+    return tuple(_ar1_normals(generator, (steps, R, batch))
+                 for _ in range(7))
+
+
+def region_lanes_p(geo: GeoConfig, derived: dict, normals: tuple,
+                   steps: int, t_pad: int, Z: int, *, dt_s: float,
+                   start_unix_s: float = 0.0, start_offset_s=None,
+                   wrap_period_s: float | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``[T_pad, region_rows(Z), S, B]`` region block of S cells on
+    one set of draws (:func:`draw_region_normals`). Only the spot-storm
+    block varies by cell (window, surge multiplier and storm carbon from
+    the float32 [S] values of ``derived``, `ScenarioParams.derived()
+    ["regions"]`): each cell adds ``(mult - 1) * storm`` to the price
+    deviation and ``carbon * storm`` to the carbon deviation, exact
+    no-ops where the window never opens, so a cell is bitwise the baked
+    block of its config. The sigma, capacity and migration blocks keep
+    :func:`packed_region_lanes`' host gates on ``geo`` and are computed
+    once. Clock arguments as for :func:`packed_region_lanes`."""
+    from ccka_tpu_torch.faults.process import _block_out, _cells, _window_p
+    from ccka_tpu_torch.signals.synthetic import _ar1_from_normals
+
+    d = derived
+    dev = normals[0][1].device
+    batch = normals[0][1].shape[2]
+    S = len(d["storm_thresh"])
+    zri_ix = torch.tensor(_zone_region_index(geo, Z), dtype=torch.long,
+                          device=dev)
+    out = _block_out(out, (t_pad, region_rows(Z), S, batch), dev)
+
+    def put(i: int, x: torch.Tensor | None) -> None:
+        """Field ``i`` broadcast to its Z rows: None for exact zeros,
+        [T, R, B] shared by every cell, or [T, S, R, B] by cell."""
+        dst = out[:steps, i * Z:(i + 1) * Z]                # [T, Z, S, B]
+        if x is None:
+            dst.fill_(0.0)
+        elif x.dim() == 3:
+            dst.copy_(x.index_select(1, zri_ix)[:, :, None].expand_as(dst))
+        else:
+            dst.copy_(x.permute(0, 2, 1, 3).index_select(1, zri_ix))
+
+    def latent(i: int, rho, sigma: float = 1.0) -> torch.Tensor:
+        return _ar1_from_normals(*normals[i], rho, sigma)
+
+    # The storm window by cell: [T, S, R, B].
+    storm = _window_p(latent(1, d["storm_rho64"]),
+                      _cells(d["storm_thresh"], dev, 4))
+    price = None
+    if geo.price_dev_sigma > 0.0:
+        price = (_f32(geo.price_dev_sigma) * latent(0, 0.97))[:, None]
+    surge = (_cells(d["storm_mult"], dev, 4) - 1.0) * storm
+    put(0, surge if price is None else price + surge)
+    del price, surge
+    carbon = None
+    if geo.carbon_dev_sigma_g_kwh > 0.0:
+        carbon = (_f32(geo.carbon_dev_sigma_g_kwh) * latent(2, 0.95))[:, None]
+    dirty = _cells(d["storm_carbon"], dev, 4) * storm
+    put(1, dirty if carbon is None else carbon + dirty)
+    del carbon, dirty, storm
+
+    cap = None
+    if geo.capacity_pods > 0.0:
+        shape = tuple(normals[3][1].shape)
+        cap = torch.full(shape, _f32(geo.capacity_pods), device=dev)
+        if geo.capacity_deny_window_frac > 0.0:
+            deny = _window(latent(3, _window_rho(
+                geo.capacity_deny_mean_ticks)), geo.capacity_deny_window_frac)
+            cap = cap * (1.0 - _f32(geo.capacity_deny_frac) * deny)
+        cap = torch.clamp(cap, min=0.0)
+    put(2, cap)
+    del cap
+
+    tod = _time_of_day(steps, batch, dt_s, start_unix_s, start_offset_s,
+                       wrap_period_s, dev)[:, None, :]    # [T, 1, 1 or B]
+    bump = _bump(tod, center=14.0 / 24, width=5.0 / 24)
+    for i, (rate, rho, sigma, level) in enumerate((
+            (geo.migratable_inference_pods, 0.9, 0.2, 0.4 + 0.6 * bump),
+            (geo.migratable_batch_pods, 0.85, 0.3, 1.5 - bump),
+            (geo.migratable_background_pods, 0.9, 0.2, None))):
+        x = None
+        if rate > 0.0:
+            noise = latent(4 + i, rho, sigma)
+            x = _f32(rate) * (1.0 + noise) if level is None \
+                else _f32(rate) * level * (1.0 + noise)
+            x = torch.clamp(x, min=0.0)
+        put(3 + i, x)
+    out[:steps, 6 * Z:] = 0.0
+    out[steps:] = 0.0
+    return out
+
+
+def packed_region_lanes_p(geo: GeoConfig, derived: dict,
+                          generator: torch.Generator, steps: int,
+                          t_pad: int, Z: int, batch: int, *, dt_s: float,
+                          start_unix_s: float = 0.0, start_offset_s=None,
+                          wrap_period_s: float | None = None,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`packed_region_lanes` with the spot-storm block per cell: the
+    seven latents' draws at the inner width ``batch`` from ``generator``
+    (the region family's), then :func:`region_lanes_p`'s
+    ``[T_pad, region_rows(Z), S, batch]`` block."""
+    return region_lanes_p(
+        geo, derived, draw_region_normals(geo, generator, steps, Z, batch),
+        steps, t_pad, Z, dt_s=dt_s, start_unix_s=start_unix_s,
+        start_offset_s=start_offset_s, wrap_period_s=wrap_period_s, out=out)
+
+
 def has_region_lanes(exo_packed: torch.Tensor, Z: int) -> bool:
     """Whether a packed stream carries the region block (from its row
     count; an unknown count raises)."""
@@ -229,3 +347,19 @@ def _generate(cfg: GeoConfig, generator: torch.Generator, steps: int,
 
 
 lanes.provide_lane_generator("regions", _generate)
+
+
+def _generate_p(cfg: GeoConfig, derived: dict, generator: torch.Generator,
+                steps: int, t_pad: int, Z: int, batch: int, *, ctx: dict,
+                out: torch.Tensor) -> torch.Tensor:
+    """The "regions" family's traced-parameter generator
+    (`sim/lanes.py::lane_param_generator`): :func:`packed_region_lanes_p`
+    on the stream's clock."""
+    return packed_region_lanes_p(
+        cfg, derived, generator, steps, t_pad, Z, batch, dt_s=ctx["dt_s"],
+        start_unix_s=ctx.get("start_unix_s", 0.0),
+        start_offset_s=ctx.get("start_offset_s"),
+        wrap_period_s=ctx.get("wrap_period_s"), out=out)
+
+
+lanes.provide_lane_param_generator("regions", _generate_p)

@@ -198,15 +198,7 @@ class SyntheticSignalSource(SignalSource):
         from ccka_tpu_torch.workloads.process import packed_workload_lanes
 
         z = self.cluster.n_zones
-        shape = (t_pad, self.packed_rows(), batch)
-        if out is None:
-            out = torch.empty(shape, dtype=torch.float32, device=dev)
-        elif (tuple(out.shape) != shape or out.dtype != torch.float32
-              or out.device.type != torch.device(dev).type
-              or not out.is_contiguous()):
-            raise ValueError(f"out must be a contiguous float32 tensor "
-                             f"{list(shape)} on {dev}, got {out.dtype} "
-                             f"{list(out.shape)} on {out.device}")
+        out = self._stream_out(out, (t_pad, self.packed_rows(), batch), dev)
         g = family_generator(seed, None, dev)
         noise = (_ar1_scan(g, (steps, z, batch), *_AR1_SPOT),
                  _ar1_scan(g, (steps, z, batch), *_AR1_CARBON),
@@ -244,6 +236,21 @@ class SyntheticSignalSource(SignalSource):
                 cfg, family_generator(seed, fam.key_tag, dev), steps, t_pad,
                 z, batch, ctx=ctx, out=out[:, base:hi])
             base = hi
+        return out
+
+    @staticmethod
+    def _stream_out(out: torch.Tensor | None, shape: tuple,
+                    dev) -> torch.Tensor:
+        """``out`` checked to be a contiguous float32 ``shape`` tensor on
+        ``dev``, or a new one."""
+        if out is None:
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+        if (tuple(out.shape) != shape or out.dtype != torch.float32
+                or out.device.type != torch.device(dev).type
+                or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous float32 tensor "
+                             f"{list(shape)} on {dev}, got {out.dtype} "
+                             f"{list(out.shape)} on {out.device}")
         return out
 
     def packed_trace_device(self, steps: int, seed: int, batch: int, *,
@@ -555,6 +562,48 @@ def _ar1_scan(generator: torch.Generator, shape, rho: float,
         (rho ** np.arange(1, steps + 1, dtype=np.float64)).astype(np.float32),
         device=dev).reshape((steps,) + (1,) * (len(shape) - 1))
     return y.add_(apow * x0)
+
+
+def _ar1_normals(generator: torch.Generator,
+                 shape) -> tuple[torch.Tensor, torch.Tensor]:
+    """The unit normals :func:`_ar1_scan` draws for ``shape`` ([T, ...]),
+    in its order: the initial condition [1, ...], then the [T, ...]
+    innovations."""
+    dev = generator.device
+    z0 = torch.randn((1,) + tuple(shape[1:]), generator=generator,
+                     device=dev)
+    return z0, torch.randn(shape, generator=generator, device=dev)
+
+
+def _ar1_from_normals(z0: torch.Tensor, z: torch.Tensor, rho,
+                      sigma: float = 1.0) -> torch.Tensor:
+    """:func:`_ar1_scan` on given normals (:func:`_ar1_normals`), with
+    its arithmetic step for step: bitwise it on the same draws. ``rho`` a
+    float gives the [T, ...] latent; a sequence of S floats gives
+    [T, S, ...], cell s the latent of ``rho[s]`` on the same draws (the
+    scenario axis: each cell's coefficients are formed in float64 and
+    rounded as the scalar scan rounds its own)."""
+    single = np.ndim(rho) == 0
+    rhos = [float(r) for r in np.atleast_1d(np.asarray(rho, np.float64))]
+    S, steps = len(rhos), z.shape[0]
+    tail = (1,) * (z.dim() - 1)
+
+    def per_cell(values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.float32),
+                               device=z.device).reshape((1, S) + tail)
+
+    x0 = sigma * z0
+    y = z.unsqueeze(1) * per_cell(
+        [np.float32(math.sqrt(1.0 - r * r) * sigma) for r in rhos])
+    span, coefs = 1, rhos
+    while span < steps:
+        y[span:] += y[:-span] * per_cell(coefs)
+        span, coefs = 2 * span, [c * c for c in coefs]
+    apow = np.stack([(r ** np.arange(1, steps + 1, dtype=np.float64))
+                     .astype(np.float32) for r in rhos], axis=1)
+    y.add_(torch.as_tensor(apow, device=z.device).reshape((steps, S) + tail)
+           * x0.unsqueeze(1))
+    return y[:, 0] if single else y
 
 
 def _bump(x, center: float, width: float):

@@ -1,6 +1,7 @@
-"""Row arithmetic of the packed ``[T_pad, rows, B]`` exo stream.
+"""Row arithmetic of the packed ``[T_pad, rows, B]`` exo stream, and the
+registries of lane generators and policy modes.
 
-The PyTorch form of the layout half of `ccka_tpu/sim/lanes.py`. A packed
+The PyTorch form of `ccka_tpu/sim/lanes.py`. A packed
 stream is the base exo block, then one optional row block per lane
 family, in the order of :data:`LANE_FAMILIES`. Every consumer (the
 rollout kernels' entries, the lane synthesizers, the unpackers) reads
@@ -14,6 +15,14 @@ are synthesized by the signal sources and read by the rollout kernels;
 the region block is synthesized through :func:`lane_generator` (its
 generator lives in `regions/process.py`) and read by the geo overlay
 (`regions/geo.py`), while the kernels stride past it.
+
+Each family may also supply a traced-parameter generator
+(:func:`lane_param_generator`): the same block for S cells of scenario
+parameters on shared draws, which the scenario axis of `search/axis.py`
+drives. The policy-mode registry (:func:`register_mode`,
+:func:`mode_engine`) holds each packed mode's engine entries; the four
+built-in modes register in `sim/megakernel.py`. Registering further lane
+families (the JAX package's `register_lane_family`) is not ported.
 
 Block sizes (each padded to a multiple of 8 rows):
 
@@ -108,6 +117,46 @@ def lane_generator(name: str):
     if name not in _GENERATORS:
         importlib.import_module(_PROVIDERS[name])
     return _GENERATORS[name]
+
+
+# The traced-parameter synthesis of each family (the scenario axis of
+# `search/axis.py`): name -> the module that supplies it. A family not
+# listed has no such generator and is synthesized constant across cells.
+_PARAM_PROVIDERS = {"faults": "ccka_tpu_torch.faults.process",
+                    "workloads": "ccka_tpu_torch.workloads.process",
+                    "regions": "ccka_tpu_torch.regions.process"}
+_PARAM_GENERATORS: dict = {}
+
+
+def provide_lane_param_generator(name: str, generate_p) -> None:
+    """Attach the traced-parameter synthesis function of family ``name``
+    (called by the module that owns the family when it is imported).
+    ``generate_p(config, derived, generator, steps, t_pad, Z, batch, *,
+    ctx, out)`` draws the family's latents at the inner width ``batch``
+    and writes the ``[t_pad, rows(Z), S, batch]`` block of S cells into
+    ``out``, cell s from ``derived`` (`search/params.py::ScenarioParams.
+    derived()[name]`, float32 [S] arrays) with every cell on the same
+    draws. A second, different function for one family is refused."""
+    if name not in {f.name for f in LANE_FAMILIES}:
+        raise ValueError(f"unknown lane family {name!r}; registered: "
+                         f"{sorted(f.name for f in LANE_FAMILIES)}")
+    have = _PARAM_GENERATORS.get(name)
+    if have is not None and have is not generate_p:
+        raise ValueError(f"lane family {name!r} already has a param "
+                         "generator")
+    _PARAM_GENERATORS[name] = generate_p
+
+
+def lane_param_generator(name: str):
+    """The traced-parameter synthesis function of family ``name``,
+    importing the module that supplies it on first use; None for a
+    family that has none (unknown names raise)."""
+    if name not in {f.name for f in LANE_FAMILIES}:
+        raise ValueError(f"unknown lane family {name!r}; registered: "
+                         f"{sorted(f.name for f in LANE_FAMILIES)}")
+    if name not in _PARAM_GENERATORS and name in _PARAM_PROVIDERS:
+        importlib.import_module(_PARAM_PROVIDERS[name])
+    return _PARAM_GENERATORS.get(name)
 
 
 def _subset_sums(Z: int) -> dict[int, tuple[str, ...]]:
@@ -226,3 +275,100 @@ def block_bytes(block_T: int, rows: int, batch: int) -> int:
     """float32 bytes of one stream block, the unit of the streaming
     pipeline's memory bound (two blocks live)."""
     return 4 * block_T * rows * batch
+
+
+# ---- policy-mode registry ---------------------------------------------------
+#
+# A packed policy mode is a named bundle of engine entries over one stream
+# layout: ``packed_summary`` (the whole-stream entry, `sim/megakernel.py::
+# packed_mode_summary`) and ``block_summary`` (the carried-state closures of
+# `packed_mode_block_summary_fn`). `sim/megakernel.py` registers the four
+# built-in modes and dispatches through here. The port has no separate
+# reference engine: a CPU stream runs the plain version inside the same
+# entries. The multi-device engine (ROADMAP item 14) will add a slot.
+
+_ENGINE_PROVIDERS = {
+    "packed_summary": "ccka_tpu_torch.sim.megakernel",
+    "block_summary": "ccka_tpu_torch.sim.megakernel",
+}
+_MODE_REGISTRAR = "ccka_tpu_torch.sim.megakernel"
+
+
+class EngineMode:
+    """One registered packed policy mode and its engine entries (None
+    until a module provides them)."""
+
+    __slots__ = ("name", "packed_summary", "block_summary")
+
+    def __init__(self, name: str):
+        self.name = name
+        for slot in _ENGINE_PROVIDERS:
+            setattr(self, slot, None)
+
+
+MODES: dict[str, EngineMode] = {}
+
+
+def register_mode(name: str, **engines) -> EngineMode:
+    """Register a packed policy mode with its engine entries (a second
+    registration of a name is refused)."""
+    if name in MODES:
+        raise ValueError(f"packed mode {name!r} already registered")
+    MODES[name] = EngineMode(name)
+    for slot, fn in engines.items():
+        provide_mode_engine(name, slot, fn)
+    return MODES[name]
+
+
+def unregister_mode(name: str) -> None:
+    """Remove a mode (for tests that register a throwaway mode)."""
+    MODES.pop(name, None)
+
+
+def provide_mode_engine(name: str, slot: str, fn) -> None:
+    """Attach one engine entry to a registered mode; a filled slot is not
+    filled again."""
+    if slot not in _ENGINE_PROVIDERS:
+        raise ValueError(f"unknown engine slot {slot!r}; have "
+                         f"{sorted(_ENGINE_PROVIDERS)}")
+    mode = resolve_mode(name)
+    if getattr(mode, slot) is not None:
+        raise ValueError(f"mode {name!r} already has a {slot} engine")
+    setattr(mode, slot, fn)
+
+
+def mode_names() -> tuple[str, ...]:
+    """The registered mode names (the built-in four register when
+    `sim/megakernel.py` is imported, which this does first)."""
+    if not MODES:
+        importlib.import_module(_MODE_REGISTRAR)
+    return tuple(MODES)
+
+
+def resolve_mode(name: str) -> EngineMode:
+    """The registered mode ``name``; an unknown name raises with the
+    registered vocabulary."""
+    if name not in MODES:
+        importlib.import_module(_MODE_REGISTRAR)
+    if name not in MODES:
+        raise ValueError(f"unknown packed mode {name!r} — have "
+                         f"{tuple(MODES)}")
+    return MODES[name]
+
+
+def mode_engine(name: str, slot: str):
+    """The engine entry of mode ``name`` for ``slot``, importing the
+    slot's provider on first use. A mode without it raises, naming both:
+    no other engine stands in."""
+    mode = resolve_mode(name)
+    if slot not in _ENGINE_PROVIDERS:
+        raise ValueError(f"unknown engine slot {slot!r}; have "
+                         f"{sorted(_ENGINE_PROVIDERS)}")
+    fn = getattr(mode, slot)
+    if fn is None:
+        importlib.import_module(_ENGINE_PROVIDERS[slot])
+        fn = getattr(mode, slot)
+    if fn is None:
+        raise ValueError(f"packed mode {name!r} has no {slot} engine "
+                         "registered")
+    return fn

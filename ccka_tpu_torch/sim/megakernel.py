@@ -41,6 +41,13 @@ time block at a time (the kernels' CARRY instantiations), the state that
 crosses a block boundary packed as `sim/rollout.py::CarryLayout` rows:
 the streaming pipeline's unit (`sim/streaming.py`).
 
+Policy modes: "rule", "carbon", "neural" and "plan" register here in the
+mode registry of `sim/lanes.py`, each with its whole-stream entry and its
+carried-state closures; :func:`packed_mode_summary`,
+:func:`packed_mode_block_summary_fn` and :func:`packed_mode_summary_fn`
+dispatch through it, and an unknown mode is refused with the registered
+names.
+
 Device rule: a stream on a CUDA device launches the kernel (or raises); a
 stream on the CPU runs the plain version. Each ``*_summary_from_packed``
 entry counts its kernel launches in its ``launches`` attribute; the
@@ -53,6 +60,7 @@ As in the JAX package, workload class c consumes capacity type c
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -62,6 +70,7 @@ import torch
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import ClusterConfig
 from ccka_tpu_torch.signals.base import ExogenousTrace
+from ccka_tpu_torch.sim import lanes as _lanes
 from ccka_tpu_torch.sim.lanes import exo_rows, resolve_layout
 from ccka_tpu_torch.sim.metrics import EpisodeSummary, SummaryAcc
 from ccka_tpu_torch.sim.types import Action, ClusterState, SimParams
@@ -1016,9 +1025,7 @@ def _carry_layout(params: SimParams, cluster: ClusterConfig, mode: str,
     from ccka_tpu_torch.sim.lanes import stream_layout
     from ccka_tpu_torch.sim.rollout import CarryLayout
 
-    if mode not in BLOCK_MODES:
-        raise ValueError(f"unknown packed mode {mode!r} — have "
-                         f"{BLOCK_MODES}")
+    _lanes.resolve_mode(mode)
     P, Z = cluster.n_pools, cluster.n_zones
     faults, wl = stream_layout(stream_rows, Z)
     return CarryLayout(P, Z, int(params.provision_pipeline_k),
@@ -1090,6 +1097,18 @@ def packed_mode_block_summary_fn(params: SimParams, cluster: ClusterConfig,
     runs CarbonAwarePolicy's constants. ``net_params`` (mode "neural"):
     an ActorCritic params tree, a leading population axis allowed.
     """
+    return _lanes.mode_engine(mode, "block_summary")(
+        params, cluster, T=T, block_T=block_T, t_chunk=t_chunk,
+        stochastic=stochastic, net_params=net_params,
+        plan_packed=plan_packed)
+
+
+def _block_summary_fns(mode: str, params: SimParams, cluster: ClusterConfig,
+                       *, T: int, block_T: int, t_chunk: int = 64,
+                       stochastic: bool = True, net_params=None,
+                       plan_packed=None) -> BlockSummaryFns:
+    """The "block_summary" engine of the four built-in modes (the
+    registry's entry behind :func:`packed_mode_block_summary_fn`)."""
     from ccka_tpu_torch.kernels import build
     from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
     from ccka_tpu_torch.sim.lanes import block_layout
@@ -1098,9 +1117,6 @@ def packed_mode_block_summary_fn(params: SimParams, cluster: ClusterConfig,
                                             resume_rollout_summary,
                                             unpack_carry)
 
-    if mode not in BLOCK_MODES:
-        raise ValueError(f"unknown packed mode {mode!r} — have "
-                         f"{BLOCK_MODES}")
     n_blocks, T_pad = block_layout(T, block_T, t_chunk)
     P, Z = cluster.n_pools, cluster.n_zones
     K = int(params.provision_pipeline_k)
@@ -1257,6 +1273,36 @@ def packed_mode_summary(params: SimParams, cluster: ClusterConfig, mode: str,
     kernel on a CUDA stream, the plain version on a CPU one): the
     unblocked side of the blocked == unblocked comparison. Arguments as
     for :func:`packed_mode_block_summary_fn`."""
+    return _lanes.mode_engine(mode, "packed_summary")(
+        params, cluster, exo_packed, T, seed, stochastic=stochastic,
+        net_params=net_params, plan_packed=plan_packed)
+
+
+def packed_mode_summary_fn(params: SimParams, cluster: ClusterConfig,
+                           mode: str, *, T: int, stochastic: bool = True,
+                           net_params=None, plan_packed=None):
+    """``(stream, seed) -> EpisodeSummary``: :func:`packed_mode_summary`
+    of ``mode`` closed over its arguments, the unit the scenario search
+    scores with (`search/adversarial.py`). The mode is resolved here, so
+    an unknown one is refused before any stream is made. (The JAX
+    package's ``b_block`` and ``t_chunk`` set its kernel grid; the port's
+    kernels take a whole stream in one launch.)"""
+    engine = _lanes.mode_engine(mode, "packed_summary")
+
+    def fn(stream: torch.Tensor, seed: int) -> EpisodeSummary:
+        return engine(params, cluster, stream, T, seed,
+                      stochastic=stochastic, net_params=net_params,
+                      plan_packed=plan_packed)
+
+    return fn
+
+
+def _packed_summary(mode: str, params: SimParams, cluster: ClusterConfig,
+                    exo_packed: torch.Tensor, T: int, seed: int = 0, *,
+                    stochastic: bool = True, net_params=None,
+                    plan_packed=None) -> EpisodeSummary:
+    """The "packed_summary" engine of the four built-in modes (the
+    registry's entry behind :func:`packed_mode_summary`)."""
     from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
 
     dev = exo_packed.device
@@ -1279,3 +1325,11 @@ def packed_mode_summary(params: SimParams, cluster: ClusterConfig, mode: str,
         return plan_megakernel_summary_from_packed(
             params, cluster, plan_packed.contiguous(), exo_packed, T, **kw)
     raise ValueError(f"unknown packed mode {mode!r} — have {BLOCK_MODES}")
+
+
+# The four built-in modes, registered once (`sim/lanes.py` mode registry).
+for _mode in BLOCK_MODES:
+    _lanes.register_mode(
+        _mode, packed_summary=functools.partial(_packed_summary, _mode),
+        block_summary=functools.partial(_block_summary_fns, _mode))
+del _mode

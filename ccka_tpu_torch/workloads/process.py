@@ -14,7 +14,9 @@ windows; batch backfill is anti-diurnal with burst waves; background is a
 noisy floor. Windows reuse the fault family's thresholded AR(1). As for
 faults, :func:`draw_workload_latents` draws and
 :func:`workload_lanes_from_latents` is a pure function of the latents.
-With every rate at 0 the lanes are exactly 0.
+With every rate at 0 the lanes are exactly 0. For the scenario axis,
+:func:`draw_workload_normals` and :func:`workload_lanes_p` make the
+block of S cells of rates and spike amplitudes on shared draws.
 """
 
 from __future__ import annotations
@@ -120,6 +122,87 @@ def packed_workload_lanes(wl: WorkloadsConfig, generator: torch.Generator,
         start_offset_s=start_offset_s, wrap_period_s=wrap_period_s)
 
 
+def draw_workload_normals(generator: torch.Generator, steps: int,
+                          batch: int) -> tuple:
+    """The unit normals behind :func:`draw_workload_latents`, in its draw
+    order (inference noise, flash window, batch noise, burst window,
+    background noise), each an (initial [1, B], innovations [T, B])
+    pair."""
+    from ccka_tpu_torch.signals.synthetic import _ar1_normals
+
+    return tuple(_ar1_normals(generator, (steps, batch)) for _ in range(5))
+
+
+def workload_lanes_p(derived: dict, normals: tuple, steps: int, t_pad: int,
+                     Z: int, *, dt_s: float, start_unix_s: float = 0.0,
+                     start_offset_s=None,
+                     wrap_period_s: float | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``[T_pad, workload_rows(Z), S, B]`` workload block of S cells
+    on one set of draws (:func:`draw_workload_normals`): cell s's rates,
+    window and spike amplitudes from the float32 [S] values of
+    ``derived`` (`ScenarioParams.derived()["workloads"]`), each cell
+    repeating :func:`workload_lanes_from_latents`' float32 operations in
+    its order (bitwise the baked block of its config on the same draws).
+    The clock shapes and the three noise latents do not depend on the
+    cell and are computed once. Clock arguments as for
+    :func:`packed_workload_lanes`."""
+    from ccka_tpu_torch.faults.process import _block_out, _cells, _window_p
+    from ccka_tpu_torch.signals.synthetic import _ar1_from_normals, _bump
+
+    d = derived
+    inf_n, flash_n, bat_n, burst_n, bg_n = normals
+    dev, batch = inf_n[1].device, inf_n[1].shape[1]
+    S = len(d["inf_rate"])
+    out = _block_out(out, (t_pad, lanes.workload_rows(Z), S, batch), dev)
+
+    def cells(name: str) -> torch.Tensor:
+        return _cells(d[name], dev, 3)
+
+    def window(pair, name: str) -> torch.Tensor:            # [T, S, B]
+        return _window_p(_ar1_from_normals(*pair, d[name + "_rho64"]),
+                         cells(name + "_thresh"))
+
+    tod = _time_of_day(steps, batch, dt_s, start_unix_s, start_offset_s,
+                       wrap_period_s, dev)
+    shape = _bump(tod, center=14.0 / 24, width=5.0 / 24)     # [T, 1 or B]
+    diurnal = (0.4 + 0.6 * shape)[:, None]
+    noise = 1.0 + _ar1_from_normals(*inf_n, 0.9, 0.2)[:, None]
+    out[:steps, 0] = torch.clamp(
+        cells("inf_rate") * diurnal * noise
+        * (1.0 + (cells("flash_mult") - 1.0) * window(flash_n, "flash")),
+        min=0.0)
+    anti = (1.5 - shape)[:, None]
+    noise = 1.0 + _ar1_from_normals(*bat_n, 0.85, 0.3)[:, None]
+    out[:steps, 1] = torch.clamp(
+        cells("batch_rate") * anti * noise
+        * (1.0 + (cells("burst_mult") - 1.0) * window(burst_n, "burst")),
+        min=0.0)
+    out[:steps, 2] = torch.clamp(
+        cells("bg_rate") * (1.0 + _ar1_from_normals(*bg_n, 0.9, 0.2)[:, None]),
+        min=0.0)
+    out[:steps, 3:] = 0.0
+    out[steps:] = 0.0
+    return out
+
+
+def packed_workload_lanes_p(derived: dict, generator: torch.Generator,
+                            steps: int, t_pad: int, Z: int, batch: int, *,
+                            dt_s: float, start_unix_s: float = 0.0,
+                            start_offset_s=None,
+                            wrap_period_s: float | None = None,
+                            out: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """:func:`packed_workload_lanes` with the searchable rates and spike
+    amplitudes per cell: the draws at the inner width ``batch`` from
+    ``generator`` (the workload family's), then :func:`workload_lanes_p`'s
+    ``[T_pad, workload_rows(Z), S, batch]`` block."""
+    return workload_lanes_p(
+        derived, draw_workload_normals(generator, steps, batch), steps,
+        t_pad, Z, dt_s=dt_s, start_unix_s=start_unix_s,
+        start_offset_s=start_offset_s, wrap_period_s=wrap_period_s, out=out)
+
+
 def has_workload_lanes(exo_packed: torch.Tensor, Z: int) -> bool:
     """Whether a packed stream carries the workload block (from its row
     count; an unknown count raises)."""
@@ -147,3 +230,20 @@ def sample_workload_steps(wl: WorkloadsConfig, generator: torch.Generator,
     return WorkloadStep(inf_arrivals=block[:, 0, 0],
                         batch_arrivals=block[:, 1, 0],
                         bg_arrivals=block[:, 2, 0])
+
+
+def _generate_p(cfg: WorkloadsConfig, derived: dict,
+                generator: torch.Generator, steps: int, t_pad: int, Z: int,
+                batch: int, *, ctx: dict, out: torch.Tensor) -> torch.Tensor:
+    """The "workloads" family's traced-parameter generator
+    (`sim/lanes.py::lane_param_generator`): :func:`packed_workload_lanes_p`
+    on the stream's clock (``cfg``'s kernel-side knobs stay in
+    SimParams)."""
+    return packed_workload_lanes_p(
+        derived, generator, steps, t_pad, Z, batch, dt_s=ctx["dt_s"],
+        start_unix_s=ctx.get("start_unix_s", 0.0),
+        start_offset_s=ctx.get("start_offset_s"),
+        wrap_period_s=ctx.get("wrap_period_s"), out=out)
+
+
+lanes.provide_lane_param_generator("workloads", _generate_p)

@@ -7,23 +7,25 @@ fault preset) pair: the vocabulary of the per-family scoreboard
 (60-pod burst peak, 9 pods a node, 3 base nodes), so inference queues
 build under tight fleets and batch work needs sustained slack.
 
-Scenarios minted by the adversarial search (explicit ``faults``/``geo``
-sections with a ``params_json``/``params_digest`` provenance pair) need
-the search parameters and the region lanes, which the port has not yet
-(ROADMAP queue A item 13): such a scenario raises NotImplementedError
-here rather than run without its digest check.
+A scenario can also be minted by the adversarial search
+(`search/adversarial.py`): explicit ``faults``/``geo`` sections in place
+of a preset name, and the provenance pair ``params_json`` (the canonical
+`search/params.py::ScenarioParams` JSON of the cell) and
+``params_digest`` (its sha256). :meth:`Scenario.validate` refuses a
+minted scenario whose digest does not match its parameters, and the
+codec (:func:`scenario_from_doc`, :func:`load_minted_scenarios`) is the
+JAX package's document layout, so a scenario minted by either package
+loads in the other.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 from ccka_tpu_torch.config import (FAULT_PRESETS, FaultsConfig, GeoConfig,
-                                   WorkloadsConfig, _asdict)
-
-_MINTED = ("minted scenarios (params_json/params_digest, geo sections) "
-           "need the search parameters and region lanes the port has not "
-           "yet: ROADMAP queue A item 13")
+                                   WorkloadsConfig, _asdict, _from_dict)
 
 
 @dataclass(frozen=True)
@@ -53,9 +55,23 @@ class Scenario:
                 f"{self.fault_preset!r}; presets: {sorted(FAULT_PRESETS)}")
         if self.faults is not None:
             self.faults.validate()
-        if self.params_json or self.params_digest or (
-                self.geo is not None and self.geo.enabled):
-            raise NotImplementedError(f"scenario {self.name!r}: {_MINTED}")
+        if self.geo is not None:
+            self.geo.validate()
+        if bool(self.params_json) != bool(self.params_digest):
+            raise ValueError(
+                f"scenario {self.name!r}: minted provenance needs BOTH "
+                "params_json and params_digest (one without the other "
+                "is an unverifiable record)")
+        if self.params_json:
+            from ccka_tpu_torch.search.params import params_digest
+
+            got = params_digest(self.params_json)
+            if got != self.params_digest:
+                raise ValueError(
+                    f"scenario {self.name!r}: params digest mismatch — "
+                    f"stored {self.params_digest[:12]}…, params hash to "
+                    f"{got[:12]}…. The stored parameters were modified "
+                    "after minting; refusing a tampered scenario.")
 
     @property
     def minted(self) -> bool:
@@ -70,7 +86,8 @@ class Scenario:
                 "background": w.background_rate_pods}
 
     def to_doc(self) -> dict:
-        """JSON-serializable document, the JAX package's layout."""
+        """JSON-serializable document, the JAX package's layout, which
+        :func:`scenario_from_doc` inverts."""
         doc = {"name": self.name, "description": self.description,
                "workloads": _asdict(self.workloads),
                "fault_preset": self.fault_preset,
@@ -82,6 +99,47 @@ class Scenario:
         if self.geo is not None:
             doc["geo"] = _asdict(self.geo)
         return doc
+
+
+def scenario_from_doc(doc: dict) -> Scenario:
+    """A scenario rebuilt from its document and validated, the digest
+    check included."""
+    sc = Scenario(
+        name=str(doc["name"]), description=str(doc.get("description", "")),
+        workloads=_from_dict(WorkloadsConfig, doc["workloads"]),
+        fault_preset=str(doc.get("fault_preset", "")),
+        faults=(_from_dict(FaultsConfig, doc["faults"])
+                if doc.get("faults") is not None else None),
+        geo=(_from_dict(GeoConfig, doc["geo"])
+             if doc.get("geo") is not None else None),
+        params_json=str(doc.get("params_json", "")),
+        params_digest=str(doc.get("params_digest", "")),
+        minted_by=str(doc.get("minted_by", "")))
+    sc.validate()
+    return sc
+
+
+def load_minted_scenarios(path: str) -> dict[str, Scenario]:
+    """Minted scenarios from a ``--mint-out`` JSON file or a directory of
+    them, each validated (digest-checked) on load. A name that is already
+    taken, by the hand-named library or an earlier file, is refused: a
+    minted cell must not shadow a published row."""
+    files = []
+    if os.path.isdir(path):
+        files = [os.path.join(path, f) for f in sorted(os.listdir(path))
+                 if f.endswith(".json")]
+    elif os.path.exists(path):
+        files = [path]
+    out: dict[str, Scenario] = {}
+    for f in files:
+        with open(f, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        sc = scenario_from_doc(doc.get("scenario", doc))
+        if sc.name in WORKLOAD_SCENARIOS or sc.name in out:
+            raise ValueError(f"minted scenario {sc.name!r} ({f}) "
+                             "collides with an existing scenario name")
+        out[sc.name] = sc
+    return out
 
 
 WORKLOAD_SCENARIOS: dict[str, Scenario] = {
@@ -140,7 +198,8 @@ def resolve_scenarios(names) -> dict[str, Scenario]:
 def scenario_source(cfg, scenario: Scenario):
     """A SyntheticSignalSource for this scenario's widened stream:
     workload lanes, plus fault lanes when the scenario names a preset or
-    carries a faults section. Scenarios drawn from one seed share their
+    carries a faults section, plus region lanes for an enabled geo
+    section (a minted one). Scenarios drawn from one seed share their
     exo rows bitwise."""
     from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
 
@@ -148,6 +207,9 @@ def scenario_source(cfg, scenario: Scenario):
     faults = scenario.faults
     if faults is None and scenario.fault_preset:
         faults = FAULT_PRESETS[scenario.fault_preset]
+    extra = ({"regions": scenario.geo}
+             if scenario.geo is not None and scenario.geo.enabled else None)
     return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
                                  cfg.signals, faults=faults,
-                                 workloads=scenario.workloads)
+                                 workloads=scenario.workloads,
+                                 extra_lanes=extra)

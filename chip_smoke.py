@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Ten main paths. The rule-profile fleet rollout: a batch of clusters
+Eleven main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -28,7 +28,10 @@ tick deadline, its lanes selected inside one graph replayed for the
 whole fleet or for every tenant chunk, the overload board and the
 fleet-scale record. Geo arbitrage: a fleet-day widened by per-region
 lanes under the rollout kernels, the migration policies' expectation
-dynamics over those lanes, and their Pareto fronts.
+dynamics over those lanes, and their Pareto fronts. The adversarial
+scenario search: a population of scenario parameterizations folded into
+one fleet-width stream, scored by one kernel launch an iteration of a
+CEM search, the worst case minted and replayed.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -312,7 +315,26 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (d) `geo --json` in a process of its own equal to the direct call, a
    service's geo gauges {} before the publish and the snapshot after it,
    with both exporter series;
-17. one JSON line listing every kernel and lane instantiation, the
+17. the scenario axis and the adversarial search (the main path of the
+   fourteenth slice; no new kernel: the rule and carbon <FAULTS,WL_D=16>
+   instantiations on a 104-row stream of S cells), default preset (Z = 3,
+   one region): (a) an S = 1 axis stream at B = 8192 x T = 2880 bitwise
+   the baked source's; cell 5 of the 12 x 2048 population stream
+   (29.4 GB) bitwise its baked source's; (b) both kernels on the
+   population stream, counted, timed against their bounds, and held
+   against their plain versions at S = 4 x inner 256 x T = 360, both
+   modes (phase 4's standard); (c) `search_scenarios` (rule, 5 x 12 at
+   inner 2048 x T = 2880), the counters zeroed just before and read just
+   after (10 launches): each iteration's synthesis, kernel and host
+   seconds, peak bytes, the minted value and dominance, `replay_minted`
+   exactly equal; 12 cells in one launch against 3 through baked sources
+   one at a time, reported; (d) `scenario-search --iters 2 --pop 4
+   --mint-out` in a process of its own, `scenarios --minted-dir` listing
+   the mint, a tampered copy refused; (e) a blocked axis day (8 x 360,
+   S = 4 x 2048) through the double-buffered drive on the rule CARRY
+   kernel, bitwise the unblocked reference, S = 1 blocks bitwise the
+   baked blocks. It writes `runs/chip_smoke_search/`;
+18. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -4509,6 +4531,353 @@ def geo_phase(dev, card: str, setup, hold, plain, rule_fn,
     return rec
 
 
+# ---- the scenario axis and the adversarial search (phase 17) ---------------
+
+SEARCH_SEED = 151                   # the stream seed of every search stream
+SEARCH_POP, SEARCH_INNER = 12, 2048  # 17a-17c: the population at fleet width
+SEARCH_ITERS = 5
+SEARCH_CELL = 5                     # 17a: the cell held against its source
+SEARCH_S1_B = 8192                  # 17a, 17e: the S = 1 streams
+SEARCH_PARITY_S, SEARCH_PARITY_INNER = 4, 256   # 17b: the plain versions
+SEARCH_LOOP_CELLS = 3               # 17c: cells scored one source at a time
+SEARCH_DAY_S = 4                    # 17e: the blocked axis day, S x 2048
+SEARCH_DIR = os.path.join("runs", "chip_smoke_search")
+SEARCH_POLICIES = ("rule", "carbon")
+
+
+def search_cells(n: int, seed: int):
+    """``n`` cells uniform in the middle of the search box (every
+    searchable mechanism live)."""
+    from ccka_tpu_torch.search.params import (PARAM_NAMES, SEARCH_BOUNDS,
+                                              ScenarioParams)
+
+    rng = np.random.default_rng(seed)
+    lo = np.asarray([SEARCH_BOUNDS[k][0] for k in PARAM_NAMES])
+    hi = np.asarray([SEARCH_BOUNDS[k][1] for k in PARAM_NAMES])
+    nat = lo + (0.2 + 0.6 * rng.uniform(size=(n, len(PARAM_NAMES)))) * (
+        hi - lo)
+    return ScenarioParams.from_array(nat).clip_to_bounds()
+
+
+def search_phase(dev, card: str, hold) -> dict:
+    """17: the scenario axis and the adversarial search
+    (`ccka_tpu_torch/search/`) on the card, default preset (Z = 3, one
+    region), every stream 104 rows (exo, faults, workloads, regions).
+    (a) an S = 1 axis stream at B = 8192 x T = 2880 bitwise the baked
+    source's of the same cell and seed; cell 5 of the 12 x 2048
+    population stream (29.4 GB) bitwise its baked source's at B = 2048.
+    (b) the rule and carbon <FAULTS,WL_D=16> kernels on the population
+    stream, counted and timed against their bounds; each held against its
+    plain version at S = 4 x inner 256 x T = 360, both modes (phase 4's
+    standard).
+    (c) `search_scenarios` (rule, 5 iterations of 12 at inner 2048 x
+    T = 2880, stochastic) with the counters zeroed just before and read
+    just after (10 launches: 5 populations, the S = 1 re-score, the four
+    hand-named cells): each iteration's synthesis, kernel and host
+    seconds, the peak bytes, the minted value and dominance;
+    `replay_minted` exactly the minted value; reported, not gated, 12
+    cells in one stream and launch against 3 cells through baked sources
+    one at a time.
+    (d) `python -m ccka_tpu_torch scenario-search --iters 2 --pop 4
+    --mint-out` in a process of its own (started beside (b)'s plain
+    versions), its document read back, `scenarios --minted-dir` listing
+    it, a tampered copy refused naming the digest.
+    (e) a blocked axis day (8 blocks of 360, S = 4 x inner 2048) through
+    the double-buffered streaming drive on the rule CARRY kernel, bitwise
+    the unblocked reference; S = 1 blocks bitwise the baked blocks."""
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch import cli
+    from ccka_tpu_torch.search.adversarial import (ScenarioScorer,
+                                                   replay_minted,
+                                                   search_scenarios)
+    from ccka_tpu_torch.search.axis import ScenarioAxisSource
+    from ccka_tpu_torch.search.params import ScenarioParams
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    rec: dict = {"launches_by_path": {}, "kernels": {}}
+    cfg = PRESETS["default"]()
+    cells = search_cells(SEARCH_POP, SEARCH_SEED)
+    scorer = ScenarioScorer(cfg, policy="rule", inner_batch=SEARCH_INNER,
+                            seed=SEARCH_SEED, device=dev)
+    params = scorer.sim_params
+    sections = dict(base_faults=scorer.base_faults,
+                    base_workloads=scorer.base_workloads,
+                    base_geo=scorer.base_geo)
+
+    def baked(s: int, src_cells=cells):
+        fa, wl, geo = src_cells.to_config(s, **sections)
+        return SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                     cfg.signals, faults=fa, workloads=wl,
+                                     extra_lanes={"regions": geo})
+
+    def axis(src_cells):
+        return ScenarioAxisSource(
+            cfg.cluster, cfg.workload, cfg.sim, cfg.signals, src_cells,
+            faults=sections["base_faults"],
+            workloads=sections["base_workloads"],
+            geo=sections["base_geo"])
+
+    # ---- 17a: S = 1 and one cell of the population, bitwise
+    one, one_s = synced(lambda: axis(cells.row(0)).packed_trace_device(
+        T_DAY, SEARCH_SEED, SEARCH_S1_B, device=dev))
+    ref, ref_s = synced(lambda: baked(0).packed_trace_device(
+        T_DAY, SEARCH_SEED, SEARCH_S1_B, device=dev))
+    if one.shape[1] != 104 or not torch.equal(one, ref):
+        fail(f"17a: the S = 1 axis stream ({one.shape[1]} rows) is not "
+             f"bitwise the baked stream at B={SEARCH_S1_B}")
+    del one, ref
+    scorer.source.set_params(cells)
+    torch.cuda.reset_peak_memory_stats()
+    pop, pop_s = synced(lambda: scorer.source.packed_trace_device(
+        T_DAY, SEARCH_SEED, SEARCH_POP * SEARCH_INNER, device=dev))
+    pop_peak = torch.cuda.max_memory_allocated()
+    cell = baked(SEARCH_CELL).packed_trace_device(T_DAY, SEARCH_SEED,
+                                                  SEARCH_INNER, device=dev)
+    lo = SEARCH_CELL * SEARCH_INNER
+    if not torch.equal(pop[:, :, lo:lo + SEARCH_INNER], cell):
+        fail(f"17a: cell {SEARCH_CELL} of the population stream is not "
+             f"bitwise its baked source's stream")
+    del cell
+    rec["synthesis"] = {"s1_axis_s": one_s, "s1_baked_s": ref_s,
+                        "population_s": pop_s,
+                        "population_gb": pop.numel() * 4 / 1e9,
+                        "population_peak_gb": pop_peak / 1e9}
+    log(f"# 17a default (Z=3, one region), 104 rows: S=1 B={SEARCH_S1_B} "
+        f"T={T_DAY} bitwise the baked stream (axis {one_s:.3f} s, baked "
+        f"{ref_s:.3f} s); population {SEARCH_POP} x {SEARCH_INNER} "
+        f"({pop.numel() * 4 / 1e9:.1f} GB, peak {pop_peak / 1e9:.1f} GB) "
+        f"in {pop_s:.3f} s, cell {SEARCH_CELL} bitwise its baked source "
+        f"{lap()}")
+
+    # ---- 17b: the kernels on the population stream
+    B_pop = SEARCH_POP * SEARCH_INNER
+    kernel_counts(clear=True)
+    outs = {p: mk.packed_mode_summary(params, cfg.cluster, p, pop, T_DAY,
+                                      SEARCH_SEED) for p in SEARCH_POLICIES}
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    labels = {p: geo_label(p, True, 16) for p in SEARCH_POLICIES}
+    if counts != {labels[p]: 1 for p in SEARCH_POLICIES}:
+        fail(f"17b: the population stream launched {counts}")
+    rec["launches_by_path"]["scenario population stream, 12 x 2048 "
+                            "(phase 17b)"] = counts
+    for p in SEARCH_POLICIES:
+        for f in ("usd_per_slo_hour", "slo_attainment", "inf_queue_mean"):
+            v = getattr(outs[p], f)
+            if v.shape != (B_pop,) or not bool(torch.isfinite(v).all()):
+                fail(f"17b: {p}.{f} malformed on the population stream")
+        ms = median_ms(lambda: mk.packed_mode_summary(
+            params, cfg.cluster, p, pop, T_DAY, SEARCH_SEED))
+        b_ms, b_by, _terms, _ops = lane_bound(cfg, p, "mixed", B=B_pop)
+        rec["kernels"][labels[p]] = {"ms": ms, "bound_ms": b_ms,
+                                     "bound_by": b_by}
+        log(f"#   {labels[p]} on the population stream (B={B_pop} "
+            f"T={T_DAY}): {ms:.4f} ms (median of {N_TIMED}), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    del outs, pop
+    torch.cuda.empty_cache()
+
+    # 17d's shell runs beside the plain versions (host-bound).
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SEARCH_DIR)
+    os.makedirs(out_dir, exist_ok=True)
+    mint_path = os.path.join(out_dir, "mint.json")
+    shell = start_side_process(["-m", "ccka_tpu_torch", "scenario-search",
+                                "--iters", "2", "--pop", "4",
+                                "--mint-out", mint_path])
+
+    short = axis(ScenarioParams.from_array(
+        cells.to_array()[:SEARCH_PARITY_S]))
+    stream = short.packed_trace_device(
+        T_PARITY, SEARCH_SEED + 1, SEARCH_PARITY_S * SEARCH_PARITY_INNER,
+        device=dev)
+    for p in SEARCH_POLICIES:
+        for st in (False, True):
+            mode = "stochastic" if st else "deterministic"
+            k = mk.packed_mode_summary(params, cfg.cluster, p, stream,
+                                       T_PARITY, SEARCH_SEED, stochastic=st)
+            pv, p_s = synced(lambda: lane_plain(
+                p, cfg, params, None, stream, T_PARITY, st,
+                seed=SEARCH_SEED))
+            same, max_abs = hold(
+                f"17b {p} scenario axis S={SEARCH_PARITY_S} x inner "
+                f"{SEARCH_PARITY_INNER} T={T_PARITY} {mode}", k, pv, st)
+            rec["kernels"][labels[p]][f"parity {mode}"] = {
+                "bitwise": same, "max_abs_err": max_abs,
+                "plain_ms": p_s * 1e3,
+                "shape": f"S={SEARCH_PARITY_S} x inner "
+                         f"{SEARCH_PARITY_INNER} T={T_PARITY}"}
+    del stream, k, pv
+    log(f"#   plain versions on the axis stream {lap()}")
+
+    # ---- 17c: the search at fleet width
+    kernel_counts(clear=True)
+    torch.cuda.reset_peak_memory_stats()
+    res, search_s = synced(lambda: search_scenarios(
+        cfg, policy="rule", iters=SEARCH_ITERS, pop=SEARCH_POP,
+        seed=SEARCH_SEED, scorer=scorer))
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_counts()
+    want = {labels["rule"]: SEARCH_ITERS + 1 + 4}
+    if counts != want:
+        fail(f"17c: the search launched {counts}, not {want}")
+    rec["launches_by_path"]["adversarial search, 5 x 12 at 2048 and 5 "
+                            "S = 1 scores (phase 17c)"] = counts
+    stages = scorer.stages[-(SEARCH_ITERS + 5):]
+    iters = stages[:SEARCH_ITERS]
+    if any(s["S"] != SEARCH_POP for s in iters) or any(
+            s["S"] != 1 for s in stages[SEARCH_ITERS:]):
+        fail(f"17c: the search's scores ran S = {[s['S'] for s in stages]}")
+    synth = sum(s["synthesis_s"] for s in stages)
+    kern = sum(s["kernel_s"] for s in stages)
+    doc = json.loads(json.dumps(res.to_doc()))
+    replay, replay_s = synced(lambda: replay_minted(cfg, doc, device=dev))
+    if replay[res.objective] != res.best_value or replay != res.best_cells:
+        fail(f"17c: replay_minted gave {replay[res.objective]!r}, the mint "
+             f"recorded {res.best_value!r}")
+    if doc["eval"]["backend"] != "cuda" or not math.isfinite(res.best_value):
+        fail(f"17c: the minted document's eval {doc['eval']}")
+    rec["search"] = {
+        "seconds": search_s, "peak_gb": peak / 1e9,
+        "iteration_synthesis_s": [s["synthesis_s"] for s in iters],
+        "iteration_kernel_s": [s["kernel_s"] for s in iters],
+        "iteration_host_s": [s["host_s"] for s in iters],
+        "s1_scores_s": [s["synthesis_s"] + s["kernel_s"] + s["host_s"]
+                        for s in stages[SEARCH_ITERS:]],
+        "host_rest_s": search_s - synth - kern,
+        "best_value": res.best_value, "dominates": res.dominates,
+        "hand_named": res.hand_named, "history": res.history,
+        "digest": res.scenario.params_digest, "replay_s": replay_s}
+    log(f"# 17c search rule {SEARCH_ITERS} x {SEARCH_POP} at inner "
+        f"{SEARCH_INNER} x T={T_DAY}: {search_s:.3f} s, peak "
+        f"{peak / 1e9:.2f} GB; an iteration: synthesis "
+        f"{np.median(rec['search']['iteration_synthesis_s']):.4f} s, "
+        f"kernel {np.median(rec['search']['iteration_kernel_s']):.4f} s, "
+        f"host {np.median(rec['search']['iteration_host_s']):.4f} s "
+        f"(medians); the S=1 scores "
+        f"{sum(rec['search']['s1_scores_s']):.3f} s; the rest on the host "
+        f"{rec['search']['host_rest_s']:.3f} s; minted "
+        f"{res.scenario.name} usd_per_slo_hour={res.best_value!r}, "
+        f"dominates {res.dominates} ({json.dumps(res.hand_named)}); "
+        f"replay_minted equal ({replay_s:.3f} s) {lap()}")
+
+    # 12 cells in one stream and launch, against 3 through baked sources.
+    scorer.release()
+    one_go = []
+    for _ in range(3):
+        _, s_ = synced(lambda: scorer.score(cells))
+        one_go.append(s_)
+    scorer.release()
+    loop_s = 0.0
+    for s in range(SEARCH_LOOP_CELLS):
+        def loop_cell(s=s):
+            src = baked(s)
+            stream = src.packed_trace_device(T_DAY, SEARCH_SEED,
+                                             SEARCH_INNER, device=dev)
+            return mk.packed_mode_summary(params, cfg.cluster, "rule",
+                                          stream, T_DAY, SEARCH_SEED)
+        _, s_ = synced(loop_cell)
+        loop_s += s_
+    traced_cps = SEARCH_POP / float(np.median(one_go))
+    loop_cps = SEARCH_LOOP_CELLS / loop_s
+    rec["traced_vs_loop"] = {"traced_s": float(np.median(one_go)),
+                             "loop_s": loop_s, "ratio": traced_cps
+                             / loop_cps}
+    log(f"#   {SEARCH_POP} cells in one stream and launch "
+        f"{np.median(one_go):.3f} s (median of 3) against "
+        f"{SEARCH_LOOP_CELLS} through baked sources one at a time "
+        f"{loop_s:.3f} s: x{traced_cps / loop_cps:.2f} cells/s (reported, "
+        f"not gated) {lap()}")
+    scorer.release()
+    torch.cuda.empty_cache()
+
+    # ---- 17e: the blocked axis day through the streaming drive
+    src4 = axis(ScenarioParams.from_array(
+        cells.to_array()[:SEARCH_DAY_S]))
+    kw = dict(key=SEARCH_SEED, batch=SEARCH_DAY_S * SEARCH_INNER, T=T_DAY,
+              block_T=BLOCK_DAY, seed=STREAM_SEED, t_chunk=T_CHUNK_STREAM,
+              stochastic=True, device=dev)
+    kernel_counts(clear=True)
+    (day, drep), day_s = synced(lambda: stm.streaming_rollout_summary(
+        src4, params, cfg.cluster, "rule", pipelined=True, **kw))
+    counts = kernel_counts()
+    carry = geo_label("rule", True, 16, carry=True)
+    if counts != {carry: T_DAY // BLOCK_DAY}:
+        fail(f"17e: the blocked axis day launched {counts}")
+    rec["launches_by_path"]["blocked scenario-axis day, 4 x 2048 "
+                            "(phase 17e)"] = counts
+    ref = stm.unblocked_reference_summary(src4, params, cfg.cluster, "rule",
+                                          **kw)
+    if not bitwise(day, ref):
+        fail("17e: the streamed axis day is not bitwise the unblocked "
+             "reference")
+    one_b, ref_b = axis(cells.row(0)), baked(0)
+    for j in (0, T_DAY // BLOCK_DAY - 1):
+        a = one_b.packed_block_trace_device(
+            BLOCK_DAY, SEARCH_SEED, SEARCH_S1_B, j,
+            t_chunk=T_CHUNK_STREAM, device=dev)
+        b = ref_b.packed_block_trace_device(
+            BLOCK_DAY, SEARCH_SEED, SEARCH_S1_B, j,
+            t_chunk=T_CHUNK_STREAM, device=dev)
+        if not torch.equal(a, b):
+            fail(f"17e: S = 1 block {j} is not bitwise the baked block")
+    del a, b, day, ref
+    rec["streamed_day_s"] = day_s
+    rec["stream_buffers"] = drep.get("stream_buffers")
+    log(f"# 17e blocked axis day ({T_DAY // BLOCK_DAY} x {BLOCK_DAY}, "
+        f"{SEARCH_DAY_S} x {SEARCH_INNER}) double-buffered: {day_s:.3f} s, "
+        f"{T_DAY // BLOCK_DAY} {carry} launches, bitwise the unblocked "
+        f"reference; S=1 blocks 0 and {T_DAY // BLOCK_DAY - 1} at "
+        f"B={SEARCH_S1_B} bitwise the baked blocks {lap()}")
+
+    # ---- 17d: the shell
+    shell_out = join_side_process(shell, "17d: `scenario-search`", 600)
+    sdoc = json.loads(shell_out)
+    with open(mint_path, encoding="utf-8") as fh:
+        if json.load(fh) != sdoc:
+            fail("17d: the --mint-out file is not the printed document")
+    if (sdoc["eval"]["backend"], sdoc["eval"]["steps"],
+            sdoc["eval"]["inner_batch"]) != ("cuda", T_DAY, 64):
+        fail(f"17d: the shell's search ran {sdoc['eval']}")
+    listing = cli_json(["scenarios", "--minted-dir", mint_path])
+    last = listing["scenarios"][-1]
+    if (last["name"], (last["minted"] or {}).get("params_digest")) != (
+            sdoc["scenario"]["name"], sdoc["scenario"]["params_digest"]):
+        fail(f"17d: `scenarios --minted-dir` lists {last}")
+    vals = json.loads(sdoc["scenario"]["params_json"])
+    vals["inf_rate"] = [vals["inf_rate"][0] + 1.0]
+    sdoc["scenario"]["params_json"] = json.dumps(vals, sort_keys=True,
+                                                 separators=(",", ":"))
+    bad = os.path.join(out_dir, "tampered")
+    os.makedirs(bad, exist_ok=True)
+    with open(os.path.join(bad, "mint.json"), "w", encoding="utf-8") as fh:
+        json.dump(sdoc, fh)
+    try:
+        run_cli(["scenarios", "--minted-dir", bad])
+        fail("17d: a tampered minted document was listed")
+    except SystemExit as e:
+        if "tampered" not in str(e):
+            raise
+    rec["shell_s"] = shell["s"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 17d `scenario-search --iters 2 --pop 4` from the shell "
+        f"({shell['s']:.2f} s, beside 17b's plain versions): minted "
+        f"{sdoc['scenario']['name']}, listed by `scenarios --minted-dir`; "
+        f"a tampered copy refused {lap()}")
+    log(f"# phase 17: {rec['seconds']:.1f} s; card {card}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -5106,7 +5475,12 @@ def main() -> None:
     geo_rec = geo_phase(dev, smi, setup, hold, plain, rule_fn, carbon_fn)
 
     clock("17")
-    # ---- 17. the kernels, the card, the result
+    # ---- 17. the scenario axis and the search on the card: see
+    # search_phase.
+    search_rec = search_phase(dev, smi, hold)
+
+    clock("18")
+    # ---- 18. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -5247,6 +5621,22 @@ def main() -> None:
             if row["name"] in counts:
                 row.setdefault("launches_by_path", {})[path] = counts[
                     row["name"]]
+    for path, counts in search_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 17 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for row in kernels:
+        if row["name"] in search_rec["kernels"]:
+            row["search"] = dict(
+                search_rec["kernels"][row["name"]],
+                shape=f"default B={SEARCH_POP} x {SEARCH_INNER} T={T_DAY} "
+                      f"stochastic, the scenario population stream (phase "
+                      f"17b)")
     for row in kernels:
         if row["name"] in geo_rec["kernels"]:
             row["geo"] = dict(geo_rec["kernels"][row["name"]],

@@ -216,8 +216,7 @@ def test_simulate_profile_dir_writes_a_trace(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     *[([name], item) for name, item in sorted(cli.NOT_PORTED.items())],
-    (["--preset", "multiregion", "simulate", "--mesh"], "item 14"),
-    (["scenarios", "--minted-dir", "x"], "item 13")],
+    (["--preset", "multiregion", "simulate", "--mesh"], "item 14")],
     ids=lambda a: " ".join(a) if isinstance(a, list) else a)
 def test_unported_subcommands_exit_2_naming_their_item(argv, item):
     rc, out, err = _run(tmain, argv)
@@ -237,6 +236,7 @@ DEVICE_ARGV = {
     "overload-eval": ["overload-eval", "--tenants", "2"],
     "fleet --service": ["fleet", "--service", "default"],
     "geo": ["geo", "--steps", "8"],
+    "scenario-search": ["scenario-search", "--iters", "1", "--pop", "2"],
 }
 
 
@@ -316,6 +316,49 @@ def test_formerly_unported_commands_now_run(argv):
     rc, out, err = _run(tmain, argv + CPU)
     assert rc == 0, err[-2000:]
     assert "not ported" not in err and _json_out(out)
+
+
+def test_scenario_search_mints_what_scenarios_lists_as_jax_does(tmp_path):
+    """`scenario-search` on the CPU mints a document; `scenarios
+    --minted-dir` lists it after the library in both packages alike, and
+    a tampered copy exits naming the digest."""
+    mint = tmp_path / "mint.json"
+    rc, out, err = _run(tmain, ["scenario-search", "--iters", "1", "--pop",
+                                "2", "--seed", "3", "--mint-out", str(mint),
+                                *CPU])
+    assert rc == 0, err[-2000:]
+    doc = _json_out(out)
+    assert json.loads(mint.read_text()) == doc
+    assert doc["eval"]["backend"] == "cpu" and doc["evals"] == 2 + 1 + 4
+    assert "# worst case: usd_per_slo_hour=" in err
+    want, got = _both(["scenarios", "--minted-dir", str(mint)], [])
+    assert got == want
+    assert got["scenarios"][-1]["minted"]["params_digest"] == doc[
+        "scenario"]["params_digest"]
+    vals = json.loads(doc["scenario"]["params_json"])
+    vals["batch_rate"] = [vals["batch_rate"][0] + 1.0]
+    doc["scenario"]["params_json"] = json.dumps(vals, sort_keys=True,
+                                                separators=(",", ":"))
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "m.json").write_text(json.dumps(doc))
+    with pytest.raises(SystemExit, match="tampered"):
+        _run(tmain, ["scenarios", "--minted-dir", str(bad)])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--policy", "flagship"], ["--objective", "profit"],
+    ["--intensity", "apocalyptic"], ["--bound", "bogus=0:1"],
+    ["--bound", "storm_hazard"], ["--bound", "storm_hazard=a:b"]])
+def test_scenario_search_refusals_are_jax_s(argv):
+    """Unknown names and malformed bounds exit before any stream, with
+    JAX's message."""
+    errs = []
+    for main, extra in ((jmain, []), (tmain, CPU)):
+        with pytest.raises(SystemExit) as e:
+            main(["scenario-search", *argv, *extra])
+        errs.append(str(e.value))
+    assert errs[0] == errs[1] and errs[0].startswith("ccka: ")
 
 
 @pytest.mark.parametrize("flag", [["--obs", "default"],

@@ -262,7 +262,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "__main__", "obs.burnrate", "obs.costmodel", "harness.service",
              "harness.overload", "harness.fleetscale", "regions",
              "regions.process", "regions.migrate", "regions.geo",
-             "regions.pareto"):
+             "regions.pareto", "search", "search.params", "search.axis",
+             "search.adversarial"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -412,6 +413,12 @@ with contextlib.redirect_stdout(io.StringIO()), \
     assert cli_main(["--preset", "multiregion", "geo", "--steps", "8",
                      "--batch", "1", "--scenarios", "calm",
                      "--device", "cpu"]) == 0
+# The scenario axis and the search: a tiny CEM run.
+from ccka_tpu_torch.search.adversarial import ScenarioScorer, search_scenarios
+dcfg = default_config()
+res = search_scenarios(dcfg, iters=1, pop=2, scorer=ScenarioScorer(
+    dcfg, steps=8, inner_batch=2, t_chunk=8, device="cpu"))
+assert res.scenario.minted and res.evals == 7
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

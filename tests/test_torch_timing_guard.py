@@ -83,5 +83,6 @@ def test_guard_scans_the_control_loop():
                 ("harness", "fleetscale.py"), ("obs", "burnrate.py"),
                 ("regions", "process.py"), ("regions", "migrate.py"),
                 ("regions", "geo.py"), ("regions", "pareto.py"),
-                ("cli.py",)):
+                ("search", "params.py"), ("search", "axis.py"),
+                ("search", "adversarial.py"), ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel

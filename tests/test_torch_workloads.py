@@ -85,7 +85,7 @@ def test_scenario_library_matches_jax():
     minted = Scenario(name="cell", description="",
                       workloads=WORKLOAD_SCENARIOS["mixed"].workloads,
                       params_json="{}", params_digest="0" * 64)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="tampered"):
         minted.validate()
 
 
