@@ -29,6 +29,8 @@ exit codes. Subcommand <-> script map:
   scenario-search
               the adversarial scenario search (search/adversarial.py):
               CEM over the scenario axis, the worst case minted
+  flywheel    the continual-learning flywheel (train/flywheel.py): mine,
+              distill, promote, status
   simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
   recover-eval, scenarios, distill-factory, capture, report, obs,
   show-config
@@ -52,10 +54,7 @@ from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 
 # Subcommands of `ccka` the port has not yet, with the ROADMAP item that
 # ports them.
-NOT_PORTED = {
-    "perf": "A12", "bench-diff": "A12", "scaling-curve": "A12",
-    "flywheel": "item 13",
-}
+NOT_PORTED = {"perf": "A12", "bench-diff": "A12", "scaling-curve": "A12"}
 _DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
                 "version)")
 
@@ -400,6 +399,67 @@ def _build_parser() -> argparse.ArgumentParser:
                             "this RunLog JSONL path")
     ssrch.add_argument("--seed", type=int, default=0)
     device(ssrch)
+
+    sfw = sub.add_parser(
+        "flywheel",
+        help="continual-learning flywheel (train/flywheel.py): mine "
+             "ledger-attributed weakness cells, distill a weakness-"
+             "weighted challenger with checksummed provenance, promote "
+             "it through the gate battery, inspect the generation "
+             "inventory")
+    sfw.add_argument("action",
+                     choices=("mine", "distill", "promote", "status"),
+                     help="mine: rank weakness cells from recorded "
+                          "ledgers; distill: mine + produce generation "
+                          "N's challenger + paired evaluation + gate "
+                          "decision; promote: apply a generation's "
+                          "recorded gate decision (atomic live swap, "
+                          "refused without passing gates); status: "
+                          "live pointer + generation inventory with "
+                          "per-generation provenance verification")
+    sfw.add_argument("--root", default="data/flywheel",
+                     help="flywheel artifact root (generations/, "
+                          "live.npz, live.json)")
+    sfw.add_argument("--decisions", default="",
+                     help="decision-ledger JSONL (obs/decisions) to "
+                          "mine; '' skips the surface")
+    sfw.add_argument("--tournament", default="",
+                     help="tournament board JSONL (obs/tournament) to "
+                          "mine; '' skips")
+    sfw.add_argument("--incidents", default="",
+                     help="incident JSONL (obs/incidents) to mine; "
+                          "'' skips")
+    sfw.add_argument("--minted-dir", default="",
+                     help="minted adversarial scenarios (digest-"
+                          "validated on load) to fold into the "
+                          "candidate cell set")
+    sfw.add_argument("--intensities", default="off,moderate",
+                     help="comma list of 'off' + config.FAULT_PRESETS "
+                          "names for the mined cell grid (unknown "
+                          "names rejected up front)")
+    sfw.add_argument("--top-k", type=int, default=4,
+                     help="ranked weakness cells to keep (default 4)")
+    sfw.add_argument("--generation", type=int, default=1,
+                     help="generation number to distill/promote")
+    sfw.add_argument("--teacher", default="mpc",
+                     help="factory planner protocol: mpc|mpc-rh "
+                          "(unknown teachers rejected up front)")
+    sfw.add_argument("--pairs-base", type=int, default=8)
+    sfw.add_argument("--pairs-max", type=int, default=32)
+    sfw.add_argument("--steps", type=int, default=48,
+                     help="ticks per curriculum pair window")
+    sfw.add_argument("--iters", type=int, default=240,
+                     help="distillation Adam iterations")
+    sfw.add_argument("--decision", default="",
+                     help="promote: gate-decision JSON path (default: "
+                          "the generation dir's decision.json written "
+                          "by `flywheel distill`)")
+    sfw.add_argument("--runlog", default="",
+                     help="append flywheel_* events to this RunLog "
+                          "JSONL path")
+    sfw.add_argument("--seed", type=int, default=0)
+    sfw.add_argument("--device", default="cuda",
+                     help=_DEVICE_HELP + "; only distill runs torch work")
 
     ssc = sub.add_parser(
         "scenario-eval", help="per-family workload scoreboard: policies x "
@@ -1655,6 +1715,101 @@ def _cmd_scenario_search(cfg: FrameworkConfig, args) -> int:
     return 0
 
 
+def _cmd_flywheel(cfg: FrameworkConfig, args) -> int:
+    """`flywheel`: the continual-learning loop's operator surface.
+    Unknown intensity and teacher names are refused before any ledger
+    read or device work; promote applies only a recorded gate decision
+    and refuses without one. Only distill touches ``--device``."""
+    import os
+
+    from ccka_tpu_torch.config import FAULT_PRESETS
+    from ccka_tpu_torch.obs.runlog import RunLog
+    from ccka_tpu_torch.train.factory import FACTORY_TEACHERS
+    from ccka_tpu_torch.train.flywheel import Flywheel, promotion_gates
+
+    intensities = _names(args.intensities)
+    try:
+        bad = [i for i in intensities
+               if i != "off" and i not in FAULT_PRESETS]
+        if bad or not intensities:
+            raise ValueError(
+                f"unknown fault intensities {bad or '<empty>'}; have "
+                f"{sorted(set(FAULT_PRESETS) | {'off'})}")
+        if args.teacher not in FACTORY_TEACHERS:
+            raise ValueError(f"unknown teacher {args.teacher!r}; "
+                             f"teachers: {sorted(FACTORY_TEACHERS)}")
+        device = (_device(args.device) if args.action == "distill"
+                  else args.device)
+        fw = Flywheel(cfg, args.root, teacher=args.teacher,
+                      steps=args.steps, pairs_base=args.pairs_base,
+                      pairs_max=args.pairs_max, iterations=args.iters,
+                      seed=args.seed, minted_dir=args.minted_dir,
+                      device=device)
+    except ValueError as e:
+        raise SystemExit(f"ccka: {e}")
+
+    if args.action == "status":
+        print(json.dumps(fw.status(), indent=2, default=str))
+        return 0
+
+    runlog = RunLog(args.runlog or None, kind="flywheel",
+                    echo=lambda s: None,
+                    meta={"action": args.action, "root": args.root})
+    fw.runlog = runlog
+    try:
+        if args.action == "mine":
+            cells = fw.mine(decisions_path=args.decisions,
+                            tournament_path=args.tournament,
+                            incidents_path=args.incidents,
+                            intensities=intensities, top_k=args.top_k)
+            print(json.dumps([{
+                "scenario": c.scenario, "intensity": c.intensity,
+                "workload_class": c.workload_class,
+                "tenant_regime": c.tenant_regime, "score": c.score,
+                "evidence": c.evidence} for c in cells], indent=2))
+        elif args.action == "distill":
+            from ccka_tpu_torch.train.checkpoint import load_params_npz
+            cells = fw.mine(decisions_path=args.decisions,
+                            tournament_path=args.tournament,
+                            incidents_path=args.incidents,
+                            intensities=intensities, top_k=args.top_k)
+            rep = fw.distill(cells, generation=args.generation)
+            params, _meta = load_params_npz(rep["checkpoint"])
+            eval_rows = fw.evaluate(params, rep["produced"])
+            decision = promotion_gates(
+                eval_rows, provenance=rep["provenance"])
+            dec_path = os.path.join(fw.gen_dir(args.generation),
+                                    "decision.json")
+            with open(dec_path, "w", encoding="utf-8") as fh:
+                json.dump({"decision": decision, "eval": eval_rows},
+                          fh, indent=1, sort_keys=True)
+            print(json.dumps({
+                "generation": args.generation,
+                "checkpoint": rep["checkpoint"],
+                "checkpoint_digest": rep["checkpoint_digest"],
+                "curriculum": rep["curriculum"],
+                "eval": eval_rows, "decision": decision,
+                "decision_path": dec_path}, indent=2))
+        elif args.action == "promote":
+            dec_path = args.decision or os.path.join(
+                fw.gen_dir(args.generation), "decision.json")
+            if not os.path.exists(dec_path):
+                raise ValueError(
+                    f"no gate decision at {dec_path!r} — run `ccka "
+                    "flywheel distill` (or the FlywheelRunner) first; "
+                    "a promotion without recorded gate evidence is "
+                    "refused")
+            with open(dec_path, encoding="utf-8") as fh:
+                decision = json.load(fh)["decision"]
+            live = fw.promote(args.generation, decision)
+            print(json.dumps(live, indent=2, default=str))
+    except ValueError as e:
+        runlog.close(status="error")
+        raise SystemExit(f"ccka: {e}")
+    runlog.close()
+    return 0
+
+
 def _cmd_report(args) -> int:
     from ccka_tpu_torch.harness.telemetry import (read_telemetry,
                                                   summarize_telemetry)
@@ -2044,7 +2199,7 @@ _HANDLERS = {
     "watch": _cmd_watch, "burst": _cmd_burst, "fleet": _cmd_fleet,
     "incidents": _cmd_incidents, "decisions": _cmd_decisions,
     "tournament": _cmd_tournament, "geo": _cmd_geo,
-    "scenario-search": _cmd_scenario_search,
+    "scenario-search": _cmd_scenario_search, "flywheel": _cmd_flywheel,
 }
 
 

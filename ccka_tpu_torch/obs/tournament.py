@@ -153,9 +153,8 @@ register_candidate("carbon-greedy",
 
 
 def _flywheel_challenger(cfg: FrameworkConfig, device=None):
-    raise NotImplementedError(
-        "candidate 'flywheel-challenger': the continual-learning flywheel "
-        "(train/flywheel.py) is not ported yet (ROADMAP item 13)")
+    from ccka_tpu_torch.train.flywheel import challenger_backend
+    return challenger_backend(cfg, device)
 
 
 register_candidate("student", _student,

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Eleven main paths. The rule-profile fleet rollout: a batch of clusters
+Twelve main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -31,7 +31,11 @@ lanes under the rollout kernels, the migration policies' expectation
 dynamics over those lanes, and their Pareto fronts. The adversarial
 scenario search: a population of scenario parameterizations folded into
 one fleet-width stream, scored by one kernel launch an iteration of a
-CEM search, the worst case minted and replayed.
+CEM search, the worst case minted and replayed. The continual-learning
+flywheel: a generation recorded on the graphed service, its weak cells
+mined, labeled by the factory and distilled into a challenger, evaluated
+by the MLP kernel on the cells' worlds, shadowed and gated, promoted and
+rolled back.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -334,7 +338,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    S = 4 x 2048) through the double-buffered drive on the rule CARRY
    kernel, bitwise the unblocked reference, S = 1 blocks bitwise the
    baked blocks. It writes `runs/chip_smoke_search/`;
-18. one JSON line listing every kernel and lane instantiation, the
+18. the continual-learning flywheel (the main path of the fifteenth
+   slice; no new kernel: the factory's plan and rule CARRY
+   instantiations and the MLP kernel on the cells' lane streams), the
+   default preset at bench_flywheel's geometry (6 tenants, 16 record and
+   shadow ticks, 10 watch ticks, top 3 cells, 3 to 6 pairs x 40 ticks,
+   150 Adam iterations, seed 23, runner seed 211): (a) generation 1
+   through a `FlywheelRunner` on a `Flywheel(device="cuda")`, each
+   stage timed (record, mine, distill with each cell's
+   gen/plan/label/collect and `imitate`, evaluate, shadow, gates), the
+   counters zeroed just before and read just after (per cell one plan
+   and one rule CARRY launch a block and one MLP launch), the service's
+   graph captures and the memory the tick cache keeps; (b) each
+   evaluated cell's challenger summary, the MLP kernel's on the
+   regenerated stream, equal to its row and held against its plain
+   version per cluster (phases 5c/14a's standard), the rule column
+   bitwise `unblocked_reference_summary`, and the rule and teacher
+   columns (the CARRY launches at the cells' B = 3-6) held against their
+   plain versions by the same standard; (c) generation 1 recorded,
+   mined and distilled again in a fresh root: the same cells,
+   curriculum digest and checkpoint digest; (d) an eligible decision
+   promoted and demoted by one policy_divergence incident of the watch,
+   or an ineligible one refused by `promote`; the gates and mean_ratio
+   printed; (e) `flywheel status --device cuda` from the shell equal to
+   `Flywheel.status()`. It writes `runs/chip_smoke_flywheel/`;
+19. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -4878,6 +4906,354 @@ def search_phase(dev, card: str, hold) -> dict:
     return rec
 
 
+# ---- the continual-learning flywheel (phase 18)
+
+# bench.py::bench_flywheel's geometry (the JAX package's recorded
+# flywheel run): the default preset, its shipped network widths.
+FLY = dict(steps=40, block_T=40, t_chunk=40, pairs_base=3, pairs_max=6,
+           iterations=150, seed=23)
+FLY_RUNNER = dict(n_tenants=6, record_ticks=16, shadow_ticks=16,
+                  watch_ticks=10, top_k=3, seed=211)
+FLY_DIR = "runs/chip_smoke_flywheel"
+# The MLP's per-cluster standard on a lane stream (phases 5c and 14a):
+# denials, stale ticks, shed load and deadline misses among the loose.
+FLY_LOOSE = SHORT_LOOSE + ("denials", "stale_ticks", "inf_dropped",
+                           "batch_deadline_misses")
+
+
+def flywheel_phase(dev, card: str) -> dict:
+    """18: the continual-learning flywheel (`train/flywheel.py`,
+    `harness/flywheel.py`) on the card at bench_flywheel's geometry.
+    (a) a `FlywheelRunner` on a `Flywheel(device="cuda")` runs
+    generation 1 (record on the graphed service, mine, distill: each
+    curriculum cell's `produce_cell` and then `imitate`, evaluate,
+    shadow, gates), each stage timed, the launch counters zeroed just
+    before and read just after: per cell one plan and one rule CARRY
+    launch a block and one MLP launch, nothing else; the service's graph
+    captures, their seconds and the memory the tick cache keeps.
+    (b) each evaluated cell's challenger summary, recomputed by the MLP
+    kernel on the cell's regenerated stream, equal to the row's numbers
+    and held against `kernel_numerics_action_fn` under
+    `batched_rollout_summary` per cluster (phases 5c/14a's standard);
+    the cell's rule column bitwise `unblocked_reference_summary`; the
+    rule and teacher columns (the plan and rule CARRY launches at the
+    cell's own B x T) against `lane_plain` on the regenerated stream, the
+    teacher's with the cell's plan, by the same standard.
+    (c) generation 1 recorded, mined and distilled again in a fresh root
+    under the same seeds: the same mined cells, curriculum digest and
+    checkpoint digest.
+    (d) an eligible decision was promoted: `divergence_rollback` must
+    stamp one policy_divergence incident and clear the live files (the
+    parent is the rule); an ineligible one: `promote` refuses it and
+    live.* stays absent. The gates and mean_ratio on a `# 18` line.
+    (e) `python -m ccka_tpu_torch flywheel status --device cuda` in a
+    process of its own (started after (a), read before (d)): its JSON
+    equal to `Flywheel.status()`."""
+    import gc
+    import shutil
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.harness import service
+    from ccka_tpu_torch.harness.flywheel import FlywheelRunner
+    from ccka_tpu_torch.kernels import build
+    from ccka_tpu_torch.models.nets import latent_to_action
+    from ccka_tpu_torch.obs.compile import stats_for
+    from ccka_tpu_torch.sim import lanes
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.train import factory
+    from ccka_tpu_torch.train import flywheel as tfw
+    from ccka_tpu_torch.train import imitate as imitate_mod
+    from ccka_tpu_torch.train.checkpoint import load_params_npz
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> str:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return f"({laps[-1] - laps[-2]:.2f} s)"
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           FLY_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = PRESETS["default"]()
+    params = SimParams.from_config(cfg, device=dev)
+    Z = cfg.cluster.n_zones
+    rec: dict = {"launches_by_path": {}}
+
+    def runner(tag: str):
+        fw = tfw.Flywheel(cfg, os.path.join(out_dir, tag, "root"),
+                          device=dev, **FLY)
+        return FlywheelRunner(cfg, fw,
+                              scratch=os.path.join(out_dir, tag, "runs"),
+                              **FLY_RUNNER)
+
+    stages: dict = {}
+    kept: dict = {}
+
+    def timed(name: str, fn, keep: bool = False):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+            if keep:
+                kept[name] = res
+            return res
+        return run
+
+    # ---- 18a: one generation through the runner
+    a = runner("a")
+    a.record = timed("record", a.record)
+    a.shadow = timed("shadow", a.shadow)
+    a.fw.mine = timed("mine", a.fw.mine)
+    a.fw.distill = timed("distill", a.fw.distill, keep=True)
+    a.fw.evaluate = timed("evaluate", a.fw.evaluate)
+    imitate = imitate_mod.imitate
+    imitate_mod.imitate = timed("imitate", imitate)
+    st0 = stats_for("service.tick")
+    caps0 = (st0.compiles, st0.compile_s) if st0 else (0, 0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
+    kernel_counts(clear=True)
+    try:
+        g1, gen_s = synced(lambda: a.generation(1))
+    finally:
+        imitate_mod.imitate = imitate
+    counts = kernel_counts()
+    st = stats_for("service.tick")
+    captures = st.compiles - caps0[0]
+    capture_s = st.compile_s - caps0[1]
+    mem1 = torch.cuda.memory_reserved()
+    rep = kept["distill"]
+    want: dict = {}
+    for cell in rep["produced"]:
+        r = cell.report
+        rows = factory._cell_source(
+            cfg, a.fw._resolve_scenario(cell.scenario),
+            cell.intensity).packed_rows()
+        faults, wl = lanes.stream_layout(rows, Z)
+        wl = 16 if wl else 0
+        n_blocks = r["playback"]["n_blocks"]
+        for policy, carry, n in (("rule", True, n_blocks),
+                                 ("plan", True, n_blocks),
+                                 ("mlp", False, 1)):
+            label = geo_label(policy, faults, wl, carry=carry)
+            want[label] = want.get(label, 0) + n
+    if counts != want:
+        fail(f"18a: the generation launched {counts}, not {want}")
+    if captures != 2:
+        fail(f"18a: the generation's record and shadow runs captured "
+             f"{captures} service.tick graphs, not 2")
+    rec["launches_by_path"]["flywheel generation, record to gates "
+                            "(phase 18a)"] = counts
+    cells = rep["produced"]
+    cell_stage = {k: sum(c.report[k] for c in cells)
+                  for k in ("gen_s", "plan_s", "label_s", "collect_s")}
+    stages["gates and the rest"] = gen_s - sum(
+        v for k, v in stages.items() if k != "imitate")
+    rec.update(generation_s=gen_s, stages=dict(stages),
+               cell_stages=cell_stage,
+               cells=[c.report for c in cells],
+               captures=captures, capture_s=capture_s,
+               reserved_gb=(mem0 / 1e9, mem1 / 1e9),
+               mined=g1["mined_cells"], eval=g1["eval"],
+               decision=g1["decision"], shadow_board=g1["shadow_board"])
+    log(f"# 18a flywheel generation 1 (default, {FLY_RUNNER['n_tenants']} "
+        f"tenants, {len(cells)} cells, pairs "
+        f"{[c.report['pairs'] for c in cells]} x {FLY['steps']} ticks, "
+        f"{FLY['iterations']} Adam iterations): {gen_s:.3f} s; stages "
+        f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}; the "
+        f"cells' gen/plan/label/collect "
+        f"{json.dumps({k: round(v, 4) for k, v in cell_stage.items()})}; "
+        f"launches {json.dumps(counts)}; {captures} service.tick captures "
+        f"in {capture_s:.3f} s, reserved {mem0 / 1e9:.3f} -> "
+        f"{mem1 / 1e9:.3f} GB {lap()}")
+    shell = start_side_process(["-m", "ccka_tpu_torch", "flywheel",
+                                "status", "--root", a.fw.root,
+                                "--device", "cuda"])
+    status_a = a.fw.status()
+
+    # ---- 18b: the challenger column against its plain version, the
+    # rule column against the unblocked reference
+    ch_params, _ = load_params_npz(rep["checkpoint"])
+    worst: dict = {}
+    for cell, row in zip(cells, g1["eval"]):
+        r = cell.report
+        src = factory._cell_source(
+            cfg, a.fw._resolve_scenario(cell.scenario), cell.intensity)
+        kw = dict(key=r["seed"], batch=r["pairs"], T=r["steps"],
+                  block_T=r["block_T"], seed=r["seed"],
+                  t_chunk=r["t_chunk"], stochastic=r["stochastic"],
+                  device=dev)
+        ref = stm.unblocked_reference_summary(src, params, cfg.cluster,
+                                              "rule", **kw)
+        if not bitwise(cell.rule_summary, ref):
+            fail(f"18b: {cell.scenario}/{cell.intensity}: the rule column "
+                 f"is not bitwise the unblocked reference")
+        stream = factory._cell_stream(
+            src, steps=r["steps"], block_T=r["block_T"],
+            t_chunk=r["t_chunk"], pairs=r["pairs"], key=r["seed"],
+            device=dev)
+        # The CARRY launches behind the rule and teacher columns against
+        # their plain versions, at the cell's own shapes (one partly
+        # masked thread block); the streamed columns are on the host.
+        plan = mk.pack_plan(latent_to_action(cell.plan_latents,
+                                             cfg.cluster), stream.shape[0])
+        for col, policy, summary in (("rule", "rule", cell.rule_summary),
+                                     ("teacher", "plan",
+                                      cell.teacher_summary)):
+            summary = type(summary)(*(x.to(dev) for x in summary))
+            p = lane_plain(policy, cfg, params, None, stream, r["steps"],
+                           r["stochastic"], seed=r["seed"],
+                           plan=plan if policy == "plan" else None)
+            rel = field_rel(summary, p)
+            bad = {f: v for f, v in rel.items()
+                   if v > (SHORT_LOOSE_TOL if f in FLY_LOOSE
+                           else SHORT_TOL)}
+            top = max(rel, key=rel.get)
+            worst[f"{cell.scenario}/{cell.intensity} {col}"] = {
+                "bitwise": bitwise(summary, p), "worst_field": top,
+                "rel": rel[top],
+                "max_abs_err": per_cluster_share(summary, p)[3]}
+            log(f"# parity 18b {cell.scenario}/{cell.intensity} {col} "
+                f"column ({policy} CARRY) B={r['pairs']} T={r['steps']} "
+                f"stochastic={r['stochastic']}: bitwise "
+                f"{bitwise(summary, p)}; largest per-cluster rel diff "
+                f"{top} {rel[top]:.3g}")
+            if bad:
+                fail(f"18b: {cell.scenario}/{cell.intensity}: the {col} "
+                     f"column against its plain version: {bad}")
+        k = mk.neural_megakernel_summary_from_packed(
+            params, cfg.cluster, ch_params, stream, r["steps"], r["seed"],
+            stochastic=r["stochastic"])
+        for cls, metric in tfw.CLASS_METRICS.items():
+            got = round(tfw._mean64(getattr(k, metric)), 6)
+            if got != row["class_deltas"][cls]["challenger"]:
+                fail(f"18b: {cell.scenario}/{cell.intensity} {metric}: the "
+                     f"kernel gives {got}, the row "
+                     f"{row['class_deltas'][cls]['challenger']}")
+        p = lane_plain("mlp", cfg, params, ch_params, stream, r["steps"],
+                       r["stochastic"], seed=r["seed"])
+        rel = field_rel(k, p)
+        bad = {f: v for f, v in rel.items()
+               if v > (SHORT_LOOSE_TOL if f in FLY_LOOSE else SHORT_TOL)}
+        top = max(rel, key=rel.get)
+        worst[f"{cell.scenario}/{cell.intensity} challenger"] = {
+            "bitwise": bitwise(k, p), "worst_field": top,
+            "rel": rel[top], "max_abs_err": per_cluster_share(k, p)[3]}
+        log(f"# parity 18b {cell.scenario}/{cell.intensity} challenger "
+            f"B={r['pairs']} T={r['steps']} stochastic={r['stochastic']}: "
+            f"bitwise {bitwise(k, p)}; largest per-cluster rel diff {top} "
+            f"{rel[top]:.3g}; the rule column bitwise the unblocked "
+            f"reference")
+        if bad:
+            fail(f"18b: {cell.scenario}/{cell.intensity}: the challenger "
+                 f"summary against its plain version: {bad}")
+    rec["parity"] = worst
+    log(f"# 18b {len(cells)} cells held {lap()}")
+
+    # ---- 18c: generation 1 again in a fresh root, same seeds
+    b = runner("b")
+    kernel_counts(clear=True)
+    rec_b = b.record()
+    cells_b = b.fw.mine(decisions_path=rec_b["paths"]["decisions"],
+                        tournament_path=rec_b["paths"]["tournament"],
+                        incidents_path=rec_b["paths"]["incidents"],
+                        top_k=b.top_k)
+    window = {"ticks": rec_b["ticks"], "rows": rec_b["decision_rows"],
+              "diverged": rec_b["diverged_total"],
+              "incidents": rec_b["incidents"], "seed": b.seed}
+    (rep_b, rerun_s) = synced(lambda: b.fw.distill(
+        cells_b, generation=1, ledger_window=window))
+    counts_b = kernel_counts()
+    rec["launches_by_path"]["flywheel rerun of generation 1's distill "
+                            "(phase 18c)"] = counts_b
+    mined_b = [{"scenario": c.scenario, "intensity": c.intensity,
+                "class": c.workload_class, "regime": c.tenant_regime,
+                "score": c.score} for c in cells_b]
+    same = {"mined_cells": mined_b == g1["mined_cells"],
+            "curriculum_digest": rep_b["curriculum_digest"]
+            == g1["curriculum_digest"],
+            "checkpoint_digest": rep_b["checkpoint_digest"]
+            == g1["checkpoint_digest"],
+            "ledger_window": window == g1["ledger_window"]}
+    rec["rerun"] = dict(same, distill_s=rerun_s)
+    log(f"# 18c generation 1 recorded, mined and distilled again in a "
+        f"fresh root: {json.dumps(same)} (distill {rerun_s:.3f} s) "
+        f"{lap()}")
+    if not all(same.values()):
+        fail(f"18c: the seeded rerun differs: {same}; checkpoint "
+             f"{rep_b['checkpoint_digest'][:12]} against "
+             f"{g1['checkpoint_digest'][:12]}")
+
+    # ---- 18e: the shell's status, read before 18d changes the root
+    sdoc = json.loads(join_side_process(shell, "18e: `flywheel status`",
+                                        300))
+    if sdoc != json.loads(json.dumps(status_a, default=str)):
+        fail(f"18e: `flywheel status` printed {sdoc}, Flywheel.status() "
+             f"gives {status_a}")
+    rec["shell_s"] = shell["s"]
+    log(f"# 18e `flywheel status --device cuda` from the shell "
+        f"({shell['s']:.2f} s, beside 18b and 18c): equal to "
+        f"Flywheel.status() (incumbent {sdoc['incumbent']}, "
+        f"{len(sdoc['generations'])} generation, provenance "
+        f"{sdoc['generations'][0]['provenance']})")
+
+    # ---- 18d: promote and roll back, or the refusal
+    decision = g1["decision"]
+    gates = {k: v for k, v in decision["gates"].items()}
+    if decision["eligible"]:
+        if not g1["promoted"] or a.fw.incumbent()[0] != "gen-001":
+            fail("18d: an eligible decision was not promoted")
+        rb = a.divergence_rollback()
+        incidents = rb["watch"]["incidents"]
+        if (not rb["rolled_back"] or incidents.get("policy_divergence") != 1
+                or os.path.exists(a.fw.live_npz)
+                or os.path.exists(a.fw.live_json)
+                or a.fw.status()["incumbent"] != "rule"):
+            fail(f"18d: the divergence watch did not demote the "
+                 f"challenger to its rule parent: {rb}")
+        rec["rollback"] = rb
+        outcome = (f"promoted, then demoted by one policy_divergence "
+                   f"incident at tick {rb['incident']['t']} to "
+                   f"{rb['restored']['name']}")
+    else:
+        try:
+            a.fw.promote(1, decision)
+            fail("18d: an ineligible decision was promoted")
+        except ValueError as e:
+            if "promotion refused" not in str(e):
+                raise
+        if os.path.exists(a.fw.live_npz) or os.path.exists(a.fw.live_json):
+            fail("18d: a refused promotion left live files")
+        outcome = "not eligible: promote refused it, live.* absent"
+    rec["outcome"] = outcome
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"# 18 flywheel gates {json.dumps(gates)}; eligible "
+        f"{decision['eligible']}, mean_ratio {gates['mean_ratio']}; "
+        f"{outcome} {lap()}")
+
+    # What the tick cache keeps: the phase's service graphs and pools.
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    entries = service._compiled_service_tick.cache_info().currsize
+    service._compiled_service_tick.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_reserved()
+    rec["tick_cache"] = {"entries": entries, "freed_gb": freed / 1e9}
+    log(f"# phase 18: {rec['seconds']:.1f} s; clearing the tick cache "
+        f"({entries} entries) freed {freed / 1e9:.3f} GB reserved; card "
+        f"{card}")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -5480,7 +5856,11 @@ def main() -> None:
     search_rec = search_phase(dev, smi, hold)
 
     clock("18")
-    # ---- 18. the kernels, the card, the result
+    # ---- 18. the flywheel on the card: see flywheel_phase.
+    flywheel_rec = flywheel_phase(dev, smi)
+
+    clock("19")
+    # ---- 19. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -5625,6 +6005,15 @@ def main() -> None:
         missing = set(counts) - names
         if missing:
             fail(f"phase 17 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for path, counts in flywheel_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 18 launched {sorted(missing)}, which the kernels "
                  f"line has no row for")
         for row in kernels:
             if row["name"] in counts:

@@ -237,6 +237,7 @@ DEVICE_ARGV = {
     "fleet --service": ["fleet", "--service", "default"],
     "geo": ["geo", "--steps", "8"],
     "scenario-search": ["scenario-search", "--iters", "1", "--pop", "2"],
+    "flywheel distill": ["flywheel", "distill", "--top-k", "1"],
 }
 
 

@@ -263,7 +263,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "harness.overload", "harness.fleetscale", "regions",
              "regions.process", "regions.migrate", "regions.geo",
              "regions.pareto", "search", "search.params", "search.axis",
-             "search.adversarial"):
+             "search.adversarial", "train.mining", "train.flywheel",
+             "harness.flywheel"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch

@@ -84,5 +84,7 @@ def test_guard_scans_the_control_loop():
                 ("regions", "process.py"), ("regions", "migrate.py"),
                 ("regions", "geo.py"), ("regions", "pareto.py"),
                 ("search", "params.py"), ("search", "axis.py"),
-                ("search", "adversarial.py"), ("cli.py",)):
+                ("search", "adversarial.py"), ("train", "mining.py"),
+                ("train", "flywheel.py"), ("harness", "flywheel.py"),
+                ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel

@@ -1,7 +1,10 @@
 """The port's shadow tournament against the JAX package's.
 
 - the registry lists JAX's candidates with JAX's descriptions; the
-  flywheel challenger raises, naming its ROADMAP item;
+  flywheel challenger refuses an empty slot with JAX's message, and a
+  slotted checkpoint rides a fleet's candidate lanes as JAX's
+  `challenger_backend` does (the shipped multiregion flagship; rows
+  within the flagship's 1e-3, its action divergence 5e-3);
 - the device half: `tournament_decision_columns` within 1e-5 relative of
   JAX's on the same metrics and actions, and a rostered fleet's
   per-cluster rows (`add_candidate_lanes` inside the tick) within 1e-5
@@ -81,8 +84,12 @@ def _rows(ctrl, ticks):
     return out
 
 
-def test_registry_is_jax_s_and_the_flywheel_waits(cfgs, capsys):
+def test_registry_is_jax_s_and_the_flywheel_challenger_builds_from_its_slot(
+        cfgs, capsys):
     import ccka_tpu.cli as jcli
+    import ccka_tpu.train.flywheel as jfw
+    from ccka_tpu.train.flagship import flagship_checkpoint_path
+    from ccka_tpu_torch.train import flywheel as tfw
 
     assert {k: v[1] for k, v in tour.CANDIDATE_BUILDERS.items()} == \
         {k: v[1] for k, v in jtour.CANDIDATE_BUILDERS.items()}
@@ -92,11 +99,66 @@ def test_registry_is_jax_s_and_the_flywheel_waits(cfgs, capsys):
         outs.append(capsys.readouterr())
     assert outs[0].out == outs[1].out and outs[0].out
     assert outs[0].err == outs[1].err
-    _, ct = cfgs
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tour.TournamentRoster(ct, ("flywheel-challenger",), device="cpu")
+    cj, ct = cfgs
     assert tour.workload_class("batch") == jtour.workload_class("batch")
     assert tour.WORKLOAD_CLASSES == jtour.WORKLOAD_CLASSES
+
+    roster = ("flywheel-challenger",)
+    msgs = []
+    for pkg in (tfw, jfw):
+        with pytest.raises(ValueError, match="does not exist") as e:
+            pkg.set_challenger_checkpoint("/no/such/file.npz")
+        msgs.append(str(e.value))
+        pkg.set_challenger_checkpoint("")
+    with pytest.raises(ValueError, match="no challenger checkpoint") as e:
+        tour.TournamentRoster(ct, roster, device="cpu")
+    msgs.append(str(e.value))
+    with pytest.raises(ValueError, match="no challenger checkpoint") as e:
+        jfw.challenger_backend(cj)
+    msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and msgs[2] == msgs[3]
+
+    cj = jcfg.PRESETS["multiregion"]().with_overrides(
+        **OVERRIDES, **{"obs.tournament_roster": roster})
+    ct = tcfg.PRESETS["multiregion"]().with_overrides(
+        **OVERRIDES, **{"obs.tournament_roster": roster})
+    path = flagship_checkpoint_path(cj)
+    n, ticks = 8, 3
+    traces = _jax_traces(cj, n, seed=5)
+    try:
+        for pkg in (tfw, jfw):
+            pkg.set_challenger_checkpoint(path)
+        assert tfw.challenger_checkpoint() == jfw.challenger_checkpoint()
+        jctrl = JFleet(cj, JCarbon(cj.cluster), JFixed(traces),
+                       [JDryRunSink() for _ in range(n)], horizon_ticks=16,
+                       seed=5, fanout_workers=1)
+        tctrl = fl.FleetController(
+            ct, CarbonAwarePolicy(ct.cluster, device="cpu"), TFixed(traces),
+            [DryRunSink() for _ in range(n)], horizon_ticks=16, seed=5,
+            fanout_workers=1, device="cpu")
+        lay = decision_row_layout(ct.cluster, roster)
+        tol = np.full(lay.width, 1e-3)
+        tol[lay.cand_col(roster[0], "cand_div_max")] = 5e-3
+        pend = _pending_cols(ct) + [
+            lay.cand_col(roster[0], f) for f in ("cand_pend_c0",
+                                                 "cand_pend_c1")]
+        for t in range(ticks):
+            disp = jctrl._dispatch(t)
+            jq = np.asarray(disp.per_metrics)
+            jctrl._harvest_and_fanout(disp)
+            tctrl.tick(t)
+            tq = tctrl.last_rows[2]
+            assert tq.shape == jq.shape == (n, lay.width)
+            scale = np.maximum(np.abs(jq), 1e-3)
+            scale[:, pend] = np.maximum(scale[:, pend],
+                                        ct.workload.total_pods)
+            assert np.all(np.abs(tq - jq) / scale <= tol), t
+            # The challenger is not the carbon incumbent: it diverges.
+            assert float(tq[:, lay.cand_col(roster[0],
+                                            "cand_div_max")].max()) > 0
+    finally:
+        for pkg in (tfw, jfw):
+            pkg.set_challenger_checkpoint("")
 
 
 def test_roster_rejections_leave_it_unchanged(cfgs):
