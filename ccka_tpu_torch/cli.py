@@ -250,8 +250,7 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="capture a torch.profiler trace of the rollout "
                          "into this directory")
     ss.add_argument("--mesh", action="store_true",
-                    help="shard the cluster batch over all devices (not "
-                         "ported yet: ROADMAP item 14)")
+                    help="shard the cluster batch over all devices")
     ss.add_argument("--device-traces", action="store_true",
                     help="synthesize exogenous traces on the device; "
                          "synthetic backend only")
@@ -968,7 +967,8 @@ def simulate_report(summary, backend: str, clusters: int,
 
 def _fleet_summary(cfg, src, params, backend: str, backend_obj, action_fn,
                    steps: int, clusters: int, seed: int, stochastic: bool,
-                   device_traces: bool, dev):
+                   device_traces: bool, dev, mesh: bool = False,
+                   backend_on=None):
     """The batch path of ``simulate``: one EpisodeSummary per cluster.
 
     rule, carbon and neutral go through the profile kernel's entries
@@ -981,7 +981,13 @@ def _fleet_summary(cfg, src, params, backend: str, backend_obj, action_fn,
     ``--device cpu`` the same entries run their plain versions, the
     semantics of `sim/rollout.py::batched_rollout_summary`. Every other
     backend (ppo) runs the plain rollout, with the lanes threaded
-    through."""
+    through. ``mesh`` splits the fleet over every device
+    (`parallel/mesh.py::make_mesh` of ``cfg.mesh``; one shard on one
+    card or on the CPU): the sharded entries of
+    `parallel/sharded_kernel.py` for the kernel backends, the sharded
+    plain rollout for the rest (each device's action function from its
+    own backend, ``backend_on(device)``), the summary gathered on
+    ``dev``; on a one-shard mesh bitwise the same summary as without."""
     import torch
 
     from ccka_tpu_torch.faults.process import unpack_fault_lanes
@@ -1020,25 +1026,50 @@ def _fleet_summary(cfg, src, params, backend: str, backend_obj, action_fn,
     else:
         traces = src.batch_trace(steps, [seed + i for i in range(clusters)],
                                  device=dev)
+    dev_mesh = None
+    if mesh:
+        from ccka_tpu_torch.parallel import make_mesh
+        from ccka_tpu_torch.parallel import sharded as psh
+        from ccka_tpu_torch.parallel import sharded_kernel as psk
+        from ccka_tpu_torch.parallel.mesh import gather
+
+        dev_mesh = make_mesh(cfg.mesh, device=dev)
     if backend not in ("rule", "neutral", "carbon"):
+        states0 = initial_state(cfg, clusters, dev)
+        if dev_mesh is not None:
+            fns: dict = {}
+
+            def action_fn_for(d):
+                if str(d) not in fns:
+                    fns[str(d)] = backend_on(d).action_fn()
+                return fns[str(d)]
+
+            return gather(psh.sharded_batched_rollout_summary(
+                dev_mesh, params, states0, None, traces, seed,
+                stochastic=stochastic, action_fn_for=action_fn_for,
+                **lane_kw)[1], dev)
         return batched_rollout_summary(
-            params, initial_state(cfg, clusters, dev), action_fn, traces,
-            seed, stochastic=stochastic, **lane_kw)[1]
+            params, states0, action_fn, traces, seed,
+            stochastic=stochastic, **lane_kw)[1]
     if stream is None:
         stream = mk._pack_exo(traces, steps)
     off, peak = offpeak_action(cfg.cluster, dev), peak_action(cfg.cluster,
                                                               dev)
     if backend == "neutral":
         off = peak = neutral_action(cfg.cluster, dev)
+    kw = dict(stochastic=stochastic)
     if backend == "carbon":
-        return mk.carbon_megakernel_summary_from_packed(
-            params, off, peak, stream, steps, seed,
-            sharpness=backend_obj.sharpness,
-            min_weight=backend_obj.min_weight,
-            stickiness=backend_obj.stickiness, stochastic=stochastic)
-    return mk.megakernel_summary_from_packed(params, off, peak, stream,
-                                             steps, seed,
-                                             stochastic=stochastic)
+        kw.update(sharpness=backend_obj.sharpness,
+                  min_weight=backend_obj.min_weight,
+                  stickiness=backend_obj.stickiness)
+    if dev_mesh is not None:
+        entry = (psk.sharded_carbon_summary_from_packed if backend == "carbon"
+                 else psk.sharded_megakernel_summary_from_packed)
+        return gather(entry(dev_mesh, params, off, peak, stream, steps, seed,
+                            **kw), dev)
+    entry = (mk.carbon_megakernel_summary_from_packed if backend == "carbon"
+             else mk.megakernel_summary_from_packed)
+    return entry(params, off, peak, stream, steps, seed, **kw)
 
 
 def _cmd_simulate(cfg: FrameworkConfig, args) -> int:
@@ -1050,8 +1081,8 @@ def _cmd_simulate(cfg: FrameworkConfig, args) -> int:
     computes `sim/megakernel.py::kernel_numerics_action_fn` (the
     kernel's bf16 numerics), not ``PPOBackend.action_fn``. The
     single-cluster path and the receding-horizon mpc run the plain
-    rollout, as there. ``--mesh`` is not ported yet: :func:`main` exits
-    naming ROADMAP item 14."""
+    rollout, as there. ``--mesh`` splits the batch over every device
+    (:func:`_fleet_summary`)."""
     import torch
 
     from ccka_tpu_torch.harness.telemetry import profile_trace
@@ -1066,7 +1097,7 @@ def _cmd_simulate(cfg: FrameworkConfig, args) -> int:
     steps = int(args.days * 86400.0 / cfg.sim.dt_s)
     src = _source(cfg)
 
-    if clusters == 1 and args.device_traces:
+    if clusters == 1 and (args.mesh or args.device_traces):
         raise SystemExit("ccka: --mesh/--device-traces are batch-path "
                          "flags; set --clusters > 1 (they would be "
                          "silently ignored on the single-cluster path)")
@@ -1110,7 +1141,11 @@ def _cmd_simulate(cfg: FrameworkConfig, args) -> int:
         else:
             s = _fleet_summary(cfg, src, params, backend, backend_obj,
                                action_fn, steps, clusters, seed,
-                               args.stochastic, args.device_traces, dev)
+                               args.stochastic, args.device_traces, dev,
+                               mesh=args.mesh, backend_on=lambda d:
+                               make_backend(cfg, backend, args.checkpoint,
+                                            forecaster=args.forecaster,
+                                            device=d))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     print(json.dumps(simulate_report(s, backend, clusters, args.days),
@@ -2178,14 +2213,7 @@ def _command(argv: list[str]) -> str | None:
 
 def _not_ported(argv: list[str]) -> str | None:
     """The ROADMAP item of a subcommand the port has not yet, or None."""
-    cmd = _command(argv)
-    if cmd == "simulate" and _flag(argv, "--mesh"):
-        return "item 14"
-    return NOT_PORTED.get(cmd)
-
-
-def _flag(argv: list[str], flag: str) -> bool:
-    return any(a == flag or a.startswith(flag + "=") for a in argv)
+    return NOT_PORTED.get(_command(argv))
 
 
 _HANDLERS = {
@@ -2207,11 +2235,8 @@ def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     item = _not_ported(argv)
     if item is not None:
-        cmd = _command(argv)
-        what = {"simulate": " --mesh"}
-        print(f"ccka_tpu_torch: subcommand {cmd!r}"
-              f"{what.get(cmd, '')} is not ported yet (ROADMAP {item})",
-              file=sys.stderr)
+        print(f"ccka_tpu_torch: subcommand {_command(argv)!r} is not "
+              f"ported yet (ROADMAP {item})", file=sys.stderr)
         return 2
     args = _build_parser().parse_args(argv)
     try:

@@ -1223,11 +1223,13 @@ FAULT_PRESETS: dict[str, FaultsConfig] = {
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout for `pjit`/`shard_map`.
+    """Device-mesh layout of `parallel/mesh.py::make_mesh`: a
+    ``[data, model]`` grid of torch devices driven by one process.
 
-    The cluster batch is data-parallel over the ``data`` axis (ICI within a
-    slice); ``model`` exists for sharding large policy nets if they ever grow
-    beyond one chip. Axis sizes of -1 mean "use all available devices".
+    The cluster batch is split over the ``data`` axis (each shard's work on
+    its row's device, results returned per shard); ``model`` splits the
+    policy net's Dense kernels by output columns. ``data_parallel`` -1
+    means "every available device divided by ``model_parallel``".
     """
 
     data_axis: str = "data"

@@ -53,7 +53,9 @@
 // CARRY: one time block of a longer rollout, as in rollout_profiles.cu;
 // the held observation is carried under FAULTS, and member m's state is
 // the m-th [rows, B] plane of the state [NP, rows, B]. The observation's
-// time of day is the global tick's.
+// time of day is the global tick's. Every launch takes b0, the global
+// index of its first cluster, as rollout_profiles.cu's do (a shard's
+// launch draws the whole fleet's numbers for its clusters).
 //
 // Design: a block is 8 warps, a warp owns 32 clusters. Each thread keeps
 // its cluster's fleet in registers and runs the tick alone; each tick it
@@ -564,8 +566,9 @@ rollout_mlp_kernel(const float* __restrict__ exo, float* __restrict__ out,
   const size_t cplane = (size_t)cs.rows * (size_t)B;  // a member's state
   if constexpr (CARRY)
     load_carry<P, Z, K, FAULTS, WL_D>(cs.in + m * cplane, B, b, s, q, held);
-  // The global cluster of the Philox counter.
-  const int gb = CARRY ? cs.b0 + b : b;
+  // The global cluster of the Philox counter: b0 is the launch's first
+  // cluster in the whole fleet (0 unless the launch is one shard of it).
+  const int gb = cs.b0 + b;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
     // The global tick: Philox, the clock, the held observation.
@@ -694,7 +697,7 @@ cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, const float* w3, const float* b3, int NP,
                    int T, int B, int rows, int fb, int wb, uint32_t k0,
-                   uint32_t k1, bool stochastic, const Carry* cs,
+                   uint32_t k1, bool stochastic, const Carry* cs, int b0,
                    cudaStream_t s) {
   constexpr int F = 2 * P * Z + 3 * Z + 8;
   constexpr int A = P * Z + 4 * P + 2;
@@ -716,7 +719,7 @@ cudaError_t launch(const float* exo, float* out, const MlpParams& pr,
              *cs)
         : go(rollout_mlp_kernel<P, Z, K, H, false, kFaults, CCKA_WL_D, true>,
              *cs);
-  const Carry none{nullptr, nullptr, 0, 0, 0};
+  const Carry none{nullptr, nullptr, 0, 0, b0};
   return stochastic
       ? go(rollout_mlp_kernel<P, Z, K, H, true, kFaults, CCKA_WL_D, false>,
            none)
@@ -730,9 +733,9 @@ int mlp_entry(const float* exo, float* out, const float* params,
               const float* b3, int NP, int F, int H, int A, int P, int Z,
               int K, int T, int B, int rows, unsigned long long seed,
               int stochastic, int fault_base, int wl_base, int wl_depth,
-              const Carry* cs, void* stream) {
+              const Carry* cs, int b0, void* stream) {
   if (P != 2 || F != 2 * P * Z + 3 * Z + 8 || A != P * Z + 4 * P + 2 ||
-      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1 ||
+      H != 128 || NP < 1 || NP > 65535 || T < 1 || B < 1 || b0 < 0 ||
       (fault_base >= 0) != (CCKA_FAULTS != 0) || wl_depth != CCKA_WL_D ||
       (wl_base >= 0) != (CCKA_WL_D > 0) || fault_base >= rows ||
       wl_base + 3 > rows ||
@@ -751,11 +754,11 @@ int mlp_entry(const float* exo, float* out, const float* params,
   if (Z == 3 && K == 3)
     return (int)launch<2, 3, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
                                      T, B, rows, fault_base, wl_base, k0, k1,
-                                     stochastic != 0, cs, s);
+                                     stochastic != 0, cs, b0, s);
   if (Z == 4 && K == 3)
     return (int)launch<2, 4, 3, 128>(exo, out, pr, w1, b1, w2, b2, w3, b3, NP,
                                      T, B, rows, fault_base, wl_base, k0, k1,
-                                     stochastic != 0, cs, s);
+                                     stochastic != 0, cs, b0, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -784,8 +787,10 @@ cudaError_t launch_forward(const float* obs, void* x, float* pre1, void* h1,
 // w3 [NP, H, A], b3 [NP, A]: device float32, with F = 2PZ+3Z+8 and
 // A = PZ+4P+2; fault_base / wl_base: first row of the fault / workload
 // block, -1 when the stream has none; wl_depth: the batch deadline D (0
-// without workloads). Returns a cudaError_t; cudaErrorInvalidValue for a
-// topology, width, size or lane layout this build is not made for.
+// without workloads); b0: the global index of cluster 0 in the Philox
+// counter (0 for a whole fleet, the shard's first cluster for one shard of
+// it). Returns a cudaError_t; cudaErrorInvalidValue for a topology, width,
+// size or lane layout this build is not made for.
 extern "C" int ccka_rollout_mlp(const float* exo, float* out,
                                 const float* params, const float* slo,
                                 const float* codec, const void* w1,
@@ -795,10 +800,10 @@ extern "C" int ccka_rollout_mlp(const float* exo, float* out,
                                 int P, int Z, int K, int T, int B, int rows,
                                 unsigned long long seed, int stochastic,
                                 int fault_base, int wl_base, int wl_depth,
-                                void* stream) {
+                                int b0, void* stream) {
   return mlp_entry(exo, out, params, slo, codec, w1, b1, w2, b2, w3, b3, NP,
                    F, H, A, P, Z, K, T, B, rows, seed, stochastic, fault_base,
-                   wl_base, wl_depth, nullptr, stream);
+                   wl_base, wl_depth, nullptr, b0, stream);
 }
 
 // The CARRY instantiation: ticks [t0, t0 + T) of a longer rollout, exo the
@@ -818,7 +823,7 @@ extern "C" int ccka_rollout_mlp_carry(
   const Carry cs{state_in, state_out, state_rows, t0, b0};
   return mlp_entry(exo, nullptr, params, slo, codec, w1, b1, w2, b2, w3, b3,
                    NP, F, H, A, P, Z, K, T, B, rows, seed, stochastic,
-                   fault_base, wl_base, wl_depth, &cs, stream);
+                   fault_base, wl_base, wl_depth, &cs, 0, stream);
 }
 
 // The rollout kernel's observation -> torso -> head on N given

@@ -26,6 +26,12 @@
 // and workload stream, Z = 4), 16 MB at B = 32768: a read and a write
 // per block, about 1 % of the block's stream bytes.
 //
+// Shards: every launch, carried or not, takes b0, the global index of its
+// first cluster, into the Philox counter; a launch over clusters
+// [b0, b0 + B) of a fleet draws what one launch over the whole fleet draws
+// for them (ccka_tpu_torch/parallel/sharded_kernel.py; the JAX package
+// offsets the kernel seed instead, sharded_kernel.py::shard_seed).
+//
 // The action of a tick is a per-cluster select of two constant profiles
 // on is_peak (kRule, kCarbon), or row t of a plan (kPlan): plan[t][j][b]
 // per cluster, b innermost so a warp's loads of coordinate j coalesce,
@@ -174,8 +180,9 @@ rollout_profiles_kernel(const float* __restrict__ exo,
   TickExo<Z> held{};
   if constexpr (CARRY)
     load_carry<P, Z, K, kHeld, WL_D>(cs.in, B, bv, s, q, held);
-  // The global cluster of the Philox counter.
-  const int gb = CARRY ? cs.b0 + bv : bv;
+  // The global cluster of the Philox counter: b0 is the launch's first
+  // cluster in the whole fleet (0 unless the launch is one shard of it).
+  const int gb = cs.b0 + bv;
   const size_t plane = (size_t)rows * (size_t)B;
   for (int t = 0; t < T; ++t) {
     const float* x = exo + (size_t)t * plane + bv;
@@ -260,7 +267,7 @@ template <int P, int Z, int K, int POLICY>
 cudaError_t launch(const float* exo, float* out, const Profiles& pr,
                    const PlanStream& plan, int T, int B, int rows, int fb,
                    int wb, uint32_t k0, uint32_t k1, bool stochastic,
-                   const Carry* cs, cudaStream_t s) {
+                   const Carry* cs, int b0, cudaStream_t s) {
   constexpr bool kFaults = CCKA_FAULTS != 0;
   const dim3 grid((unsigned)(((size_t)B * kGroup + kBlock - 1) / kBlock)),
       block(kBlock);
@@ -275,7 +282,7 @@ cudaError_t launch(const float* exo, float* out, const Profiles& pr,
                                      CCKA_WL_D, true>, *cs)
         : go(rollout_profiles_kernel<P, Z, K, false, POLICY, kFaults,
                                      CCKA_WL_D, true>, *cs);
-  const Carry none{nullptr, nullptr, 0, 0, 0};
+  const Carry none{nullptr, nullptr, 0, 0, b0};
   return stochastic
       ? go(rollout_profiles_kernel<P, Z, K, true, POLICY, kFaults, CCKA_WL_D,
                                    false>, none)
@@ -288,14 +295,14 @@ template <int POLICY>
 cudaError_t dispatch(const float* exo, float* out, const Profiles& pr,
                      const PlanStream& plan, int P, int Z, int K, int T,
                      int B, int rows, int fb, int wb, uint32_t k0,
-                     uint32_t k1, bool stochastic, const Carry* cs,
+                     uint32_t k1, bool stochastic, const Carry* cs, int b0,
                      cudaStream_t s) {
   if (P == 2 && Z == 3 && K == 3)
     return launch<2, 3, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
-                                   k0, k1, stochastic, cs, s);
+                                   k0, k1, stochastic, cs, b0, s);
   if (P == 2 && Z == 4 && K == 3)
     return launch<2, 4, 3, POLICY>(exo, out, pr, plan, T, B, rows, fb, wb,
-                                   k0, k1, stochastic, cs, s);
+                                   k0, k1, stochastic, cs, b0, s);
   return cudaErrorInvalidValue;
 }
 
@@ -322,10 +329,10 @@ int profiles_entry(const float* exo, float* out, const float* params,
                    const float* actions, int n_act, int P, int Z, int K,
                    int T, int B, int rows, unsigned long long seed,
                    int stochastic, const float* carbon, int fault_base,
-                   int wl_base, int wl_depth, const Carry* cs,
+                   int wl_base, int wl_depth, const Carry* cs, int b0,
                    void* stream) {
   if (n_act != P * Z + 4 * P + 2 || n_act > kMaxAct || T < 1 || B < 1 ||
-      !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
+      b0 < 0 || !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
       (cs != nullptr &&
        !carry_ok(*cs, P, Z, K, carbon != nullptr && fault_base >= 0,
                  wl_depth)))
@@ -342,19 +349,19 @@ int profiles_entry(const float* exo, float* out, const float* params,
   const PlanStream none{nullptr, 0, 0, 0};
   return (int)(carbon ? dispatch<kCarbon>(exo, out, pr, none, P, Z, K, T, B,
                                           rows, fault_base, wl_base, k0, k1,
-                                          stochastic != 0, cs, s)
+                                          stochastic != 0, cs, b0, s)
                       : dispatch<kRule>(exo, out, pr, none, P, Z, K, T, B,
                                         rows, fault_base, wl_base, k0, k1,
-                                        stochastic != 0, cs, s));
+                                        stochastic != 0, cs, b0, s));
 }
 
 int plan_entry(const float* exo, float* out, const float* params,
                const float* plan, int plan_rows, int plan_batched, int P,
                int Z, int K, int T, int B, int rows, unsigned long long seed,
                int stochastic, int fault_base, int wl_base, int wl_depth,
-               const Carry* cs, void* stream) {
+               const Carry* cs, int b0, void* stream) {
   if (plan == nullptr || plan_rows < P * Z + 4 * P + 2 || T < 1 || B < 1 ||
-      !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
+      b0 < 0 || !lanes_ok(rows, fault_base, wl_base, wl_depth) ||
       (cs != nullptr && !carry_ok(*cs, P, Z, K, false, wl_depth)))
     return (int)cudaErrorInvalidValue;
   Profiles pr{};
@@ -367,7 +374,7 @@ int plan_entry(const float* exo, float* out, const float* params,
                               fault_base, wl_base,
                               (uint32_t)(seed & 0xFFFFFFFFull),
                               (uint32_t)(seed >> 32), stochastic != 0, cs,
-                              (cudaStream_t)stream);
+                              b0, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -378,18 +385,21 @@ int plan_entry(const float* exo, float* out, const float* params,
 // min_weight, stickiness}, which re-rank the zone weights by carbon;
 // fault_base / wl_base: first row of the fault / workload block, -1 when
 // the stream has none; wl_depth: the batch deadline D (0 without
-// workloads). Returns a cudaError_t; cudaErrorInvalidValue for a
-// topology, size or lane layout this build is not made for.
+// workloads); b0: the global index of cluster 0 in the Philox counter (0
+// for a whole fleet, the shard's first cluster for one shard of it).
+// Returns a cudaError_t; cudaErrorInvalidValue for a topology, size or
+// lane layout this build is not made for.
 extern "C" int ccka_rollout_profiles(const float* exo, float* out,
                                      const float* params,
                                      const float* actions, int n_act, int P,
                                      int Z, int K, int T, int B, int rows,
                                      unsigned long long seed, int stochastic,
                                      const float* carbon, int fault_base,
-                                     int wl_base, int wl_depth, void* stream) {
+                                     int wl_base, int wl_depth, int b0,
+                                     void* stream) {
   return profiles_entry(exo, out, params, actions, n_act, P, Z, K, T, B, rows,
                         seed, stochastic, carbon, fault_base, wl_base,
-                        wl_depth, nullptr, stream);
+                        wl_depth, nullptr, b0, stream);
 }
 
 // The CARRY instantiation: ticks [t0, t0 + T) of a longer rollout, exo the
@@ -407,7 +417,7 @@ extern "C" int ccka_rollout_profiles_carry(
   const Carry cs{state_in, state_out, state_rows, t0, b0};
   return profiles_entry(exo, nullptr, params, actions, n_act, P, Z, K, T, B,
                         rows, seed, stochastic, carbon, fault_base, wl_base,
-                        wl_depth, &cs, stream);
+                        wl_depth, &cs, 0, stream);
 }
 
 // plan: device float32, [T_pad >= T, plan_rows, B] per cluster
@@ -420,10 +430,10 @@ extern "C" int ccka_rollout_plan(const float* exo, float* out,
                                  int Z, int K, int T, int B, int rows,
                                  unsigned long long seed, int stochastic,
                                  int fault_base, int wl_base, int wl_depth,
-                                 void* stream) {
+                                 int b0, void* stream) {
   return plan_entry(exo, out, params, plan, plan_rows, plan_batched, P, Z, K,
                     T, B, rows, seed, stochastic, fault_base, wl_base,
-                    wl_depth, nullptr, stream);
+                    wl_depth, nullptr, b0, stream);
 }
 
 // The plan's CARRY instantiation: plan row 0 is global tick t0 (the host
@@ -438,7 +448,7 @@ extern "C" int ccka_rollout_plan_carry(
   const Carry cs{state_in, state_out, state_rows, t0, b0};
   return plan_entry(exo, nullptr, params, plan, plan_rows, plan_batched, P,
                     Z, K, T, B, rows, seed, stochastic, fault_base, wl_base,
-                    wl_depth, &cs, stream);
+                    wl_depth, &cs, 0, stream);
 }
 
 // out: device [3, n_ticks, n_rows, n_clusters] float32.

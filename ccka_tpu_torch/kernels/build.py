@@ -12,7 +12,9 @@ every module of the package without nvcc.
 
 The launch wrappers check device, dtype, shape and contiguity, launch on
 PyTorch's current stream, and raise if the C function returns a CUDA
-error. They allocate nothing: the caller passes the output tensor (or,
+error. Every rollout launch takes ``b0``, the global index of its first
+cluster (0 for a whole fleet): one shard of a fleet draws the fleet's
+interruptions for its clusters. They allocate nothing: the caller passes the output tensor (or,
 for a CARRY instantiation, the two state buffers of a :class:`BlockCarry`).
 The rollout wrappers count their launches by instantiation in their
 ``launches`` Counter ("<FAULTS,CARRY>" and the like:
@@ -54,10 +56,10 @@ _VP, _I, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
 _SIGNATURES = {
     "rollout_profiles.cu": {
         "ccka_rollout_profiles": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                                  _I, _ULL, _I, _VP, _I, _I, _I, _VP),
+                                  _I, _ULL, _I, _VP, _I, _I, _I, _I, _VP),
         "ccka_philox_uniforms": (_VP, _ULL, _I, _I, _I, _I, _VP),
         "ccka_rollout_plan": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _ULL, _I, _I, _I, _I, _VP),
+                              _I, _I, _ULL, _I, _I, _I, _I, _I, _VP),
         "ccka_rollout_profiles_carry": (_VP, _VP, _VP, _I, _VP, _VP, _I, _I,
                                         _I, _I, _I, _I, _I, _ULL, _I, _VP,
                                         _I, _I, _I, _I, _I, _VP),
@@ -67,7 +69,7 @@ _SIGNATURES = {
     },
     "rollout_mlp.cu": {
         "ccka_rollout_mlp": (_VP,) * 11 + (_I,) * 10 + (_ULL, _I, _I, _I,
-                                                         _I, _VP),
+                                                         _I, _I, _VP),
         "ccka_rollout_mlp_carry": (_VP, _VP, _VP, _I) + (_VP,) * 9
                                   + (_I,) * 10 + (_ULL,) + (_I,) * 6
                                   + (_VP,),
@@ -191,12 +193,14 @@ class BlockCarry(NamedTuple):
 
 def _check_stream(exo: torch.Tensor, out: torch.Tensor | None,
                   out_shape: tuple, T: int,
-                  carry: BlockCarry | None = None) -> None:
-    """The stream, and the output block (or with ``carry`` the carried
-    state, whose row count the C entry checks against the
-    instantiation's)."""
+                  carry: BlockCarry | None = None, b0: int = 0) -> None:
+    """The stream, and the output block and first cluster ``b0`` (or
+    with ``carry`` the carried state, whose row count the C entry checks
+    against the instantiation's)."""
     _require_cuda_f32(exo, "exo")
     if carry is None:
+        if b0 < 0:
+            raise ValueError(f"b0={b0} must be non-negative")
         _require_cuda_f32(out, "out")
         if tuple(out.shape) != out_shape or out.device != exo.device:
             raise ValueError(f"out must be {list(out_shape)} on "
@@ -236,7 +240,8 @@ def launch_rollout_profiles(out: torch.Tensor | None, exo: torch.Tensor,
                             carbon: tuple | None = None,
                             fault_base: int = -1, wl_base: int = -1,
                             wl_depth: int = 0,
-                            carry: BlockCarry | None = None) -> None:
+                            carry: BlockCarry | None = None,
+                            b0: int = 0) -> None:
     """Launch the rule-profile rollout kernel: ``exo`` [T_pad, rows, B],
     ``out`` [24, B] on one CUDA device; ``params`` [22] and ``actions``
     [2, n_act] host float32. ``carbon`` = (sharpness, min_weight,
@@ -244,9 +249,11 @@ def launch_rollout_profiles(out: torch.Tensor | None, exo: torch.Tensor,
     and ``wl_base`` (first rows of the stream's fault and workload blocks,
     -1 when absent) and ``wl_depth`` pick the lane variant. ``carry``
     launches the CARRY instantiation: ``T`` ticks of a longer rollout
-    from ``carry.state_in`` into ``carry.state_out`` (``out`` unused)."""
+    from ``carry.state_in`` into ``carry.state_out`` (``out`` unused).
+    ``b0``: the global index of the stream's first cluster (a CARRY
+    launch reads ``carry.b0`` instead)."""
     _, rows, B = exo.shape
-    _check_stream(exo, out, (24, B), T, carry)
+    _check_stream(exo, out, (24, B), T, carry, b0)
     params = np.ascontiguousarray(params, np.float32)
     actions = np.ascontiguousarray(actions, np.float32)
     if params.shape != (22,) or actions.ndim != 2 or actions.shape[0] != 2:
@@ -263,7 +270,7 @@ def launch_rollout_profiles(out: torch.Tensor | None, exo: torch.Tensor,
         err = lib.ccka_rollout_profiles(
             exo.data_ptr(), out.data_ptr(), params.ctypes.data,
             actions.ctypes.data, actions.shape[1], P, Z, K, T, B, rows,
-            int(seed), int(stochastic), *tail, _stream(exo))
+            int(seed), int(stochastic), *tail, int(b0), _stream(exo))
     else:
         err = lib.ccka_rollout_profiles_carry(
             exo.data_ptr(), *_carry_args(carry), params.ctypes.data,
@@ -299,7 +306,8 @@ def launch_rollout_plan(out: torch.Tensor | None, exo: torch.Tensor,
                         Z: int, K: int, T: int, seed: int, stochastic: bool,
                         fault_base: int = -1, wl_base: int = -1,
                         wl_depth: int = 0,
-                        carry: BlockCarry | None = None) -> None:
+                        carry: BlockCarry | None = None,
+                        b0: int = 0) -> None:
     """Launch the plan-playback instantiation of the profile kernel:
     ``plan`` [T_pad, plan_rows, B] (one plan per cluster) or
     [T_pad, plan_rows] (one plan for every cluster), contiguous float32 on
@@ -307,7 +315,7 @@ def launch_rollout_plan(out: torch.Tensor | None, exo: torch.Tensor,
     from the block's first tick on, the block's ticks); the rest as for
     :func:`launch_rollout_profiles`."""
     T_pad, rows, B = exo.shape
-    _check_stream(exo, out, (24, B), T, carry)
+    _check_stream(exo, out, (24, B), T, carry, b0)
     _require_cuda_f32(plan, "plan")
     batched = plan.dim() == 3
     if (plan.device != exo.device or plan.dim() not in (2, 3)
@@ -323,7 +331,7 @@ def launch_rollout_plan(out: torch.Tensor | None, exo: torch.Tensor,
             int(fault_base), int(wl_base), int(wl_depth))
     if carry is None:
         err = lib.ccka_rollout_plan(exo.data_ptr(), out.data_ptr(), *args,
-                                    _stream(exo))
+                                    int(b0), _stream(exo))
     else:
         err = lib.ccka_rollout_plan_carry(
             exo.data_ptr(), *_carry_args(carry), *args, int(carry.t0),
@@ -368,7 +376,8 @@ def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
                        K: int, T: int, seed: int, stochastic: bool,
                        fault_base: int = -1, wl_base: int = -1,
                        wl_depth: int = 0,
-                       carry: BlockCarry | None = None) -> None:
+                       carry: BlockCarry | None = None,
+                       b0: int = 0) -> None:
     """Launch the learned-policy rollout kernel: ``exo`` [T_pad, rows, B],
     ``out`` [NP, 24, B]; ``weights`` = (w1 [NP, F, H], b1 [NP, H],
     w2 [NP, H, H], b2 [NP, H]) bfloat16 and (w3 [NP, H, A], b3 [NP, A])
@@ -377,7 +386,7 @@ def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
     [NP, rows, B]) as for :func:`launch_rollout_profiles`."""
     _, rows, B = exo.shape
     NP, F, H, A = _check_weights(weights, exo.device)
-    _check_stream(exo, out, (NP, 24, B), T, carry)
+    _check_stream(exo, out, (NP, 24, B), T, carry, b0)
     params = np.ascontiguousarray(params, np.float32)
     slo = np.ascontiguousarray(slo, np.float32)
     codec = np.ascontiguousarray(codec, np.float32)
@@ -390,7 +399,7 @@ def launch_rollout_mlp(out: torch.Tensor | None, exo: torch.Tensor,
             int(wl_depth))
     if carry is None:
         err = lib.ccka_rollout_mlp(exo.data_ptr(), out.data_ptr(), *args,
-                                   _stream(exo))
+                                   int(b0), _stream(exo))
     else:
         err = lib.ccka_rollout_mlp_carry(
             exo.data_ptr(), *_carry_args(carry), *args, int(carry.t0),

@@ -134,11 +134,24 @@ def _normalize_obs(obs: torch.Tensor) -> torch.Tensor:
     return torch.sign(obs) * torch.log1p(torch.abs(obs))
 
 
+def dense(name: str, layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax's Dense of ``layer`` on ``x``: with ``dtype`` (the bfloat16
+    torso) the product rounds to ``dtype`` before the bias is added;
+    without, the float32 head's product with its bias. ``name`` is the
+    layer's (a hook that replaces this function may split some layers'
+    products: `train/ppo.py`'s column-split kernels)."""
+    if dtype is None:
+        return F.linear(x, layer.weight, layer.bias)
+    return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
 class _Torso(nn.Module):
     """bfloat16 GELU layers on the normalized observation; returns the
     features as float32. The layers are ``Dense_0``, ``Dense_1``, ... as
     in the flax modules; like theirs, the parameters are kept in float32
-    and cast to bfloat16 where they are used."""
+    and cast to bfloat16 where they are used. ``linear`` (default
+    :func:`dense`) computes each layer's product."""
 
     def __init__(self, obs_dim: int, hidden: Sequence[int]):
         super().__init__()
@@ -147,14 +160,12 @@ class _Torso(nn.Module):
             self.add_module(f"Dense_{i}", nn.Linear(d_in, d_out))
         self.n_layers = len(hidden)
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, linear=dense) -> torch.Tensor:
         x = _normalize_obs(obs).to(torch.bfloat16)
         for i in range(self.n_layers):
-            layer = getattr(self, f"Dense_{i}")
-            # The product rounds to bfloat16 before the bias is added,
-            # as in flax's Dense.
-            x = gelu_tanh(F.linear(x, layer.weight.to(torch.bfloat16))
-                          + layer.bias.to(torch.bfloat16))
+            name = f"Dense_{i}"
+            x = gelu_tanh(linear(name, getattr(self, name), x,
+                                 torch.bfloat16))
         return x.to(torch.float32)
 
 
@@ -235,6 +246,7 @@ class ActorCritic(_Torso):
         nn.init.zeros_(self.actor_mean.bias)
         self.log_std.fill_(self.init_log_std)
 
-    def forward(self, obs: torch.Tensor):
-        x = super().forward(obs)
-        return self.actor_mean(x), self.log_std, self.critic(x).squeeze(-1)
+    def forward(self, obs: torch.Tensor, linear=dense):
+        x = super().forward(obs, linear)
+        return (linear("actor_mean", self.actor_mean, x), self.log_std,
+                linear("critic", self.critic, x).squeeze(-1))

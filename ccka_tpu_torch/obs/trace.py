@@ -36,9 +36,12 @@ import torch
 
 
 def _tensors(x) -> Iterator[torch.Tensor]:
-    """The tensors of a tensor, or of a (nested) tuple, list or dict."""
+    """The tensors of a tensor, or of a (nested) tuple, list or dict, or
+    of the parts of a mesh-sharded value (`parallel/mesh.py::Sharded`)."""
     if isinstance(x, torch.Tensor):
         yield x
+    elif hasattr(x, "parts") and hasattr(x, "offsets"):
+        yield from _tensors(x.parts)
     elif isinstance(x, dict):
         for v in x.values():
             yield from _tensors(v)

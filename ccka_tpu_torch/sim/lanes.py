@@ -19,10 +19,13 @@ generator lives in `regions/process.py`) and read by the geo overlay
 Each family may also supply a traced-parameter generator
 (:func:`lane_param_generator`): the same block for S cells of scenario
 parameters on shared draws, which the scenario axis of `search/axis.py`
-drives. The policy-mode registry (:func:`register_mode`,
-:func:`mode_engine`) holds each packed mode's engine entries; the four
-built-in modes register in `sim/megakernel.py`. Registering further lane
-families (the JAX package's `register_lane_family`) is not ported.
+drives. Further families register through :func:`register_lane_family`
+(a name, its rows, a unique key tag; refused when a row count would name
+two layouts) and get their generator from :func:`provide_lane_generator`.
+The policy-mode registry (:func:`register_mode`, :func:`mode_engine`)
+holds each packed mode's engine entries; the four built-in modes register
+in `sim/megakernel.py`, their mesh engines in
+`parallel/sharded_kernel.py`.
 
 Block sizes (each padded to a multiple of 8 rows):
 
@@ -71,11 +74,14 @@ class LaneFamily(NamedTuple):
     key_tag: int   # the family's seed tag in stream synthesis
 
 
+# The registered families in stream order (the built-in three first);
+# rebound, never mutated, by register_lane_family / unregister_lane_family.
 LANE_FAMILIES = (
     LaneFamily("faults", fault_rows, 0xFA117),
     LaneFamily("workloads", workload_rows, 0x301AD),
     LaneFamily("regions", region_rows, 0x6E0),
 )
+_BUILTIN_FAMILIES = tuple(f.name for f in LANE_FAMILIES)
 FAULT_KEY_TAG = LANE_FAMILIES[0].key_tag
 WORKLOAD_KEY_TAG = LANE_FAMILIES[1].key_tag
 REGION_KEY_TAG = LANE_FAMILIES[2].key_tag
@@ -92,6 +98,50 @@ _PROVIDERS = {"regions": "ccka_tpu_torch.regions.process"}
 _GENERATORS: dict = {}
 
 
+def register_lane_family(name: str, *, rows, key_tag: int,
+                         provider: str | None = None) -> LaneFamily:
+    """Register a packed-stream lane family after the present ones.
+    ``rows`` is a ``Z -> row count`` callable; ``key_tag`` the family's
+    seed tag (unique: two families on one tag would draw the same
+    numbers); ``provider`` an optional module imported when the family's
+    generator is first needed. Refuses a duplicate name or tag, and any
+    family that would make two subsets of families total one row count
+    at a zone count of :data:`_AMBIGUITY_ZS`; the registry is unchanged
+    after a refusal."""
+    global LANE_FAMILIES
+    if name in {f.name for f in LANE_FAMILIES}:
+        raise ValueError(f"lane family {name!r} already registered")
+    if key_tag in {f.key_tag for f in LANE_FAMILIES}:
+        raise ValueError(f"lane family {name!r}: key tag {key_tag:#x} "
+                         "already registered to another family")
+    fam = LaneFamily(name, rows, key_tag)
+    trial = LANE_FAMILIES + (fam,)
+    for z in _AMBIGUITY_ZS:
+        _subset_sums(z, trial)   # raises on a collision
+    LANE_FAMILIES = trial
+    if provider is not None:
+        _PROVIDERS[name] = provider
+    return fam
+
+
+def unregister_lane_family(name: str) -> None:
+    """Remove a registered family and its generators (for tests that
+    register a throwaway family; the built-in families stay)."""
+    global LANE_FAMILIES
+    if name in _BUILTIN_FAMILIES:
+        raise ValueError(f"lane family {name!r} is built in")
+    LANE_FAMILIES = tuple(f for f in LANE_FAMILIES if f.name != name)
+    for table in (_GENERATORS, _PARAM_GENERATORS, _PROVIDERS):
+        table.pop(name, None)
+
+
+def _generated() -> list:
+    """Families synthesized through a supplied generator: every
+    registered family but the two the sources synthesize inline."""
+    return sorted(f.name for f in LANE_FAMILIES
+                  if f.name not in ("faults", "workloads"))
+
+
 def provide_lane_generator(name: str, generate) -> None:
     """Attach the synthesis function of family ``name`` (called by the
     module that owns the family when it is imported). ``generate(config,
@@ -99,9 +149,9 @@ def provide_lane_generator(name: str, generate) -> None:
     ``[t_pad, rows(Z), B]`` block into ``out``; ``ctx`` holds the stream's
     clock (``dt_s``, ``start_unix_s``, ``start_offset_s``). A second,
     different function for one family is refused."""
-    if name not in _PROVIDERS:
+    if name not in _generated():
         raise ValueError(f"lane family {name!r} takes no generator; "
-                         f"have {sorted(_PROVIDERS)}")
+                         f"have {_generated()}")
     have = _GENERATORS.get(name)
     if have is not None and have is not generate:
         raise ValueError(f"lane family {name!r} already has a generator")
@@ -111,11 +161,14 @@ def provide_lane_generator(name: str, generate) -> None:
 def lane_generator(name: str):
     """The synthesis function of family ``name``, importing the module
     that supplies it on first use."""
-    if name not in _PROVIDERS:
+    if name not in _generated():
         raise ValueError(f"lane family {name!r} takes no generator; "
-                         f"have {sorted(_PROVIDERS)}")
-    if name not in _GENERATORS:
+                         f"have {_generated()}")
+    if name not in _GENERATORS and name in _PROVIDERS:
         importlib.import_module(_PROVIDERS[name])
+    if name not in _GENERATORS:
+        raise ValueError(f"lane family {name!r} has no registered "
+                         "generator (provide_lane_generator)")
     return _GENERATORS[name]
 
 
@@ -159,15 +212,21 @@ def lane_param_generator(name: str):
     return _PARAM_GENERATORS.get(name)
 
 
-def _subset_sums(Z: int) -> dict[int, tuple[str, ...]]:
-    """{total rows: the families present} over every subset of families,
-    in table order."""
+def _subset_sums(Z: int, families=None) -> dict[int, tuple[str, ...]]:
+    """{total rows: the families present} over every subset of
+    ``families`` (default the registered ones), in table order; raises
+    when two subsets total one row count."""
+    families = LANE_FAMILIES if families is None else families
     sums: dict[int, tuple[str, ...]] = {}
-    for r in range(len(LANE_FAMILIES) + 1):
-        for combo in itertools.combinations(LANE_FAMILIES, r):
+    for r in range(len(families) + 1):
+        for combo in itertools.combinations(families, r):
             total = exo_rows(Z) + sum(f.rows(Z) for f in combo)
-            if total in sums:  # the block sizes above rule this out
-                raise AssertionError(f"ambiguous lane layout at Z={Z}")
+            if total in sums:
+                raise ValueError(
+                    f"ambiguous lane layout at Z={Z}: families "
+                    f"{tuple(f.name for f in combo)} and {sums[total]} "
+                    f"both total {total} rows; a stream could not be "
+                    "resolved from its row count")
             sums[total] = tuple(f.name for f in combo)
     return sums
 
@@ -285,11 +344,13 @@ def block_bytes(block_T: int, rows: int, batch: int) -> int:
 # `packed_mode_block_summary_fn`). `sim/megakernel.py` registers the four
 # built-in modes and dispatches through here. The port has no separate
 # reference engine: a CPU stream runs the plain version inside the same
-# entries. The multi-device engine (ROADMAP item 14) will add a slot.
+# entries. ``sharded_block_summary`` (the carried-state closures over a
+# device mesh) is filled by `parallel/sharded_kernel.py`.
 
 _ENGINE_PROVIDERS = {
     "packed_summary": "ccka_tpu_torch.sim.megakernel",
     "block_summary": "ccka_tpu_torch.sim.megakernel",
+    "sharded_block_summary": "ccka_tpu_torch.parallel.sharded_kernel",
 }
 _MODE_REGISTRAR = "ccka_tpu_torch.sim.megakernel"
 
@@ -298,7 +359,8 @@ class EngineMode:
     """One registered packed policy mode and its engine entries (None
     until a module provides them)."""
 
-    __slots__ = ("name", "packed_summary", "block_summary")
+    __slots__ = ("name", "packed_summary", "block_summary",
+                 "sharded_block_summary")
 
     def __init__(self, name: str):
         self.name = name

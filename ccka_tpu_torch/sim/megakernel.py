@@ -260,13 +260,17 @@ def megakernel_summary_from_packed(params: SimParams, off_action: Action,
                                    peak_action: Action,
                                    exo_packed: torch.Tensor, T: int,
                                    seed: int = 0, *,
-                                   stochastic: bool = True) -> EpisodeSummary:
+                                   stochastic: bool = True,
+                                   cluster0: int = 0) -> EpisodeSummary:
     """Rule-profile EpisodeSummary from a packed ``[T_pad, exo_rows, B]``
     stream (``T`` is the true horizon). A CUDA stream launches the kernel;
-    a CPU stream runs the plain rollout on the unpacked views."""
+    a CPU stream runs the plain rollout on the unpacked views.
+    ``cluster0``: the global index of the stream's first cluster, when
+    the stream is one shard of a fleet (`parallel/sharded_kernel.py`):
+    its clusters then draw the fleet's interruptions."""
     return _profiles_summary(megakernel_summary_from_packed, params,
                              off_action, peak_action, exo_packed, T, seed,
-                             stochastic, None)
+                             stochastic, None, cluster0)
 
 
 megakernel_summary_from_packed.launches = 0
@@ -301,14 +305,16 @@ def carbon_megakernel_summary_from_packed(params: SimParams,
                                           sharpness: float = 10.0,
                                           min_weight: float = 0.05,
                                           stickiness: float = 1.0,
-                                          stochastic: bool = True
+                                          stochastic: bool = True,
+                                          cluster0: int = 0
                                           ) -> EpisodeSummary:
     """CarbonAwarePolicy EpisodeSummary from a packed stream: the packed
-    analog of :func:`carbon_megakernel_rollout_summary`."""
+    analog of :func:`carbon_megakernel_rollout_summary` (``cluster0`` as
+    for :func:`megakernel_summary_from_packed`)."""
     return _profiles_summary(
         carbon_megakernel_summary_from_packed, params, off_action,
         peak_action, exo_packed, T, seed, stochastic,
-        (float(sharpness), float(min_weight), float(stickiness)))
+        (float(sharpness), float(min_weight), float(stickiness)), cluster0)
 
 
 carbon_megakernel_summary_from_packed.launches = 0
@@ -371,7 +377,8 @@ def _unpack_lanes(exo_packed: torch.Tensor, T: int, Z: int,
 
 
 def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
-                      seed, stochastic, carbon) -> EpisodeSummary:
+                      seed, stochastic, carbon,
+                      cluster0: int = 0) -> EpisodeSummary:
     """The rule (``carbon`` None) or carbon-aware rollout on a packed
     stream; a kernel launch is counted on ``entry``."""
     from ccka_tpu_torch.sim.random import seed_key
@@ -380,11 +387,12 @@ def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
     K = int(params.provision_pipeline_k)
     lanes = _check_packed(exo_packed, T, P, Z, K, params)
     seed_key(seed)  # range check: the kernel keys Philox by its 64 bits
+    _check_cluster0(cluster0)
     if exo_packed.device.type == "cpu":
         return _plain_summary(params, off_action, peak_action,
                               unpack_exo(exo_packed, T, Z), seed, stochastic,
-                              carbon, **_unpack_lanes(exo_packed, T, Z,
-                                                      lanes))
+                              carbon, cluster0=cluster0,
+                              **_unpack_lanes(exo_packed, T, Z, lanes))
     from ccka_tpu_torch.kernels import build
 
     acts = torch.stack([_pack_action(off_action), _pack_action(peak_action)])
@@ -396,15 +404,21 @@ def _profiles_summary(entry, params, off_action, peak_action, exo_packed, T,
         acts.cpu().numpy(), P=P, Z=Z, K=K, T=int(T), seed=int(seed),
         stochastic=bool(stochastic), carbon=carbon,
         fault_base=lanes.fault_base, wl_base=lanes.wl_base,
-        wl_depth=lanes.wl_depth)
+        wl_depth=lanes.wl_depth, b0=int(cluster0))
     entry.launches += 1
     return _finalize(params, out, T)
 
 
+def _check_cluster0(cluster0) -> None:
+    if int(cluster0) < 0:
+        raise ValueError(f"cluster0={cluster0} must be non-negative")
+
+
 def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic,
-                   faults=None, workloads=None):
+                   faults=None, workloads=None, cluster0: int = 0):
     """`sim/rollout.py`'s rollout of fresh clusters under ``action_fn``,
-    with the stream's lanes when it has them."""
+    with the stream's lanes when it has them; the first cluster's global
+    index is ``cluster0``."""
     from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
                                             fresh_state)
 
@@ -412,7 +426,8 @@ def _plain_rollout(params, P, Z, action_fn, traces, seed, stochastic,
                           traces.is_peak.shape[0], traces.is_peak.device)
     return batched_rollout_summary(params, states0, action_fn, traces, seed,
                                    stochastic=stochastic, faults=faults,
-                                   workloads=workloads)[1]
+                                   workloads=workloads,
+                                   cluster0=int(cluster0))[1]
 
 
 def _profile_action_fn(off, peak, carbon):
@@ -431,12 +446,13 @@ def _profile_action_fn(off, peak, carbon):
 
 
 def _plain_summary(params, off, peak, traces, seed, stochastic, carbon=None,
-                   faults=None, workloads=None):
+                   faults=None, workloads=None, cluster0: int = 0):
     """The profile kernel's plain version: the rule-policy rollout from
     fresh clusters, or with ``carbon`` the CarbonAwarePolicy's."""
     P, Z = off.zone_weight.shape
     return _plain_rollout(params, P, Z, _profile_action_fn(off, peak, carbon),
-                          traces, seed, stochastic, faults, workloads)
+                          traces, seed, stochastic, faults, workloads,
+                          cluster0)
 
 
 # ---------------------------------------------------------------------------
@@ -698,12 +714,13 @@ def kernel_numerics_action_fn(net_params: dict, cluster: ClusterConfig,
 def population_plain_summary(params: SimParams, cluster: ClusterConfig,
                              net_params: dict, exo_packed: torch.Tensor,
                              T: int, seed: int = 0, *,
-                             stochastic: bool = True) -> EpisodeSummary:
+                             stochastic: bool = True,
+                             cluster0: int = 0) -> EpisodeSummary:
     """The population MLP launch's plain version in one rollout: the NP
     members' B clusters as NP x B rows (member-major) of `sim/rollout.py`'s
     loop on the stream's worlds repeated per member, row ``m * B + b``
-    drawing cluster b's interruptions, so every member sees the worlds it
-    sees in the kernel. Fields come back [NP, B] (a single tree is a
+    drawing cluster ``cluster0 + b``'s interruptions, so every member sees
+    the worlds it sees in the kernel. Fields come back [NP, B] (a single tree is a
     population of one). It runs the operations of
     :func:`kernel_numerics_action_fn` member by member at the cost of one
     member's loop."""
@@ -743,7 +760,8 @@ def population_plain_summary(params: SimParams, cluster: ClusterConfig,
         params, Carry(states0, SummaryAcc.zero(n_members * B, dev), None,
                       None),
         action_fn, rep(unpack_exo(exo_packed, T, Z)), seed, tick0=0,
-        cluster0=torch.arange(B, device=dev).repeat(n_members),
+        cluster0=(int(cluster0) + torch.arange(B, device=dev)).repeat(
+            n_members),
         stochastic=stochastic, **extra)
     summary = finalize_summary(params, states0, carry.state, carry.acc, T)
     return EpisodeSummary(*(x.reshape(n_members, B) for x in summary))
@@ -778,12 +796,14 @@ def neural_megakernel_summary_from_packed(params: SimParams,
                                           net_params: dict,
                                           exo_packed: torch.Tensor, T: int,
                                           seed: int = 0, *,
-                                          stochastic: bool = True
+                                          stochastic: bool = True,
+                                          cluster0: int = 0
                                           ) -> EpisodeSummary:
     """Population-MLP EpisodeSummary from a packed stream: the packed
     analog of :func:`neural_megakernel_rollout_summary`. A CUDA stream
     launches the kernel once for the whole population and horizon; a CPU
-    stream runs its plain version, :func:`population_plain_summary`."""
+    stream runs its plain version, :func:`population_plain_summary`.
+    ``cluster0`` as for :func:`megakernel_summary_from_packed`."""
     from ccka_tpu_torch.models.nets import (AFTER_MAX_S, HPA_BIAS, HPA_HI,
                                             HPA_LO)
     from ccka_tpu_torch.policy.constraints import slo_pool_mask
@@ -793,13 +813,15 @@ def neural_megakernel_summary_from_packed(params: SimParams,
     K = int(params.provision_pipeline_k)
     lanes = _check_packed(exo_packed, T, P, Z, K, params)
     seed_key(seed)
+    _check_cluster0(cluster0)
     (_, H, _), was_single = _mlp_dims(net_params, P=P, Z=Z)
     dev = exo_packed.device
     B = exo_packed.shape[2]
     if dev.type == "cpu":
         summary = population_plain_summary(params, cluster, net_params,
                                            exo_packed, T, seed,
-                                           stochastic=stochastic)
+                                           stochastic=stochastic,
+                                           cluster0=cluster0)
     else:
         if H != 128:
             raise ValueError(f"the MLP rollout kernel is built for hidden "
@@ -817,7 +839,8 @@ def neural_megakernel_summary_from_packed(params: SimParams,
                      np.float32),
             weights, P=P, Z=Z, K=K, T=int(T), seed=int(seed),
             stochastic=bool(stochastic), fault_base=lanes.fault_base,
-            wl_base=lanes.wl_base, wl_depth=lanes.wl_depth)
+            wl_base=lanes.wl_base, wl_depth=lanes.wl_depth,
+            b0=int(cluster0))
         neural_megakernel_summary_from_packed.launches += 1
         # Finalize all members at once: [NP, 24, B] -> [24, NP * B].
         flat = _finalize(params, out.permute(1, 0, 2).reshape(_OUT_ROWS, -1),
@@ -945,21 +968,24 @@ def plan_megakernel_summary_from_packed(params: SimParams,
                                         plan_packed: torch.Tensor,
                                         exo_packed: torch.Tensor, T: int,
                                         seed: int = 0, *,
-                                        stochastic: bool = True
+                                        stochastic: bool = True,
+                                        cluster0: int = 0
                                         ) -> EpisodeSummary:
     """Plan-playback EpisodeSummary from already packed plan and exo
     streams (:func:`pack_plan`, `packed_trace_device`); ``cluster`` gives
     the topology. The stream may carry fault and workload lanes; a plan
-    observes nothing, so only their dynamics apply."""
+    observes nothing, so only their dynamics apply. ``cluster0`` as for
+    :func:`megakernel_summary_from_packed`."""
     return _plan_summary(params, cluster.n_pools, cluster.n_zones,
-                         plan_packed, exo_packed, T, seed, stochastic)
+                         plan_packed, exo_packed, T, seed, stochastic,
+                         cluster0)
 
 
 plan_megakernel_summary_from_packed.launches = 0
 
 
 def _plan_summary(params, P, Z, plan_packed, exo_packed, T, seed,
-                  stochastic) -> EpisodeSummary:
+                  stochastic, cluster0: int = 0) -> EpisodeSummary:
     """The plan-playback rollout on packed streams: the kernel on a CUDA
     stream (a launch counted on `plan_megakernel_summary_from_packed`),
     the plain rollout on a CPU one."""
@@ -969,11 +995,12 @@ def _plan_summary(params, P, Z, plan_packed, exo_packed, T, seed,
     lanes = _check_packed(exo_packed, T, P, Z, K, params)
     batched = _check_plan(plan_packed, exo_packed, P, Z)
     seed_key(seed)
+    _check_cluster0(cluster0)
     if exo_packed.device.type == "cpu":
         return _plain_rollout(params, P, Z, plan_action_fn(
             unpack_plan(plan_packed, T, P, Z), batched),
             unpack_exo(exo_packed, T, Z), seed, stochastic,
-            **_unpack_lanes(exo_packed, T, Z, lanes))
+            cluster0=cluster0, **_unpack_lanes(exo_packed, T, Z, lanes))
     from ccka_tpu_torch.kernels import build
 
     out = torch.empty((_OUT_ROWS, exo_packed.shape[2]), dtype=torch.float32,
@@ -982,7 +1009,7 @@ def _plan_summary(params, P, Z, plan_packed, exo_packed, T, seed,
         out, exo_packed, _pack_params(params).cpu().numpy().ravel(),
         plan_packed.contiguous(), P=P, Z=Z, K=K, T=int(T), seed=int(seed),
         stochastic=bool(stochastic), fault_base=lanes.fault_base,
-        wl_base=lanes.wl_base, wl_depth=lanes.wl_depth)
+        wl_base=lanes.wl_base, wl_depth=lanes.wl_depth, b0=int(cluster0))
     plan_megakernel_summary_from_packed.launches += 1
     return _finalize(params, out, T)
 
@@ -1268,14 +1295,17 @@ def _neutral_plan(cluster: ClusterConfig, T_pad: int, device) -> torch.Tensor:
 def packed_mode_summary(params: SimParams, cluster: ClusterConfig, mode: str,
                         exo_packed: torch.Tensor, T: int, seed: int = 0, *,
                         stochastic: bool = True, net_params=None,
-                        plan_packed=None) -> EpisodeSummary:
+                        plan_packed=None,
+                        cluster0: int = 0) -> EpisodeSummary:
     """The non-carry entry of ``mode`` on a whole packed stream (the
     kernel on a CUDA stream, the plain version on a CPU one): the
     unblocked side of the blocked == unblocked comparison. Arguments as
-    for :func:`packed_mode_block_summary_fn`."""
+    for :func:`packed_mode_block_summary_fn`; ``cluster0`` the global
+    index of the stream's first cluster."""
+    extra = {"cluster0": cluster0} if cluster0 else {}
     return _lanes.mode_engine(mode, "packed_summary")(
         params, cluster, exo_packed, T, seed, stochastic=stochastic,
-        net_params=net_params, plan_packed=plan_packed)
+        net_params=net_params, plan_packed=plan_packed, **extra)
 
 
 def packed_mode_summary_fn(params: SimParams, cluster: ClusterConfig,
@@ -1300,13 +1330,13 @@ def packed_mode_summary_fn(params: SimParams, cluster: ClusterConfig,
 def _packed_summary(mode: str, params: SimParams, cluster: ClusterConfig,
                     exo_packed: torch.Tensor, T: int, seed: int = 0, *,
                     stochastic: bool = True, net_params=None,
-                    plan_packed=None) -> EpisodeSummary:
+                    plan_packed=None, cluster0: int = 0) -> EpisodeSummary:
     """The "packed_summary" engine of the four built-in modes (the
     registry's entry behind :func:`packed_mode_summary`)."""
     from ccka_tpu_torch.policy.rule import offpeak_action, peak_action
 
     dev = exo_packed.device
-    kw = dict(seed=seed, stochastic=stochastic)
+    kw = dict(seed=seed, stochastic=stochastic, cluster0=cluster0)
     if mode in ("rule", "carbon"):
         off, peak = offpeak_action(cluster, dev), peak_action(cluster, dev)
         if mode == "rule":

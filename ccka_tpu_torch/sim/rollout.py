@@ -142,14 +142,16 @@ def batched_rollout_summary(params: SimParams, states0: ClusterState,
                             action_fn: ActionFn, traces: ExogenousTrace,
                             seed: int = 0, *, stochastic: bool = False,
                             faults: FaultStep | None = None,
-                            workloads: WorkloadStep | None = None):
+                            workloads: WorkloadStep | None = None,
+                            cluster0: int = 0):
     """Closed-loop rollout of a batch of clusters over the traces' horizon,
     folded into one EpisodeSummary per cluster inside the loop (memory
     O(B), whatever the horizon). Returns ``(final_state, summary)``.
 
     In stochastic mode the interruption draws of cluster b at tick t come
-    from `sim/random.py` at (``seed``, b, t, spot row); the CUDA rollout
-    kernels draw the same numbers.
+    from `sim/random.py` at (``seed``, ``cluster0`` + b, t, spot row); the
+    CUDA rollout kernels draw the same numbers. ``cluster0`` is the global
+    index of the batch's first cluster (one shard of a larger fleet).
 
     ``faults``: optional `FaultStep` with leaves [B, T, Z] / [B, T]; each
     tick's disturbances feed the step, and the policy observes held
@@ -161,7 +163,8 @@ def batched_rollout_summary(params: SimParams, states0: ClusterState,
     acc0 = SummaryAcc.zero(traces.is_peak.shape[0], states0.nodes.device)
     state, acc, _, _ = resume_rollout_summary(
         params, Carry(states0, acc0, None, None), action_fn, traces, seed,
-        tick0=0, stochastic=stochastic, faults=faults, workloads=workloads)
+        tick0=0, cluster0=cluster0, stochastic=stochastic, faults=faults,
+        workloads=workloads)
     return state, finalize_summary(params, states0, state, acc,
                                    traces.is_peak.shape[1])
 
@@ -335,14 +338,16 @@ def _stack(states0, ticks):
 def rollout(params: SimParams, states0: ClusterState, action_fn: ActionFn,
             traces: ExogenousTrace, seed: int = 0, *,
             stochastic: bool = False, faults: FaultStep | None = None,
-            workloads: WorkloadStep | None = None, tick0: int = 0):
+            workloads: WorkloadStep | None = None, tick0: int = 0,
+            cluster0: int = 0):
     """`batched_rollout_summary`'s closed loop, returning ``(final_state,
     metrics)`` with every `StepMetrics` leaf stacked per tick
     ([B, T, ...]). ``tick0`` offsets the global tick of the interruption
-    draws (a segment of a longer run)."""
+    draws (a segment of a longer run), ``cluster0`` the global cluster
+    (a shard of a larger fleet)."""
     return _stack(states0, _ticks(
         params, states0, action_fn, traces, seed, stochastic=stochastic,
-        faults=faults, workloads=workloads, tick0=tick0))
+        faults=faults, workloads=workloads, tick0=tick0, cluster0=cluster0))
 
 
 def rollout_actions(params: SimParams, states0: ClusterState,

@@ -30,10 +30,19 @@ the concatenated blocks.
 - :func:`unblocked_reference_summary` concatenates the same blocks and
   runs the mode's non-carry entry over the whole horizon: the other side
   of the bitwise comparison.
+- ``mesh=`` (`parallel/mesh.py`) splits the fleet over the mesh's data
+  shards: shard ``i`` synthesizes its blocks as chunk ``i`` does
+  (``shard=i``) on its device and runs its block loop through the mode's
+  mesh engine (`parallel/sharded_kernel.py::
+  sharded_packed_mode_block_summary_fn`) with ``cluster0`` its first
+  cluster's global index, in shard order; the summaries are concatenated
+  on the host. A mesh run is bitwise a single-device run over the
+  concatenated shard blocks (`sharded_kernel.py::ShardBlocks`). The
+  chunked drive with ``mesh=`` runs chunk ``c`` on data shard ``c mod
+  n``'s device, bitwise the chunked drive on one device.
 
 On the CPU the block entries run their plain versions and the two drives
-the same loop (no streams). ``mesh=`` waits for the multi-device port
-(ROADMAP item 14) and raises.
+the same loop (no streams).
 """
 
 from __future__ import annotations
@@ -69,13 +78,6 @@ def plan_stream(T: int, block_T: int, t_chunk: int = 64) -> StreamPlan:
     here, before any buffer is allocated."""
     n_blocks, T_pad = lanes.block_layout(T, block_T, t_chunk)
     return StreamPlan(T, block_T, t_chunk, n_blocks, T_pad)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= streaming waits for the multi-device port (ROADMAP "
-            "item 14, parallel/sharded_kernel.py)")
 
 
 def _block_gen(source, plan: StreamPlan, batch: int, key: int, device, *,
@@ -236,8 +238,19 @@ def streaming_rollout_summary(source, params, cluster, mode: str, *,
     make the run one chunk of a larger fleet (as
     :func:`chunked_streaming_summary` runs it). ``device`` (the card
     unless the caller names another) is where the streams are made;
-    ``params`` must lie there."""
-    _no_mesh(mesh)
+    ``params`` must lie there. ``mesh`` splits the fleet over the mesh's
+    data shards (module docstring; ``report["shards"]``, each shard's
+    ``["shard_wall_s"]``, ``wall_s`` their sum)."""
+    if mesh is not None:
+        if shard is not None or cluster0:
+            raise ValueError("mesh= runs the whole fleet; shard= and "
+                             "cluster0= name one chunk of it")
+        return _mesh_streaming(
+            source, params, cluster, mode, mesh, key=key, batch=batch, T=T,
+            block_T=block_T, seed=seed, t_chunk=t_chunk,
+            stochastic=stochastic, net_params=net_params,
+            plan_packed=plan_packed, pipelined=pipelined,
+            tracer=tracer or SpanTracer(), label=label)
     dev = resolve_device(device)
     plan = plan_stream(T, block_T, t_chunk)
     gen = _block_gen(source, plan, batch, key, dev, shard=shard)
@@ -253,6 +266,44 @@ def streaming_rollout_summary(source, params, cluster, mode: str, *,
                T_pad=plan.T_pad,
                pipeline="double-buffered" if pipelined else "sync")
     return summary, rep
+
+
+def _mesh_streaming(source, params, cluster, mode: str, mesh, *, key: int,
+                    batch: int, T: int, block_T: int, seed: int,
+                    t_chunk: int, stochastic: bool, net_params, plan_packed,
+                    pipelined: bool, tracer: SpanTracer, label: str):
+    """:func:`streaming_rollout_summary` over ``mesh``: each data
+    shard's block loop on its device, in shard order."""
+    from ccka_tpu_torch.parallel.sharded_kernel import (
+        sharded_packed_mode_block_summary_fn)
+
+    plan = plan_stream(T, block_T, t_chunk)
+    mfns = sharded_packed_mode_block_summary_fn(
+        mesh, params, cluster, mode, T=T, block_T=block_T, batch=batch,
+        t_chunk=t_chunk, stochastic=stochastic, net_params=net_params,
+        plan_packed=plan_packed)
+    b_loc = batch // len(mfns.shards)
+    ledger = None if pipelined else OccupancyLedger()
+    parts, walls, buffers = [], [], 0
+    for i, (fns, dev, c0) in enumerate(mfns.shards):
+        gen = _block_gen(source, plan, b_loc, key, dev, shard=i)
+        part, rep = _run_group(gen, fns, source.packed_rows(), b_loc, seed,
+                               dev, pipelined=pipelined, tracer=tracer,
+                               label=f"{label}.{i}", ledger=ledger,
+                               cluster0=c0)
+        parts.append(part)
+        walls.append(rep["wall_s"])
+        buffers = max(buffers, rep.get("stream_buffers", 0))
+    summary = EpisodeSummary(*(torch.cat(xs, dim=-1) for xs in zip(*parts)))
+    report = {"n_blocks": plan.n_blocks, "block_T": plan.block_T,
+              "T_pad": plan.T_pad, "shards": len(parts),
+              "shard_wall_s": walls, "wall_s": sum(walls),
+              "pipeline": "double-buffered" if pipelined else "sync"}
+    if pipelined:
+        report["stream_buffers"] = buffers
+    else:
+        report["occupancy"] = ledger.to_dict()
+    return summary, report
 
 
 def unblocked_reference_summary(source, params, cluster, mode: str, *,
@@ -290,7 +341,9 @@ def chunked_streaming_summary(source, params, cluster, mode: str, *,
     summaries concatenated on the host. Chunk ``c`` synthesizes with
     ``shard=c`` and its kernel takes the global index ``c * chunk`` of
     its first cluster. Device memory holds two stream blocks of one chunk
-    (plus the carried states) however large ``batch`` grows.
+    (plus the carried states) however large ``batch`` grows. ``mesh``
+    runs chunk ``c`` on data shard ``c mod n``'s device (``params``
+    placed on each), bitwise the same summaries.
 
     Returns ``(summary, report)``: ``report["chunks"]``, ``["chunk"]``,
     ``["wall_s"]`` (the chunks' walls summed), ``["live_block_bytes"]``
@@ -299,21 +352,31 @@ def chunked_streaming_summary(source, params, cluster, mode: str, *,
     (`torch.cuda.max_memory_allocated` over the run); the synchronous
     drive's one ledger across all chunks, or the double-buffered drive's
     ``["stream_buffers"]``."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    if mesh is None:
+        devs = [resolve_device(device)]
+        placed = {str(devs[0]): params}
+    else:
+        from ccka_tpu_torch.parallel.mesh import replicate
+
+        devs = mesh.data_devices()
+        placed = replicate(mesh, params).copies
     n_chunks = lanes.chunk_layout(batch, chunk)
     plan = plan_stream(T, block_T, t_chunk)
-    fns = packed_mode_block_summary_fn(
-        params, cluster, mode, T=T, block_T=block_T, t_chunk=t_chunk,
+    fns_on = {d: packed_mode_block_summary_fn(
+        p, cluster, mode, T=T, block_T=block_T, t_chunk=t_chunk,
         stochastic=stochastic, net_params=net_params)
+        for d, p in placed.items()}
     tr = tracer or SpanTracer()
     ledger = None if pipelined else OccupancyLedger()
     rows = source.packed_rows()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
+    cudas = {d for d in devs if d.type == "cuda"}
+    for d in cudas:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
     parts, wall, buffers = [], 0.0, 0
     for c in range(n_chunks):
+        dev = devs[c % len(devs)]
+        fns = fns_on[str(dev)]
         gen = _block_gen(source, plan, chunk, key, dev, shard=c)
         part, rep = _run_group(gen, fns, rows, chunk, seed, dev,
                                pipelined=pipelined, tracer=tr,
@@ -330,8 +393,8 @@ def chunked_streaming_summary(source, params, cluster, mode: str, *,
         "pipeline": "double-buffered" if pipelined else "sync",
         "live_block_bytes": 2 * lanes.block_bytes(plan.block_T, rows, chunk),
         "stream_bytes": lanes.block_bytes(plan.T_pad, rows, batch),
-        "peak_bytes": (torch.cuda.max_memory_allocated(dev)
-                       if dev.type == "cuda" else None),
+        "peak_bytes": (max(torch.cuda.max_memory_allocated(d)
+                           for d in cudas) if cudas else None),
     }
     if pipelined:
         report["stream_buffers"] = buffers

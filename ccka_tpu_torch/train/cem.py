@@ -28,7 +28,13 @@ worlds and the same interruption draws):
   multiple of 128; the whole population is one MLP launch). The stream
   buffer is synthesized into again every generation, so back-to-back
   generations hold one stream on the card. On the CPU the entries run
-  their plain versions.
+  their plain versions. With ``mesh=`` (`parallel/mesh.py`) the
+  generation's traces split over the mesh's data shards: shard ``i``
+  synthesizes its lane block on its device
+  (`parallel/sharded_kernel.py::sharded_packed_trace`) and runs the
+  three launches there with its first trace's global index, so the
+  generation is bitwise a single-device generation on the concatenated
+  shard streams (``traces_per_gen / shards`` a multiple of 128).
 
 Draws: each generation's traces or stream, its world seed and its
 perturbation noise [popsize - 1, dim] come from a generator seeded with
@@ -210,8 +216,10 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
     ``CEMConfig.usd_bar`` / ``co2_bar`` / ``attain_bar``.
 
     ``engine``: ``"lax"`` or ``"mega"`` (module docstring). ``mesh``
-    waits for the multi-device port and raises. ``draws(generation)``
-    returns a :class:`CEMDraws` in place of the generator's.
+    (mega engine) splits each generation's traces over the mesh's data
+    shards; ignored by the lax engine. ``draws(generation)`` returns a
+    :class:`CEMDraws` in place of the generator's (with a mesh, its
+    stream is split over the shards).
     ``runlog`` (an `obs.runlog.RunLog`) gets every history record as a
     "gen" event.
 
@@ -219,10 +227,6 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
     last generation that improved the incumbent, 0 if none did;
     ``fitness``) and ``final_sigma`` so chunked callers continue the
     annealing schedule."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "cem_refine(mesh=) waits for the multi-device port (ROADMAP "
-            "item 14, parallel/sharded_kernel.py)")
     dev = resolve_device(device)
     cem = cem or CEMConfig()
     log = log or (lambda s: None)
@@ -250,9 +254,7 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
         if draws is None and not hasattr(source, "packed_trace_device"):
             raise ValueError("engine='mega' needs a device-synthesizing "
                              "source (packed_trace_device)")
-        if cem.traces_per_gen % 128:
-            raise ValueError("mega engine needs traces_per_gen to be a "
-                             f"multiple of 128, got {cem.traces_per_gen}")
+        _check_mega_batch(cem.traces_per_gen, mesh, source, draws)
         if teacher_policy is not None and not isinstance(
                 teacher_policy, (CarbonAwarePolicy, RulePolicy)):
             raise ValueError("mega engine fuses rule/carbon teachers "
@@ -291,30 +293,8 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
                        if teacher_fn is not None else rule_s)
             return pop, rule_s, teach_s
     else:
-        from ccka_tpu_torch.sim import megakernel as mk
-
-        off_a, peak_a = offpeak_action(cfg.cluster, dev), peak_action(
-            cfg.cluster, dev)
-        tkw = (dict(sharpness=teacher_policy.sharpness,
-                    min_weight=teacher_policy.min_weight,
-                    stickiness=teacher_policy.stickiness)
-               if isinstance(teacher_policy, CarbonAwarePolicy) else None)
-
-        @torch.no_grad()
-        def generation(cand, stream, world_seed):
-            """One generation on the kernels: the rule, carbon and
-            population launches share the stream and the seed, so the
-            worlds and the interruption draws are identical per (trace,
-            tick) for every candidate and both bars."""
-            rule_s = mk.megakernel_summary_from_packed(
-                params_sim, off_a, peak_a, stream, T, world_seed)
-            teach_s = (mk.carbon_megakernel_summary_from_packed(
-                params_sim, off_a, peak_a, stream, T, world_seed, **tkw)
-                if tkw else rule_s)
-            pop = mk.neural_megakernel_summary_from_packed(
-                params_sim, cfg.cluster, _unflatten(cand, spec), stream, T,
-                world_seed)
-            return pop, rule_s, teach_s
+        generation = _mega_generation(cfg, params_sim, teacher_policy,
+                                      spec, T, mesh, dev)
 
     gen_rng = torch.Generator(device=dev).manual_seed(seed)
     stream_buf = None   # the mega engine's stream, written over each time
@@ -323,7 +303,14 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
         nonlocal stream_buf
         draw = lambda: int(torch.randint(  # noqa: E731
             _WORLD_SEEDS, (1,), generator=gen_rng, device=dev))
-        if engine == "mega":
+        if engine == "mega" and mesh is not None:
+            from ccka_tpu_torch.parallel.sharded_kernel import (
+                sharded_packed_trace)
+
+            stream_buf = sharded_packed_trace(mesh, source, T, draw(), G,
+                                              recycle=stream_buf)
+            worlds = stream_buf
+        elif engine == "mega":
             stream_buf = source.packed_trace_device(
                 T, draw(), G, out=stream_buf, device=dev)
             worlds = stream_buf
@@ -342,9 +329,9 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
     for gen in range(cem.generations):
         d = draws(gen) if draws is not None else own_draws(gen)
         worlds = d.worlds
-        if engine == "mega":
+        if engine == "mega" and not hasattr(worlds, "parts"):
             worlds = torch.as_tensor(worlds).to(dev)
-        else:
+        elif engine != "mega":
             worlds = worlds.to(dev)
         noise = torch.as_tensor(d.noise, dtype=torch.float32).to(dev)
         cand = candidates(incumbent, torch.tensor(
@@ -426,3 +413,74 @@ def cem_refine(cfg: FrameworkConfig, params0, source, *,
 
     info = dict(info, final_sigma=sigma)
     return _numpy_tree(_unflatten(incumbent, spec)), history, info
+
+
+def _check_mega_batch(G: int, mesh, source, draws) -> None:
+    """The mega engine's batch checks (the JAX package's messages): a
+    multiple of 128 traces, of 128 per shard on a mesh, whose shards
+    synthesize their own streams unless ``draws`` supplies them."""
+    if mesh is None:
+        if G % 128:
+            raise ValueError("mega engine needs traces_per_gen to be a "
+                             f"multiple of 128, got {G}")
+        return
+    from ccka_tpu_torch.parallel.mesh import data_shards
+
+    n_shards = data_shards(mesh)
+    if G % n_shards:
+        raise ValueError(f"mega engine on a {n_shards}-shard mesh "
+                         f"needs traces_per_gen divisible by the "
+                         f"data-axis size, got {G}")
+    if draws is None and not hasattr(source, "packed_generate_fn"):
+        raise ValueError(
+            "mesh mega engine needs a shard-locally synthesizing "
+            "source (packed_generate_fn) — replay stores are "
+            "host-resident and cannot generate per shard")
+    if (G // n_shards) % 128:
+        raise ValueError(
+            f"mega engine on a {n_shards}-shard mesh needs "
+            f"traces_per_gen/shard to be a multiple of 128, got "
+            f"{G // n_shards} (= {G}/{n_shards})")
+
+
+def _mega_generation(cfg: FrameworkConfig, params_sim: SimParams,
+                     teacher_policy, spec, T: int, mesh, dev):
+    """``generation(cand, stream, world_seed) -> (population, rule,
+    teacher summaries)`` on the kernels: the rule, carbon and population
+    launches share the stream and the seed, so the worlds and the
+    interruption draws are identical per (trace, tick) for every
+    candidate and both bars. On a mesh every shard runs the three
+    launches on its lane block (the summaries gathered on ``dev``)."""
+    from ccka_tpu_torch.parallel import sharded_kernel as sk
+    from ccka_tpu_torch.parallel.mesh import gather
+    from ccka_tpu_torch.sim import megakernel as mk
+
+    off_a, peak_a = offpeak_action(cfg.cluster, dev), peak_action(
+        cfg.cluster, dev)
+    tkw = (dict(sharpness=teacher_policy.sharpness,
+                min_weight=teacher_policy.min_weight,
+                stickiness=teacher_policy.stickiness)
+           if isinstance(teacher_policy, CarbonAwarePolicy) else None)
+    if mesh is None:
+        rule, carbon, neural = (mk.megakernel_summary_from_packed,
+                                mk.carbon_megakernel_summary_from_packed,
+                                mk.neural_megakernel_summary_from_packed)
+    else:
+        def on_mesh(entry):
+            return lambda *a, **k: gather(entry(mesh, *a, **k), dev)
+
+        rule, carbon, neural = (
+            on_mesh(sk.sharded_megakernel_summary_from_packed),
+            on_mesh(sk.sharded_carbon_summary_from_packed),
+            on_mesh(sk.sharded_neural_summary_from_packed))
+
+    @torch.no_grad()
+    def generation(cand, stream, world_seed):
+        rule_s = rule(params_sim, off_a, peak_a, stream, T, world_seed)
+        teach_s = (carbon(params_sim, off_a, peak_a, stream, T, world_seed,
+                          **tkw) if tkw else rule_s)
+        pop = neural(params_sim, cfg.cluster, _unflatten(cand, spec),
+                     stream, T, world_seed)
+        return pop, rule_s, teach_s
+
+    return generation

@@ -33,8 +33,8 @@ status-quo way to make one labeled pair: a per-pair
 (``cfg.train.mpc_horizon`` / ``mpc_iters``).
 
 Names are validated up front: unknown scenario, intensity or teacher
-names raise before any device work. ``mesh=`` waits for the multi-device
-port and raises.
+names raise before any device work. ``mesh=`` splits every cell's pairs
+over a device mesh (:func:`produce_cell`).
 """
 
 from __future__ import annotations
@@ -48,12 +48,12 @@ import torch
 from ccka_tpu_torch import resolve_device
 from ccka_tpu_torch.config import FAULT_PRESETS, FrameworkConfig
 from ccka_tpu_torch.models import latent_to_action
+from ccka_tpu_torch.parallel.mesh import gather
 from ccka_tpu_torch.policy.base import observe
 from ccka_tpu_torch.signals.base import ExogenousTrace
 from ccka_tpu_torch.sim import lanes
 from ccka_tpu_torch.sim.dynamics import clip
 from ccka_tpu_torch.sim.rollout import initial_state, rollout
-from ccka_tpu_torch.sim.streaming import _no_mesh
 from ccka_tpu_torch.sim.types import Action, SimParams
 from ccka_tpu_torch.train.imitate import (_TARGET_CLIP, ImitationBatch,
                                           _time_major, discounted_returns)
@@ -143,8 +143,12 @@ class StreamBlocks:
     def packed_block_trace_device(self, block_T, seed, batch, block_index, *,
                                   shard=None, out=None, t_chunk=64,
                                   device=None):
+        """Block ``block_index`` of the stream; with ``shard``, of its
+        ``shard``-th ``batch``-wide group of clusters (a mesh shard's)."""
         block = self.stream[block_index * block_T:(block_index + 1)
                             * block_T]
+        if shard is not None:
+            block = block[..., shard * batch:(shard + 1) * batch]
         if out is None:
             return block.clone()
         return out.copy_(block)
@@ -205,14 +209,20 @@ def produce_cell(cfg: FrameworkConfig, scenario, intensity: str, *,
     stream. ``worlds`` (the cell's whole packed stream, [T_pad, rows,
     pairs]) replaces stage 1's synthesis and ``plans`` ([pairs, steps,
     A] latents) stage 2's planner: the seams through which a caller
-    supplies its own draws."""
+    supplies its own draws.
+
+    ``mesh`` (`parallel/mesh.py`) splits the pairs over the mesh's data
+    shards: stage 1 makes the blocks the mesh's streaming drive makes
+    (shard ``i``'s as chunk ``i``'s, `parallel/sharded_kernel.py::
+    ShardBlocks`), stage 2 plans each shard's pairs on its device and
+    stage 3 labels through `sim/streaming.py`'s mesh drive; the planner
+    and the playback see the same worlds."""
     from ccka_tpu_torch.sim import streaming
     from ccka_tpu_torch.sim.megakernel import pack_plan, unpack_exo
     from ccka_tpu_torch.train.mpc import (optimize_plan_batch,
                                           receding_horizon_plan_batch,
                                           zero_latent)
 
-    _no_mesh(mesh)
     if teacher not in FACTORY_TEACHERS:
         raise ValueError(f"unknown teacher {teacher!r}; teachers: "
                          f"{sorted(FACTORY_TEACHERS)}")
@@ -225,7 +235,13 @@ def produce_cell(cfg: FrameworkConfig, scenario, intensity: str, *,
     # 1. Worlds (streaming seed family) and the planner's clean exo view.
     t0 = _fenced(dev)
     if worlds is None:
-        full = _cell_stream(src, steps=steps, block_T=block_T,
+        gen_src = src
+        if mesh is not None:
+            from ccka_tpu_torch.parallel.mesh import data_shards
+            from ccka_tpu_torch.parallel.sharded_kernel import ShardBlocks
+
+            gen_src = ShardBlocks(src, data_shards(mesh))
+        full = _cell_stream(gen_src, steps=steps, block_T=block_T,
                             t_chunk=t_chunk, pairs=pairs, key=seed,
                             device=dev)
     else:
@@ -243,14 +259,15 @@ def produce_cell(cfg: FrameworkConfig, scenario, intensity: str, *,
     elif teacher == "mpc":
         lat0 = base.expand(pairs, steps, *base.shape)
         plans = optimize_plan_batch(params, cluster, tcfg, states0, traces,
-                                    lat0, iters=iters).plan_latent
+                                    lat0, iters=iters,
+                                    mesh=mesh).plan_latent
     else:                                     # "mpc-rh"
         horizon = min(int(tcfg.mpc_horizon), steps)
         lat0 = base.expand(pairs, horizon, *base.shape)
         plans = receding_horizon_plan_batch(
             params, cluster, tcfg, states0, traces, lat0, horizon=horizon,
-            replan_every=8, iters=max(2, iters // 4))
-    plans = plans.detach()
+            replan_every=8, iters=max(2, iters // 4), mesh=mesh)
+    plans = gather(plans, dev).detach()
     plan_s = _fenced(dev) - t0
 
     # 3. Label at kernel speed: the per-cluster plans through the double-
@@ -260,7 +277,8 @@ def produce_cell(cfg: FrameworkConfig, scenario, intensity: str, *,
         plan_packed = pack_plan(latent_to_action(plans, cluster),
                                 full.shape[0])
     skw = dict(key=seed, batch=pairs, T=steps, block_T=block_T, seed=seed,
-               t_chunk=t_chunk, stochastic=stochastic, device=dev)
+               t_chunk=t_chunk, stochastic=stochastic, mesh=mesh,
+               device=dev)
     t0 = _fenced(dev)
     teacher_summary, rep_play = streaming.streaming_rollout_summary(
         src, params, cluster, "plan", plan_packed=plan_packed,

@@ -22,8 +22,16 @@ its execution) as a CUDA graph, and :meth:`MPCBackend.replan` its
 optimization as another: the step is a few hundred small kernels a
 tick, so launching them one by one from the host would set its speed.
 The graphed planner computes what the eager one does, bit for bit. The
-captures are counted (`obs/compile.py`) under "mpc.segment_graph" and
-"mpc.replan".
+captures are counted (`obs/compile.py`) under "mpc.segment_graph",
+"mpc.replan" and "mpc.plan_shards".
+
+Both batch planners take ``mesh=`` (`parallel/mesh.py`): the cluster
+batch splits over the mesh's data shards, the parameters are placed on
+every shard's device, and each shard plans its own clusters; there is no
+cross-shard step (a cluster's plan depends on its own window only). On
+the card one graph is captured at the shard geometry on each device and
+replayed for every shard there. The plans come back per shard
+(`parallel/mesh.py::Sharded`).
 """
 
 from __future__ import annotations
@@ -83,15 +91,85 @@ def plan_objective(params: SimParams, cluster: ClusterConfig,
     return j
 
 
+def _check_mesh_batch(mesh, n: int, what: str) -> None:
+    if mesh is None:
+        return
+    shards = int(mesh.shape[mesh.axis_names[0]])
+    if n % shards:
+        raise ValueError(f"{what}: batch {n} not divisible by the "
+                         f"data-axis size {shards}")
+
+
+def _batch_of(x) -> int:
+    """The cluster count of a batch-first tensor or a sharded one."""
+    return x.size if hasattr(x, "parts") else int(x.shape[0])
+
+
 def optimize_plan_batch(params: SimParams, cluster: ClusterConfig,
                         tcfg: TrainConfig, states0: ClusterState,
-                        windows: ExogenousTrace, init_latents: torch.Tensor,
-                        *, iters: int = 50) -> PlanResult:
+                        windows: ExogenousTrace, init_latents, *,
+                        iters: int = 50, mesh=None,
+                        donate_plans: bool = False) -> PlanResult:
     """Plan every cluster of a batch against its window: ``iters`` Adam
     steps (``optax.adam(learning_rate * 10)``, fresh moments) on the
     summed objective, from ``init_latents`` [N, H, A]; windows
     [N, H, ...]. Returns [N, H, A] plans and [N, iters] losses (each
-    iteration's objective before its step)."""
+    iteration's objective before its step).
+
+    ``mesh`` splits the batch over the mesh's data shards (module
+    docstring; N must divide by the data-axis size) and returns both
+    fields per shard; a CUDA shard replays one graph a device, captured
+    at the shard geometry. ``donate_plans``
+    writes the plans into ``init_latents`` (a writable buffer), so the
+    returned ``plan_latent`` aliases it: a segment-to-segment replan
+    loop holds one plan buffer."""
+    if mesh is not None:
+        return _plan_shards(params, cluster, tcfg, states0, windows,
+                            init_latents, iters=iters, mesh=mesh,
+                            donate_plans=donate_plans)
+    result = _optimize(params, cluster, tcfg, states0, windows,
+                       init_latents, iters)
+    if donate_plans:
+        init_latents.copy_(result.plan_latent)
+        result = PlanResult(init_latents, result.losses)
+    return result
+
+
+def _plan_shards(params, cluster, tcfg, states0, windows, init_latents, *,
+                 iters, mesh, donate_plans) -> PlanResult:
+    """:func:`optimize_plan_batch` over ``mesh``, shard by shard."""
+    from ccka_tpu_torch.parallel.mesh import (Sharded, replicate,
+                                              shard_batch)
+
+    _check_mesh_batch(mesh, _batch_of(init_latents), "optimize_plan_batch")
+    lat = shard_batch(mesh, init_latents)
+    states, wins = shard_batch(mesh, states0), shard_batch(mesh, windows)
+    placed = replicate(mesh, params)
+    runs: dict = {}
+    plans, losses = [], []
+    for i, dev in enumerate(mesh.data_devices()):
+        p = placed.on(dev)
+        if dev.type == "cuda":
+            if str(dev) not in runs:
+                runs[str(dev)] = watch_jit(
+                    _PlanGraphs(p, cluster, tcfg, iters), "mpc.plan_shards",
+                    shared_stats=True)
+            r = runs[str(dev)](states.parts[i], wins.parts[i], lat.parts[i])
+        else:
+            r = _optimize(p, cluster, tcfg, states.parts[i], wins.parts[i],
+                          lat.parts[i], iters)
+        plan = r.plan_latent
+        if donate_plans:
+            plan = lat.parts[i].copy_(plan)
+        plans.append(plan)
+        losses.append(r.losses)
+    return PlanResult(Sharded(plans, lat.offsets, mesh),
+                      Sharded(losses, lat.offsets, mesh))
+
+
+def _optimize(params, cluster, tcfg, states0, windows, init_latents,
+              iters) -> PlanResult:
+    """The planner's Adam loop on one device (eager)."""
     opt = Adam(tcfg.learning_rate * 10.0)
     latent = init_latents.detach()
     state = opt.init(latent)
@@ -218,8 +296,8 @@ class _PlanGraphs:
         entry = self._graphs.get(key)
         if entry is None:
             st, win, lat = static(states), static(window), init.clone()
-            graph = Graph(lambda: optimize_plan_batch(
-                *self._args, st, win, lat, iters=self._iters))
+            graph = Graph(lambda: _optimize(*self._args, st, win, lat,
+                                            self._iters))
             entry = self._graphs[key] = (st, win, lat, graph)
             self.captures += 1
         st, win, lat, graph = entry
@@ -237,13 +315,32 @@ def receding_horizon_plan_batch(params: SimParams, cluster: ClusterConfig,
                                 init_latents: torch.Tensor, *, horizon: int,
                                 replan_every: int, iters: int,
                                 forecaster=None, history_steps: int = 0,
-                                graph: bool | None = None) -> torch.Tensor:
+                                graph: bool | None = None, mesh=None):
     """The receding-horizon loop as a planner for N clusters: returns the
     executed [N, T, A] latents, one plan per trace. Between replans it
     executes on expected dynamics, so the plan depends only on the traces
     and the planner's settings, never on execution noise; the plan
     kernel then scores it on stochastic worlds. ``graph`` (default: on a
-    CUDA device) replays each segment as a CUDA graph."""
+    CUDA device) replays each segment as a CUDA graph. ``mesh`` plans
+    each data shard's clusters on its device (one segment graph a device,
+    captured at the shard geometry and replayed for every shard there)
+    and returns the latents per shard."""
+    if mesh is not None:
+        return _receding_shards(
+            params, cluster, tcfg, states0, traces, init_latents,
+            horizon=horizon, replan_every=replan_every, iters=iters,
+            forecaster=forecaster, history_steps=history_steps,
+            graph=graph, mesh=mesh)
+    return _receding_plan(params, cluster, tcfg, states0, traces,
+                          init_latents, horizon, replan_every, iters,
+                          forecaster, history_steps, graph)
+
+
+def _receding_plan(params, cluster, tcfg, states0, traces, init_latents,
+                   horizon, replan_every, iters, forecaster, history_steps,
+                   graph, run=None) -> torch.Tensor:
+    """The receding-horizon planner on one device; ``run`` a segment
+    graph to replay (one is made at the first segment when ``graph``)."""
     dev = traces.is_peak.device
     graph = dev.type == "cuda" if graph is None else graph
     N, T = traces.is_peak.shape
@@ -253,7 +350,6 @@ def receding_horizon_plan_batch(params: SimParams, cluster: ClusterConfig,
     out = torch.empty((N, T, init_latents.shape[-1]), dtype=torch.float32,
                       device=dev)
     states, plan = states0, init_latents.detach().contiguous()
-    run = None
     for s, (window, seg) in enumerate(_segment_windows(
             traces, horizon, replan_every, forecaster, history_steps)):
         if graph and run is None:
@@ -268,6 +364,34 @@ def receding_horizon_plan_batch(params: SimParams, cluster: ClusterConfig,
                 replan_every)
         out[:, s * replan_every:(s + 1) * replan_every] = exec_lat
     return out
+
+
+def _receding_shards(params, cluster, tcfg, states0, traces, init_latents,
+                     *, horizon, replan_every, iters, forecaster,
+                     history_steps, graph, mesh):
+    """:func:`receding_horizon_plan_batch` over ``mesh``, shard by
+    shard, one segment graph a device."""
+    from ccka_tpu_torch.parallel.mesh import (Sharded, replicate,
+                                              shard_batch)
+
+    _check_mesh_batch(mesh, _batch_of(init_latents), "receding_horizon_plan_batch")
+    lat = shard_batch(mesh, init_latents)
+    states, trs = shard_batch(mesh, states0), shard_batch(mesh, traces)
+    placed = replicate(mesh, params)
+    runs: dict = {}
+    outs = []
+    for i, dev in enumerate(mesh.data_devices()):
+        p = placed.on(dev)
+        use = (dev.type == "cuda") if graph is None else graph
+        if use and str(dev) not in runs:
+            runs[str(dev)] = watch_jit(
+                _SegmentGraph(p, cluster, tcfg, iters, replan_every),
+                "mpc.segment_graph", shared_stats=True)
+        outs.append(_receding_plan(
+            p, cluster, tcfg, states.parts[i], trs.parts[i], lat.parts[i],
+            horizon, replan_every, iters, forecaster, history_steps, use,
+            runs.get(str(dev))))
+    return Sharded(outs, lat.offsets, mesh)
 
 
 def receding_horizon_plan(params: SimParams, cluster: ClusterConfig,

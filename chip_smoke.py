@@ -362,7 +362,24 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    or an ineligible one refused by `promote`; the gates and mean_ratio
    printed; (e) `flywheel status --device cuda` from the shell equal to
    `Flywheel.status()`. It writes `runs/chip_smoke_flywheel/`;
-19. one JSON line listing every kernel and lane instantiation, the
+19. the device mesh (the main path of the sixteenth slice,
+   `ccka_tpu_torch/parallel/`; no new kernel: every launch takes its
+   first cluster's global index, ``b0``), a [4, 1] mesh over cuda:0 at
+   B = 32768 x T = 2880, 8192 clusters a shard, the counters zeroed just
+   before each mesh run and read just after (the "mesh path (phase 19)"
+   entries): (a) rule, carbon, the MLP with a population of 2 and a
+   per-cluster plan, default and multiregion, shard-local synthesis
+   bitwise the generator on each shard's key and every field of every
+   cluster bitwise the single launch on the gathered stream, with the
+   rule shards' times and imbalance; (b) the streamed mixed day over the
+   mesh, four routes, bitwise the single-device drive over the same
+   shard blocks; (c) a CEM mega generation over the mesh bitwise a
+   single-device one on the same draws; (d) the planner over the mesh
+   with its plans donated, bitwise the unsharded call; (e) a PPO
+   iteration on a [2, 2] mesh within rtol 2e-4 / atol 2e-5 of the
+   unsharded one, and `simulate --mesh` from the shell equal to
+   `simulate`;
+20. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -5254,6 +5271,343 @@ def flywheel_phase(dev, card: str) -> dict:
     return rec
 
 
+# ---- the mesh (phase 19)
+
+# A [4, 1] mesh over cuda:0: the main path's B = 32768 as 4 shards of
+# 8192, the counterpart of the JAX package's virtual host devices.
+MESH_SHARDS = 4
+MESH_KEY, MESH_SEED = 97, 43
+MESH_CEM = dict(generations=1, popsize=16, traces_per_gen=512,
+                eval_steps=T_DAY, seed=7)     # 19c: 128 traces a shard
+# 19d: a planner segment of the boards' mpc rows
+# (`faults/scoreboard.py::QUICK_PLANNER`: horizon 8, 2 Adam iterations).
+MESH_PLAN = dict(horizon=8, iters=2)
+MESH_PPO_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_parallel.py
+
+
+def mesh_phase(dev, card: str, setup) -> dict:
+    """19: the device mesh (`parallel/`) on a [4, 1] mesh over cuda:0 at
+    B = 32768 x T = 2880, stochastic, 8192 clusters a shard; the launch
+    counters zeroed just before each mesh run and read just after.
+    (a) the four `*_summary_from_packed` families (rule, carbon, the MLP
+    with a population of 2, a per-cluster plan) on the default and
+    multiregion presets: shard-local synthesis bitwise the generator on
+    each shard's key; every field of every cluster bitwise the single
+    launch on the gathered stream; `measure_shard_times` and
+    `shard_imbalance` of the rule launch, the mesh's rule pipeline through
+    `measure_packed_pipeline`, both published for the service's gauges
+    (`obs/costmodel.py::publish_pipeline_snapshot`). (b) `streaming_rollout_summary
+    (mesh=)` on the multiregion mixed day in 8 blocks of 360, rule,
+    carbon, the flagship and a per-cluster plan, bitwise the
+    single-device drive over the same shard blocks (`ShardBlocks`).
+    (c) one `cem_refine(engine="mega", mesh=)` generation (16 members x
+    512 traces, the carbon teacher) bitwise a single-device generation
+    fed the gathered stream, the same world seed and noise. (d)
+    `optimize_plan_batch(mesh=, donate_plans=True)` at the boards'
+    segment geometry (N = 32768, horizon 8, 2 iterations; one graph
+    captured at the shard geometry, replayed per shard) bitwise the
+    eager unsharded call; the plans alias the buffer. (e) one PPO
+    iteration on a [2, 2] mesh (data x model) at the config's 256 x 64
+    against the unsharded iteration at rtol 2e-4, atol 2e-5, the params
+    and the diagnostics (policy and value loss, KL, mean reward,
+    attainment); `simulate
+    --mesh` from the shell (a process of its own, started after (b))
+    equal to `simulate` without it. Returns the phase's record."""
+    from ccka_tpu_torch.config import MeshConfig
+    from ccka_tpu_torch.obs.costmodel import (pipeline_snapshot,
+                                              publish_pipeline_snapshot)
+    from ccka_tpu_torch.obs.occupancy import (measure_packed_pipeline,
+                                              measure_shard_times,
+                                              shard_imbalance)
+    from ccka_tpu_torch.parallel import (gather, make_mesh, shard_params,
+                                         shard_ppo_state)
+    from ccka_tpu_torch.parallel import sharded_kernel as sk
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim import streaming as stm
+    from ccka_tpu_torch.sim.rollout import initial_state
+    from ccka_tpu_torch.train import cem
+    from ccka_tpu_torch.train.mpc import optimize_plan_batch, zero_latent
+    from ccka_tpu_torch.train.ppo import PPOTrainer
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> float:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    card0 = torch.device("cuda", 0)
+    mesh = make_mesh(devices=[card0] * MESH_SHARDS)
+    b_loc = B_MAIN // MESH_SHARDS
+    rec: dict = {"seconds": {}, "by_subphase": {}, "shard_ms": {},
+                 "imbalance": {}}
+    path: dict = {}
+
+    def count(sub: str) -> None:
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        rec["by_subphase"][sub] = counts
+        for k, v in counts.items():
+            path[k] = path.get(k, 0) + v
+        log(f"# 19{sub} launches: {counts}")
+
+    def same(a, b, what: str) -> None:
+        torch.cuda.synchronize()
+        if not bitwise(a, b):
+            bad = [f for f in a._fields
+                   if not torch.equal(getattr(a, f), getattr(b, f))]
+            fail(f"19: {what} is not bitwise the single-device result "
+                 f"(fields {bad})")
+
+    # -- (a) the four packed families on two presets
+    for preset, variant in (("default", "replay"), ("multiregion", "")):
+        cfg, src, params, off, peak, net = setup(preset, variant)
+        pop = mk._tree_map(lambda x: np.stack([x, 0.5 * np.asarray(x)]),
+                           net)
+        plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
+        torch.cuda.synchronize()
+        kernel_counts(clear=True)
+        st = sk.sharded_packed_trace(mesh, src, T_DAY, MESH_KEY, B_MAIN)
+        kw = dict(seed=MESH_SEED)
+        got = {
+            "rule": sk.sharded_megakernel_summary_from_packed(
+                mesh, params, off, peak, st, T_DAY, **kw),
+            "carbon": sk.sharded_carbon_summary_from_packed(
+                mesh, params, off, peak, st, T_DAY, **kw),
+            "mlp": sk.sharded_neural_summary_from_packed(
+                mesh, params, cfg.cluster, pop, st, T_DAY, **kw),
+            "plan": sk.sharded_plan_summary_from_packed(
+                mesh, params, cfg.cluster, plan, st, T_DAY, **kw)}
+        count(f"a {preset}")
+        rec["seconds"][f"19a {preset} mesh"] = lap()
+        for i in range(MESH_SHARDS):
+            local = src.packed_trace_device(T_DAY, sk.shard_key(MESH_KEY, i),
+                                            b_loc, device=card0)
+            if not torch.equal(local, st.parts[i]):
+                fail(f"19a {preset}: shard {i}'s stream is not the "
+                     f"generator's on its key")
+            del local
+        times = measure_shard_times(
+            lambda i: mk.megakernel_summary_from_packed(
+                params, off, peak, st.parts[i], T_DAY, MESH_SEED,
+                cluster0=st.offsets[i]), MESH_SHARDS,
+            label=f"mesh.{preset}")
+        rec["shard_ms"][preset] = [t * 1e3 for t in times]
+        rec["imbalance"][preset] = shard_imbalance(times)
+        # The mesh's rule pipeline through the occupancy ledger (the same
+        # stream synthesized again into its buffers), published for the
+        # service's gauges.
+        ledger, _ = measure_packed_pipeline(
+            lambda i: sk.sharded_packed_trace(mesh, src, T_DAY, MESH_KEY,
+                                              B_MAIN, recycle=st),
+            lambda stream, i: sk.sharded_megakernel_summary_from_packed(
+                mesh, params, off, peak, stream, T_DAY, seed=MESH_SEED),
+            lambda out: float(gather(out).usd_per_slo_hour.mean()),
+            label=f"mesh.{preset}.pipeline")
+        rec.setdefault("occupancy", {})[preset] = ledger.to_dict()
+        publish_pipeline_snapshot(occupancy=ledger.fractions(),
+                                  shard_imbalance=rec["imbalance"][preset])
+        if pipeline_snapshot()["shard_imbalance"] != rec["imbalance"][preset]:
+            fail("19a: the published shard imbalance does not read back")
+        full = gather(st)
+        del st
+        torch.cuda.empty_cache()
+        want = {
+            "rule": mk.megakernel_summary_from_packed(
+                params, off, peak, full, T_DAY, MESH_SEED),
+            "carbon": mk.carbon_megakernel_summary_from_packed(
+                params, off, peak, full, T_DAY, MESH_SEED),
+            "mlp": mk.neural_megakernel_summary_from_packed(
+                params, cfg.cluster, pop, full, T_DAY, MESH_SEED),
+            "plan": mk.plan_megakernel_summary_from_packed(
+                params, cfg.cluster, plan, full, T_DAY, MESH_SEED)}
+        for name in got:
+            same(gather(got[name]), want[name], f"19a {preset} {name}")
+        log(f"# 19a {preset} B={B_MAIN} T={T_DAY} on {MESH_SHARDS} shards "
+            f"of {b_loc}: rule, carbon, mlp (2 members), plan bitwise the "
+            f"single launch; shard-local synthesis bitwise; rule per-shard "
+            f"ms {[round(t * 1e3, 4) for t in times]}, imbalance "
+            f"{rec['imbalance'][preset]:.4f}; the mesh's rule pipeline "
+            f"{ledger.to_dict()} ({card})")
+        del full, plan, got, want
+        torch.cuda.empty_cache()
+        rec["seconds"][f"19a {preset} checks"] = lap()
+
+    # -- (b) the streamed mixed day over the mesh
+    cfg, _, _, _, _, net = setup("multiregion")
+    source, wl = stream_source(cfg, "mixed")
+    params = lane_params(cfg, wl, dev)
+    plan = random_plan(cfg, B_MAIN, T_DAY, T_DAY, dev)
+    kw = dict(key=STREAM_KEY, batch=B_MAIN, T=T_DAY, block_T=BLOCK_DAY,
+              seed=STREAM_SEED, t_chunk=T_CHUNK_STREAM, stochastic=True,
+              device=dev)
+
+    def route_kw(route):
+        return dict(kw, net_params=net if route == "mlp" else None,
+                    plan_packed=plan if route == "plan" else None)
+
+    torch.cuda.synchronize()
+    kernel_counts(clear=True)
+    streamed = {route: stm.streaming_rollout_summary(
+        source, params, cfg.cluster, BLOCK_MODE[route], mesh=mesh,
+        **route_kw(route)) for route in ROUTES}
+    count("b")
+    rec["seconds"]["19b mesh"] = lap()
+    rec["stream_wall_s"] = {r: v[1]["wall_s"] for r, v in streamed.items()}
+    shell = {name: start_side_process(
+        ["-m", "ccka_tpu_torch", "simulate", "--clusters", str(B_MAIN),
+         "--stochastic", "--device-traces", *extra])
+        for name, extra in (("plain", []), ("mesh", ["--mesh"]))}
+    for route in ROUTES:
+        one, _ = stm.streaming_rollout_summary(
+            sk.ShardBlocks(source, MESH_SHARDS), params, cfg.cluster,
+            BLOCK_MODE[route], **route_kw(route))
+        same(streamed[route][0], one, f"19b {route} streamed day")
+    log(f"# 19b mixed day B={B_MAIN} T={T_DAY} in {T_DAY // BLOCK_DAY} "
+        f"blocks on {MESH_SHARDS} shards: rule, carbon, mlp, plan bitwise "
+        f"the single-device drive; walls s {rec['stream_wall_s']}")
+    del plan, streamed
+    torch.cuda.empty_cache()
+    rec["seconds"]["19b checks"] = lap()
+
+    # -- (c) one CEM mega generation over the mesh
+    cfg, src, _, _, _, net = setup("multiregion")
+    teacher = CarbonAwarePolicy(cfg.cluster, device=dev)
+    ccfg = cem.CEMConfig(**{k: v for k, v in MESH_CEM.items()
+                            if k != "seed"})
+    torch.cuda.synchronize()
+    kernel_counts(clear=True)
+    best_m, hist_m, _ = cem.cem_refine(
+        cfg, net, src, cem=ccfg, engine="mega", teacher_policy=teacher,
+        mesh=mesh, seed=MESH_CEM["seed"], device=dev)
+    count("c")
+    rec["seconds"]["19c mesh"] = lap()
+    # The mesh generation's draws, as `cem_refine` makes them.
+    g = torch.Generator(device=dev).manual_seed(MESH_CEM["seed"])
+
+    def draw() -> int:
+        return int(torch.randint(2 ** 30, (1,), generator=g, device=dev))
+
+    stream = gather(sk.sharded_packed_trace(
+        mesh, src, T_DAY, draw(), MESH_CEM["traces_per_gen"]))
+    ws = draw()
+    noise = torch.randn((ccfg.popsize - 1, cem._flatten(net)[0].shape[0]),
+                        generator=g, device=dev)
+    best_1, hist_1, _ = cem.cem_refine(
+        cfg, net, src, cem=ccfg, engine="mega", teacher_policy=teacher,
+        device=dev, draws=lambda gen: cem.CEMDraws(stream, ws, noise))
+    if hist_m != hist_1 or not torch.equal(cem._flatten(best_m)[0],
+                                           cem._flatten(best_1)[0]):
+        fail(f"19c: the mesh generation is not the single-device one: "
+             f"{hist_m} against {hist_1}")
+    log(f"# 19c CEM generation {ccfg.popsize} x "
+        f"{ccfg.traces_per_gen} x {T_DAY} on {MESH_SHARDS} shards: fitness "
+        f"and members bitwise the single-device generation "
+        f"({hist_m[0]['incumbent_fitness']:.6f})")
+    del stream, noise
+    torch.cuda.empty_cache()
+    rec["seconds"]["19c checks"] = lap()
+
+    # -- (d) the planner over the mesh, plans donated
+    cfg, src, params, _, _, _ = setup("multiregion")
+    H = MESH_PLAN["horizon"]
+    traces = mk.unpack_exo(src.packed_trace_device(H, MESH_KEY, B_MAIN,
+                                                   device=dev),
+                           H, cfg.cluster.n_zones)
+    states = initial_state(cfg, B_MAIN, dev)
+    lat0 = zero_latent(cfg.cluster, dev)
+    buf = lat0.expand(B_MAIN, H, *lat0.shape).contiguous()
+    init = buf.clone()
+    torch.cuda.synchronize()
+    kernel_counts(clear=True)
+    got = optimize_plan_batch(params, cfg.cluster, cfg.train, states, traces,
+                              buf, iters=MESH_PLAN["iters"], mesh=mesh,
+                              donate_plans=True)
+    count("d")
+    rec["seconds"]["19d mesh"] = lap()
+    want = optimize_plan_batch(params, cfg.cluster, cfg.train, states, traces,
+                               init, iters=MESH_PLAN["iters"])
+    torch.cuda.synchronize()
+    for name, a, b in (("plans", gather(got.plan_latent), want.plan_latent),
+                       ("losses", gather(got.losses), want.losses)):
+        if not torch.equal(a, b):
+            fail(f"19d: the mesh planner's {name} differ from the "
+                 f"unsharded call in {int((a != b).sum())} values (max abs "
+                 f"{float((a - b).abs().max()):.4g})")
+    if not (torch.equal(buf, want.plan_latent) and all(
+            p.data_ptr() == buf[o].data_ptr()
+            for p, o in zip(got.plan_latent.parts, got.plan_latent.offsets))):
+        fail("19d: the donated plans do not alias the warm-start buffer")
+    log(f"# 19d optimize_plan_batch N={B_MAIN} H={H} iters="
+        f"{MESH_PLAN['iters']} on {MESH_SHARDS} shards (one graph, "
+        f"replayed a shard): plans and losses bitwise the unsharded call; "
+        f"the plans alias the buffer")
+    del traces, states, buf, init, got, want
+    torch.cuda.empty_cache()
+    rec["seconds"]["19d checks"] = lap()
+
+    # -- (e) PPO on a [2, 2] mesh; simulate --mesh from the shell
+    cfg, src, _, _, _, _ = setup("multiregion")
+    trainer = PPOTrainer(cfg, device=dev)
+    window = trainer.make_windows(src, 1, seed=TRAIN_SEED)
+    g_noise = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    noise = torch.randn((cfg.train.batch_clusters, cfg.train.unroll_steps,
+                         trainer.act_dim), generator=g_noise, device=dev)
+    m22 = make_mesh(MeshConfig(data_parallel=2, model_parallel=2),
+                    devices=[card0] * 4)
+    ts = shard_ppo_state(m22, trainer.init_state(0))
+    ts = ts._replace(params=shard_params(m22, ts.params))
+    torch.cuda.synchronize()
+    kernel_counts(clear=True)
+    ts_m, diag_m = trainer.iteration(ts, window, noise)
+    count("e")
+    rec["seconds"]["19e mesh PPO"] = lap()
+    ts_1, diag_1 = trainer.iteration(trainer.init_state(0), window, noise)
+    worst, where = 0.0, ""
+    for k, v in ts_1.params.items():
+        got_k = gather(ts_m.params[k], v.device)
+        share = float(((got_k - v).abs() / (MESH_PPO_TOL["atol"]
+                       + MESH_PPO_TOL["rtol"] * v.abs())).max())
+        if share > worst:
+            worst, where = share, k
+    diag_share = {}
+    for f in ("policy_loss", "value_loss", "approx_kl", "mean_reward",
+              "attainment"):
+        a, b = float(getattr(diag_m, f)), float(getattr(diag_1, f))
+        diag_share[f] = abs(a - b) / (MESH_PPO_TOL["atol"]
+                                      + MESH_PPO_TOL["rtol"] * abs(b))
+        if diag_share[f] > worst:
+            worst, where = diag_share[f], f
+    rec["ppo_tol_share"] = worst
+    rec["ppo_diag"] = {f: [float(getattr(d, f)) for d in (diag_m, diag_1)]
+                       for f in diag_share}
+    log(f"# 19e PPO iteration {cfg.train.batch_clusters} x "
+        f"{cfg.train.unroll_steps} on a [2, 2] mesh: params and diagnostics "
+        f"within {worst:.4f} of rtol 2e-4 / atol 2e-5 of the unsharded "
+        f"iteration (worst {where}); diagnostics mesh / unsharded "
+        f"{rec['ppo_diag']}")
+    if worst > 1.0:
+        fail(f"19e: the [2, 2] PPO iteration's {where} is beyond rtol "
+             f"2e-4 / atol 2e-5 of the unsharded iteration")
+    rec["seconds"]["19e checks"] = lap()
+    outs = {name: join_side_process(side, f"19e simulate ({name})", 300)
+            for name, side in shell.items()}
+    rec["seconds"]["19e shell wait"] = lap()
+    rec["shell_s"] = {name: side["s"] for name, side in shell.items()}
+    if outs["mesh"] != outs["plain"]:
+        fail(f"19e: `simulate --mesh` printed {outs['mesh'][:400]} and "
+             f"`simulate` {outs['plain'][:400]}")
+    log(f"# 19e `simulate --clusters {B_MAIN} --stochastic --device-traces "
+        f"--mesh` from the shell equals it without --mesh (one card: a "
+        f"one-shard mesh); shell s {rec['shell_s']}")
+    rec["launches_by_path"] = {"mesh path (phase 19)": path}
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"# phase 19 seconds: {json.dumps(rec['seconds'])} ({card})")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -5860,7 +6214,11 @@ def main() -> None:
     flywheel_rec = flywheel_phase(dev, smi)
 
     clock("19")
-    # ---- 19. the kernels, the card, the result
+    # ---- 19. the device mesh: see mesh_phase.
+    mesh_rec = mesh_phase(dev, smi, setup)
+
+    clock("20")
+    # ---- 20. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -6014,6 +6372,15 @@ def main() -> None:
         missing = set(counts) - names
         if missing:
             fail(f"phase 18 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for path, counts in mesh_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 19 launched {sorted(missing)}, which the kernels "
                  f"line has no row for")
         for row in kernels:
             if row["name"] in counts:

@@ -109,47 +109,6 @@ def test_flat_layout_and_head_mask_match_jax():
                                   np.asarray(jcem._head_mask(params0)))
 
 
-# The lax engine's cases: (CEMConfig fields, the bars, the seed, whether a
-# generation moves the incumbent on that seed). The flagship's tier-2
-# bars against the carbon teacher; the carbon-frontier bars with a
-# margin; absolute bars; isotropic head noise (no damping of the hpa
-# coordinates: every candidate falls off the SLO cliff, none improves);
-# the whole net perturbed.
-LAX_CASES = {
-    "teacher-min": (dict(), "teacher", 0, True),
-    "frontier": (dict(usd_bar="rule", co2_bar="teacher",
-                      attain_bar="teacher", attain_margin=0.01), "teacher",
-                 3, True),
-    "bars": (dict(), "bars", 0, True),
-    "hpa-isotropic": (dict(hpa_damp=1.0), "teacher", 0, False),
-    "whole-net": (dict(head_only=False, sigma0=1e-3), "teacher", 0, True),
-}
-
-
-@pytest.mark.parametrize("case", sorted(LAX_CASES))
-def test_lax_engine_matches_jax(case):
-    """Three generations of 3 candidates on 2 traces of 96 ticks."""
-    jc, tc, params0, src = _setup()
-    fields, bar_kind, seed, improves = LAX_CASES[case]
-    cc = jcem.CEMConfig(generations=3, popsize=3, traces_per_gen=2,
-                        eval_steps=96, **fields)
-    jkw, tkw = ({"teacher_fn": JCarbon(jc.cluster).action_fn()},
-                {"teacher_policy": CarbonAwarePolicy(tc.cluster,
-                                                     device="cpu")})
-    if bar_kind == "bars":
-        bars = {"usd": 0.45, "co2": 0.2, "attain": 0.9}
-        jkw, tkw = {"bars": bars}, {"bars": bars}
-    jout = jcem.cem_refine(jc, jax.tree.map(jnp.asarray, params0), src,
-                           cem=cc, seed=seed, **jkw)
-    dim = cem._flatten(params0)[0].shape[0]
-    draws = _jax_draws(src, cc, dim, seed, "lax")
-    tout = cem.cem_refine(tc, params0, None, cem=cem.CEMConfig(
-        **cc._asdict()), seed=seed, draws=lambda g: draws[g], device="cpu",
-        **tkw)
-    _assert_same_run(jout, tout)
-    assert any(r["improved"] for r in tout[1]) == improves
-
-
 def test_mega_engine_matches_jax_interpret():
     """The mega engine, G = 128 traces of 48 ticks, 3 candidates, the
     carbon teacher: JAX's interpret-mode kernels on its packed stream
@@ -206,5 +165,9 @@ def test_own_draws_run_and_misuse_is_refused():
     with pytest.raises(ValueError, match="usd_bar"):
         cem.cem_refine(tc, params0, src, cem=cem.CEMConfig(usd_bar="max"),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cem.cem_refine(tc, params0, src, mesh=object(), device="cpu")
+    from ccka_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="divisible by the data-axis"):
+        cem.cem_refine(tc, params0, src, engine="mega", cem=cem.CEMConfig(
+            traces_per_gen=130), mesh=make_mesh(devices=["cpu"] * 4),
+            device="cpu")

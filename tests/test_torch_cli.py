@@ -215,13 +215,60 @@ def test_simulate_profile_dir_writes_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    *[([name], item) for name, item in sorted(cli.NOT_PORTED.items())],
-    (["--preset", "multiregion", "simulate", "--mesh"], "item 14")],
+    ([name], item) for name, item in sorted(cli.NOT_PORTED.items())],
     ids=lambda a: " ".join(a) if isinstance(a, list) else a)
 def test_unported_subcommands_exit_2_naming_their_item(argv, item):
     rc, out, err = _run(tmain, argv)
     assert rc == 2 and out == ""
     assert f"not ported yet (ROADMAP {item})" in err
+
+
+@pytest.mark.parametrize("backend", ("rule", "carbon", "neutral"))
+def test_simulate_mesh_equals_simulate(backend):
+    """``simulate --mesh`` (a one-shard mesh on the CPU, as on one card)
+    prints what ``simulate`` prints; a single cluster refuses it, as JAX's
+    command line does."""
+    argv = ["--preset", "multiregion", "simulate", "--clusters", "16",
+            "--days", "0.002", "--stochastic", "--backend", backend, *CPU]
+    rc, want, _ = _run(tmain, argv)
+    rc_m, got, _ = _run(tmain, [*argv, "--mesh"])
+    assert rc == rc_m == 0 and got == want
+    if backend == "rule":
+        with pytest.raises(SystemExit, match="batch-path"):
+            _run(tmain, ["simulate", "--mesh", *CPU])
+
+
+def test_simulate_mesh_builds_a_backend_per_device(monkeypatch):
+    """``simulate --mesh`` with a plain-rollout backend (ppo) on a
+    two-shard mesh asks ``make_backend`` for each mesh device's action
+    function (a backend's tensors live on one device) and prints what
+    ``simulate`` prints, within 1e-5 relative: a shard's net sees half
+    the rows, and a product's sums may group differently by batch
+    size."""
+    import ccka_tpu_torch.parallel as tpar
+
+    argv = ["--preset", "multiregion", "simulate", "--clusters", "16",
+            "--days", "0.002", "--stochastic", "--backend", "ppo", *CPU]
+    rc, want, _ = _run(tmain, argv)
+    made = []
+    real = cli.make_backend
+
+    def make_backend(*a, device=None, **kw):
+        made.append(str(device))
+        return real(*a, device=device, **kw)
+
+    monkeypatch.setattr(cli, "make_backend", make_backend)
+    mesh = tpar.make_mesh(devices=["cpu"] * 2)
+    monkeypatch.setattr(tpar, "make_mesh", lambda cfg, device=None: mesh)
+    rc_m, got, _ = _run(tmain, [*argv, "--mesh"])
+    assert rc == rc_m == 0 and made == ["cpu", "cpu"]
+    got, want = json.loads(got), json.loads(want)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, float):
+            assert math.isclose(got[k], v, rel_tol=1e-5, abs_tol=1e-12), k
+        else:
+            assert got[k] == v, k
 
 
 DEVICE_ARGV = {

@@ -144,9 +144,13 @@ def test_names_seeds_and_lane_widths_match_jax():
     with pytest.raises(ValueError, match="teacher"):
         factory.produce_cell(tc, resolve_scenarios(["mixed"])["mixed"],
                              "off", teacher="oracle", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    from ccka_tpu_torch.config import ConfigError
+    from ccka_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ConfigError, match="not divisible by 4 data shards"):
         factory.produce_cell(tc, resolve_scenarios(["mixed"])["mixed"],
-                             "off", mesh=object(), device="cpu")
+                             "off", pairs=6, mesh=make_mesh(
+                                 devices=["cpu"] * 4), device="cpu")
 
 
 def test_factory_run_distill_and_naive_rate():

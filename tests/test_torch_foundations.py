@@ -264,7 +264,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "regions.process", "regions.migrate", "regions.geo",
              "regions.pareto", "search", "search.params", "search.axis",
              "search.adversarial", "train.mining", "train.flywheel",
-             "harness.flywheel"):
+             "harness.flywheel", "parallel", "parallel.mesh",
+             "parallel.sharded", "parallel.sharded_kernel"):
     assert "ccka_tpu_torch." + want in names, (want, names)
 
 import torch
@@ -420,6 +421,18 @@ dcfg = default_config()
 res = search_scenarios(dcfg, iters=1, pop=2, scorer=ScenarioScorer(
     dcfg, steps=8, inner_batch=2, t_chunk=8, device="cpu"))
 assert res.scenario.minted and res.evals == 7
+# The mesh: a sharded rule launch and a streamed day over two CPU shards.
+from ccka_tpu_torch.parallel import (gather, make_mesh, sharded_packed_trace,
+                                     sharded_megakernel_summary_from_packed)
+from ccka_tpu_torch.sim.streaming import streaming_rollout_summary
+mesh = make_mesh(devices=["cpu"] * 2)
+stream = sharded_packed_trace(mesh, src, 8, 1, 4)
+gather(sharded_megakernel_summary_from_packed(
+    mesh, params, offpeak_action(cfg.cluster, "cpu"),
+    peak_action(cfg.cluster, "cpu"), stream, 8))
+streaming_rollout_summary(src, params, cfg.cluster, "rule", key=1, batch=4,
+                          T=16, block_T=8, t_chunk=8, mesh=mesh,
+                          device="cpu")
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

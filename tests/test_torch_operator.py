@@ -379,10 +379,13 @@ def _session_cfg():
         "signals.opencost_url": f"http://localhost:{_free_port()}"})
 
 
-def test_watch_session_readiness_under_fake_spawners():
+def test_watch_session_readiness_under_fake_spawners(monkeypatch):
     """Listening tunnels are ready and smoke-queried; a child that died
     is not ready even when its socket answers; teardown terminates every
-    child."""
+    child. Grafana's local port is a free one (`watch_plan` reads
+    ``GRAFANA_PORT`` when called), so the session does not race another
+    test for port 3000."""
+    monkeypatch.setattr(watch, "GRAFANA_PORT", _free_port())
     cfg = _session_cfg()
     spawned, terminated, listeners = [], [], []
 

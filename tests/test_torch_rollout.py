@@ -208,16 +208,6 @@ def test_kernel_entry_on_cpu_is_the_plain_rollout(short_world):
     assert mk.megakernel_summary_from_packed.launches == before
 
 
-def test_stochastic_rollout_mean_parity_with_jax_lax():
-    """B = 1024 x a full day: the port's Philox draws against JAX's
-    threefry draws on the same traces agree at distribution level."""
-    w = _World("default", 1024, 2880)
-    port = w.port(stochastic=True, seed=5)
-    ref = w.jax_lax(stochastic=True)
-    assert mk.mean_parity_violations(port, ref) == {}
-    assert float(port.interruptions.mean()) > 0.1   # the sampler ran
-
-
 def test_pack_exo_matches_jax_and_round_trips():
     w = _World("multiregion", 6, 50)
     want = np.asarray(jmk._pack_exo(w.jtr, 64))

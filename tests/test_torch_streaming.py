@@ -492,13 +492,16 @@ def test_misuse_is_refused(multiregion):
         stm.chunked_streaming_summary(src, params, cfg.cluster, "rule",
                                       chunk=3, block_T=16,
                                       **{k: v for k, v in kw.items()})
-    with pytest.raises(NotImplementedError, match="item 14"):
+    from ccka_tpu_torch.config import ConfigError
+    from ccka_tpu_torch.parallel import make_mesh
+
+    mesh3 = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ConfigError, match="not divisible by 3 data shards"):
         stm.streaming_rollout_summary(src, params, cfg.cluster, "rule",
-                                      block_T=16, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        stm.chunked_streaming_summary(src, params, cfg.cluster, "rule",
-                                      chunk=4, block_T=16, mesh=object(),
-                                      **kw)
+                                      block_T=16, mesh=mesh3, **kw)
+    with pytest.raises(ValueError, match="one chunk"):
+        stm.streaming_rollout_summary(src, params, cfg.cluster, "rule",
+                                      block_T=16, mesh=mesh3, shard=1, **kw)
     with pytest.raises(ValueError, match="unknown packed mode"):
         stm.streaming_rollout_summary(src, params, cfg.cluster, "mlp",
                                       block_T=16, **kw)

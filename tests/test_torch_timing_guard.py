@@ -86,5 +86,7 @@ def test_guard_scans_the_control_loop():
                 ("search", "params.py"), ("search", "axis.py"),
                 ("search", "adversarial.py"), ("train", "mining.py"),
                 ("train", "flywheel.py"), ("harness", "flywheel.py"),
+                ("parallel", "mesh.py"), ("parallel", "sharded.py"),
+                ("parallel", "sharded_kernel.py"), ("obs", "occupancy.py"),
                 ("cli.py",)):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel
