@@ -31,6 +31,12 @@ exit codes. Subcommand <-> script map:
               CEM over the scenario axis, the worst case minted
   flywheel    the continual-learning flywheel (train/flywheel.py): mine,
               distill, promote, status
+  perf        the device-time observatory (obs/costmodel.py,
+              obs/occupancy.py): the program table and the occupancy
+              ledger of a packed generate -> rollout -> summary pipeline
+  bench-diff / scaling-curve
+              the bench history's regression diff and weak-scaling
+              curve (obs/bench_history.py; host only)
   simulate, evaluate, train, forecast-eval, chaos-eval, scenario-eval,
   recover-eval, scenarios, distill-factory, capture, report, obs,
   show-config
@@ -39,8 +45,6 @@ Every subcommand that runs torch work takes ``--device`` (default
 ``cuda``); without a GPU and without ``--device cpu`` it exits non-zero
 naming the device and never carries on on the CPU. ``python -m
 ccka_tpu_torch <cmd> --device cpu`` runs the plain PyTorch versions.
-Subcommands whose modules are not ported yet exit 2 naming their ROADMAP
-item (:data:`NOT_PORTED`).
 """
 
 from __future__ import annotations
@@ -52,9 +56,6 @@ import time
 
 from ccka_tpu_torch.config import ConfigError, FrameworkConfig, config_from_env
 
-# Subcommands of `ccka` the port has not yet, with the ROADMAP item that
-# ports them.
-NOT_PORTED = {"perf": "A12", "bench-diff": "A12", "scaling-curve": "A12"}
 _DEVICE_HELP = ("torch device (default cuda; cpu runs the plain PyTorch "
                 "version)")
 
@@ -631,6 +632,28 @@ def _build_parser() -> argparse.ArgumentParser:
                             "--preset/--config obs.tournament_audit_"
                             "key)")
 
+    sbd = sub.add_parser(
+        "bench-diff", help="bench-history regression sentinel "
+                           "(obs/bench_history): load every "
+                           "BENCH_r*.json + data/lane_times.json into "
+                           "one series and diff consecutive rounds — "
+                           "exits non-zero on a threshold regression "
+                           "(CI-friendly)")
+    sbd.add_argument("--root", default=".",
+                     help="repo root holding BENCH_r*.json and data/ "
+                          "(default: cwd)")
+    sbd.add_argument("--max-lane-slowdown", type=float, default=1.5,
+                     help="tier-1 lane best-wall ratio between "
+                          "consecutive same-platform rounds that "
+                          "counts as a regression (default 1.5)")
+    sbd.add_argument("--max-headline-drop", type=float, default=0.5,
+                     help="fractional same-platform throughput-"
+                          "headline drop that counts as a regression "
+                          "(default 0.5)")
+    sbd.add_argument("--history-only", action="store_true",
+                     help="print the loaded series without diffing "
+                          "(always exits 0)")
+
     sd = sub.add_parser(
         "dashboard", help="render/apply the demo_40 observability stage: "
                           "Grafana Deployment/Service/admin-Secret plus "
@@ -684,6 +707,47 @@ def _build_parser() -> argparse.ArgumentParser:
                       help="print the raw suite record instead of "
                            "the rendered scoreboard")
     device(sgeo)
+
+    sperf = sub.add_parser(
+        "perf", help="device-time performance observatory (obs/"
+                     "costmodel + obs/occupancy): run a small packed "
+                     "generate->rollout->summary pipeline on the device "
+                     "and print the program table (dispatches, "
+                     "operations, bytes, peak memory, achieved "
+                     "roofline fraction) plus the pipeline occupancy "
+                     "ledger")
+    sperf.add_argument("--steps", type=int, default=32,
+                       help="rollout horizon of the probe pipeline "
+                            "(default 32 — CI-sized)")
+    sperf.add_argument("--batch", type=int, default=128,
+                       help="cluster batch of the probe pipeline "
+                            "(default 128)")
+    sperf.add_argument("--modes", default="rule",
+                       help="comma list of megakernel policy modes to "
+                            "probe, out of rule,carbon,neural,plan "
+                            "(default: rule)")
+    sperf.add_argument("--repeats", type=int, default=2,
+                       help="measured pipeline repeats per mode "
+                            "(fresh world each — default 2)")
+    sperf.add_argument("--json", action="store_true",
+                       help="print the full JSON record instead of "
+                            "the rendered table")
+    device(sperf)
+
+    ssca = sub.add_parser(
+        "scaling-curve",
+        help="render the measured BENCH_r*.json + MULTICHIP_r*.json "
+             "history into the weak-scaling curve artifact (ROADMAP "
+             "item 1): a CSV of every multichip point plus the "
+             "per-round cluster-days/sec-per-chip table")
+    ssca.add_argument("--root", default=".",
+                      help="repo root holding the records (default: "
+                           "cwd)")
+    ssca.add_argument("--out", default="scaling_curve.csv",
+                      help="CSV artifact path (default: "
+                           "scaling_curve.csv)")
+    ssca.add_argument("--json", action="store_true",
+                      help="also print the curve as JSON")
 
     sub.add_parser("show-config", help="print the resolved config")
     return p
@@ -2195,25 +2259,230 @@ def _cmd_tournament(cfg: FrameworkConfig, args) -> int:
     return 0
 
 
-def _command(argv: list[str]) -> str | None:
-    """The subcommand word of ``argv`` (past the global options)."""
-    takes_value = {"--config", "--preset", "--set"}
-    i = 0
-    while i < len(argv):
-        a = argv[i]
-        if a in takes_value:
-            i += 2
-            continue
-        if a.startswith("-"):
-            i += 1
-            continue
-        return a
-    return None
+def _cmd_bench_diff(cfg: FrameworkConfig, args) -> int:
+    """`bench-diff` — the regression sentinel: exit 0 on a clean
+    history, 1 on any threshold regression (the CI contract)."""
+    from ccka_tpu_torch.obs.bench_history import (bench_diff,
+                                                  load_bench_history)
+
+    history = load_bench_history(args.root)
+    if not history["records"] and not history["lane"]:
+        raise SystemExit(f"ccka: no BENCH_r*.json or lane rows under "
+                         f"{args.root!r} — wrong --root?")
+    if args.history_only:
+        print(json.dumps(history, indent=2))
+        return 0
+    diff = bench_diff(history,
+                      max_lane_slowdown=args.max_lane_slowdown,
+                      max_headline_drop=args.max_headline_drop)
+    print(json.dumps(diff, indent=2))
+    if diff["regressions"]:
+        print(f"# REGRESSION: {len(diff['regressions'])} gate(s) "
+              "tripped (see regressions above)", file=sys.stderr)
+        return 1
+    print(f"# bench history clean: {len(diff['comparisons'])} "
+          "comparison(s), 0 regressions", file=sys.stderr)
+    return 0
 
 
-def _not_ported(argv: list[str]) -> str | None:
-    """The ROADMAP item of a subcommand the port has not yet, or None."""
-    return NOT_PORTED.get(_command(argv))
+def _cmd_scaling_curve(cfg: FrameworkConfig, args) -> int:
+    """`scaling-curve` — the weak-scaling curve artifact: CSV +
+    per-round table from the committed BENCH/MULTICHIP history."""
+    from ccka_tpu_torch.obs.bench_history import (scaling_curve,
+                                                  write_scaling_csv)
+
+    curve = scaling_curve(args.root)
+    if not curve["points"] and not curve["per_round"]:
+        raise SystemExit(f"ccka: no BENCH_r*.json or MULTICHIP_r*.json "
+                         f"records under {args.root!r} — wrong --root?")
+    path = write_scaling_csv(curve, args.out)
+    if args.json:
+        print(json.dumps(curve, indent=2))
+    else:
+        for p in curve["points"]:
+            rate = p.get("cluster_days_per_sec_per_device")
+            print(f"r{p['round']:02d} {p.get('source', '?'):28s} "
+                  f"dev={p.get('devices', '-')!s:>2s} "
+                  + (f"{rate:,.1f} cd/s/dev "
+                     f"(eff {p.get('weak_scaling_efficiency', '-')})"
+                     if isinstance(rate, (int, float))
+                     else p.get("note", "-")))
+        for r in curve["per_round"]:
+            print(f"r{r['round']:02d} {r['source']:28s} per-chip "
+                  f"{r['cluster_days_per_sec_per_chip']:,.1f} cd/s "
+                  f"[{r.get('platform', '?')}]")
+    print(f"# scaling curve -> {path} ({len(curve['points'])} points, "
+          f"{len(curve['per_round'])} per-round rows)", file=sys.stderr)
+    return 0
+
+
+PERF_MODES = ("rule", "carbon", "neural", "plan")
+# The probe's seeds: the attributed stream, the measured repeats' streams
+# (``PERF_REPEAT_SEED + i``) and the neural mode's fresh net.
+PERF_STREAM_SEED, PERF_REPEAT_SEED, PERF_NET_SEED = 7, 100, 3
+
+
+def perf_record(cfg: FrameworkConfig, modes, *, steps: int, batch: int,
+                repeats: int = 2, device=None,
+                summaries: dict | None = None) -> dict:
+    """The observatory's probe (`perf`): the packed stream's generation
+    watched as ``perf.packed_generation`` and attributed with the
+    stream's bytes; per mode the watched ``packed_mode_summary_fn``
+    (``megakernel.mode.<mode>``) attributed with its analytic count
+    (`obs/costmodel.py::rollout_cost`) on the stream of seed
+    :data:`PERF_STREAM_SEED`; ``repeats`` fresh worlds through
+    `obs/occupancy.py::measure_packed_pipeline` (generation, kernel,
+    the host's batch means); the achieved fraction of the mean kernel
+    time against the count (each unit's least time, the bytes' at the
+    measured bandwidth; None on a device without stated rates); the
+    first mode's ledger published for the exporter gauges. On a CUDA
+    device the kernels run stochastically, on the CPU the plain
+    versions deterministically (the JAX probe's interpret mode).
+
+    The document has the JAX probe's keys less ``b_block`` and
+    ``t_chunk``, which describe the TPU kernel's grid (the port's kernels
+    take a whole stream in one launch, so any ``batch`` goes), and adds
+    ``device``, the name of what it ran on. ``summaries`` (a dict) gets
+    each mode's last measured summary with the seed of its stream, its
+    kernel seed and its net, so a caller can hold it against an
+    unwatched run, and the mode's ledger (unrounded)."""
+    import torch
+
+    from ccka_tpu_torch import bridge
+    from ccka_tpu_torch.models.nets import ActorCritic, latent_dim
+    from ccka_tpu_torch.obs import costmodel
+    from ccka_tpu_torch.obs import occupancy as occ
+    from ccka_tpu_torch.obs.compile import watch_jit
+    from ccka_tpu_torch.obs.trace import SpanTracer
+    from ccka_tpu_torch.sim.lanes import stream_layout
+    from ccka_tpu_torch.sim.megakernel import _obs_dim, packed_mode_summary_fn
+    from ccka_tpu_torch.sim.types import SimParams
+
+    dev = _device(device)
+    virtual = dev.type == "cpu"
+    params = SimParams.from_config(cfg, device=dev)
+    src = _source(cfg)
+    if not hasattr(src, "packed_generate_fn"):
+        raise SystemExit("ccka: the configured signal source has no "
+                         "packed-layout generator — `ccka perf` probes "
+                         "the synthetic/replay pipeline")
+    tracer = SpanTracer()
+    gen = watch_jit(src.packed_generate_fn(steps, batch, device=dev),
+                    "perf.packed_generation", shared_stats=True)
+    made: list = []
+
+    def generate(seed: int):
+        made.append(gen(seed))
+        return made[-1]
+
+    costmodel.attribute(
+        "perf.packed_generation", generate, PERF_STREAM_SEED,
+        cost=costmodel.Cost(
+            bytes_accessed=steps * src.packed_rows() * batch * 4))
+    stream0 = made.pop()
+    bw = costmodel.measured_stream_bandwidth(dev)
+    rates = costmodel.device_rates(dev)
+    net = None
+    if "neural" in modes:
+        # A freshly initialised ActorCritic (flax's initialisation from a
+        # seeded CPU generator), as the JAX probe takes init(key 3).
+        net = bridge.actor_critic_to_flax(ActorCritic(
+            _obs_dim(cfg.cluster.n_pools, cfg.cluster.n_zones),
+            latent_dim(cfg.cluster), generator=torch.Generator().manual_seed(
+                PERF_NET_SEED)).state_dict())
+    faults, workloads = stream_layout(stream0.shape[1],
+                                      cfg.cluster.n_zones)
+
+    def host_i(summary):
+        # The batch means pulled to the host: the host stage the JAX
+        # probe measures.
+        return {f: float(getattr(summary, f).cpu().numpy().mean())
+                for f in summary._fields}
+
+    out_modes, achieved_by_name = {}, {}
+    for mode in modes:
+        mode_net = net if mode == "neural" else None
+        kfn = packed_mode_summary_fn(params, cfg.cluster, mode, T=steps,
+                                     stochastic=not virtual,
+                                     net_params=mode_net)
+        cost = costmodel.rollout_cost(
+            cfg, mode, batch, steps, stochastic=not virtual,
+            net_params=mode_net, faults=faults, workloads=workloads,
+            plan_broadcast=True, rates=rates)
+        costmodel.attribute(f"megakernel.mode.{mode}", kfn, stream0, 0,
+                            cost=cost)
+        last: list = []
+
+        def kernel_i(stream, i, kfn=kfn, last=last):
+            last[:] = [i, kfn(stream, i + 1)]
+            return last[1]
+
+        ledger, _ = occ.measure_packed_pipeline(
+            lambda i: gen(PERF_REPEAT_SEED + i), kernel_i, host_i,
+            repeats=max(repeats, 1), tracer=tracer, label=f"perf.{mode}")
+        if summaries is not None:
+            summaries[mode] = dict(stream_seed=PERF_REPEAT_SEED + last[0],
+                                   seed=last[0] + 1, summary=last[1],
+                                   net_params=mode_net, ledger=ledger)
+        kernel_s = ledger.seconds["kernel"] / max(ledger.repeats, 1)
+        ach = cost.achieved_fraction(kernel_s, bw)
+        achieved_by_name[f"megakernel.mode.{mode}"] = ach
+        out_modes[mode] = {
+            "occupancy": ledger.to_dict(),
+            "kernel_seconds": round(kernel_s, 6),
+            "achieved_roofline_fraction": (round(ach, 6)
+                                           if ach is not None else None),
+        }
+    del stream0
+    # Registered-but-idle watch entries would drown the table in
+    # all-dash rows — show what ran or was counted.
+    rows = [r for r in costmodel.program_table()
+            if r["analysis"] != "unattributed"
+            or (r["dispatches"] or 0) > 0]
+    for r in rows:
+        if r["name"] in achieved_by_name:
+            r["achieved_roofline_fraction"] = achieved_by_name[r["name"]]
+    first = out_modes[modes[0]]
+    costmodel.publish_pipeline_snapshot(
+        occupancy=first["occupancy"]["fractions"],
+        achieved_fraction=first["achieved_roofline_fraction"])
+    return {"platform": "cpu" if virtual else "gpu", "virtual": virtual,
+            "device": ("cpu" if virtual
+                       else torch.cuda.get_device_name(dev)),
+            "steps": steps, "batch": batch,
+            "bandwidth_bytes_per_s": round(bw, 1),
+            "modes": out_modes, "programs": rows}
+
+
+def _cmd_perf(cfg: FrameworkConfig, args) -> int:
+    """`perf` — the device-time observatory's probe (:func:`perf_record`)
+    rendered as the program table and one occupancy line a mode, or
+    printed whole with ``--json``."""
+    modes = [m.strip() for m in args.modes.split(",") if m.strip()]
+    unknown = [m for m in modes if m not in PERF_MODES]
+    if unknown or not modes:
+        raise SystemExit(f"ccka: unknown perf mode(s) {unknown or '?'} "
+                         "— have rule,carbon,neural,plan")
+    doc = perf_record(cfg, modes, steps=max(args.steps, 16),
+                      batch=max(args.batch, 32), repeats=args.repeats,
+                      device=args.device)
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return 0
+    from ccka_tpu_torch.obs import costmodel
+
+    print(costmodel.render_program_table(doc["programs"]))
+    for mode, m in doc["modes"].items():
+        print(f"# {mode}: occupancy "
+              + " ".join(f"{k}={v:.3f}" for k, v
+                         in m["occupancy"]["fractions"].items())
+              + f" | kernel {m['kernel_seconds'] * 1e3:.2f}ms | "
+              f"achieved {m['achieved_roofline_fraction']}")
+    if doc["virtual"]:
+        print("# note: CPU host — the plain versions, deterministic; "
+              "the instrument is the result, not absolute speed",
+              file=sys.stderr)
+    return 0
 
 
 _HANDLERS = {
@@ -2228,16 +2497,12 @@ _HANDLERS = {
     "incidents": _cmd_incidents, "decisions": _cmd_decisions,
     "tournament": _cmd_tournament, "geo": _cmd_geo,
     "scenario-search": _cmd_scenario_search, "flywheel": _cmd_flywheel,
+    "perf": _cmd_perf, "bench-diff": _cmd_bench_diff,
+    "scaling-curve": _cmd_scaling_curve,
 }
 
 
 def main(argv: list[str] | None = None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    item = _not_ported(argv)
-    if item is not None:
-        print(f"ccka_tpu_torch: subcommand {_command(argv)!r} is not "
-              f"ported yet (ROADMAP {item})", file=sys.stderr)
-        return 2
     args = _build_parser().parse_args(argv)
     try:
         cfg = _load_config(args)

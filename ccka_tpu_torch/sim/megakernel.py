@@ -1313,10 +1313,16 @@ def packed_mode_summary_fn(params: SimParams, cluster: ClusterConfig,
                            net_params=None, plan_packed=None):
     """``(stream, seed) -> EpisodeSummary``: :func:`packed_mode_summary`
     of ``mode`` closed over its arguments, the unit the scenario search
-    scores with (`search/adversarial.py`). The mode is resolved here, so
-    an unknown one is refused before any stream is made. (The JAX
-    package's ``b_block`` and ``t_chunk`` set its kernel grid; the port's
-    kernels take a whole stream in one launch.)"""
+    scores with (`search/adversarial.py`) and the observatory times and
+    attributes (`cli.py::perf_record`). The mode is resolved here, so
+    an unknown one is refused before any stream is made. Watched under
+    ``megakernel.mode.<mode>`` (`obs/compile.py`, one name for every
+    closure of a mode), so `perf`'s program table joins its dispatches
+    and its count on one row. (The JAX package's ``b_block`` and
+    ``t_chunk`` set its kernel grid; the port's kernels take a whole
+    stream in one launch.)"""
+    from ccka_tpu_torch.obs.compile import watch_jit
+
     engine = _lanes.mode_engine(mode, "packed_summary")
 
     def fn(stream: torch.Tensor, seed: int) -> EpisodeSummary:
@@ -1324,7 +1330,8 @@ def packed_mode_summary_fn(params: SimParams, cluster: ClusterConfig,
                       stochastic=stochastic, net_params=net_params,
                       plan_packed=plan_packed)
 
-    return fn
+    return watch_jit(fn, f"megakernel.mode.{mode}", hot=True,
+                     shared_stats=True)
 
 
 def _packed_summary(mode: str, params: SimParams, cluster: ClusterConfig,

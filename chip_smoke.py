@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Twelve main paths. The rule-profile fleet rollout: a batch of clusters
+Fourteen main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -35,7 +35,10 @@ CEM search, the worst case minted and replayed. The continual-learning
 flywheel: a generation recorded on the graphed service, its weak cells
 mined, labeled by the factory and distilled into a challenger, evaluated
 by the MLP kernel on the cells' worlds, shadowed and gated, promoted and
-rolled back.
+rolled back. The device mesh: a fleet split into shards, each launch on
+its shard's first cluster, bitwise the single launch. The device-time
+observatory: `perf` at full width, each kernel's analytic count and
+measured share of its roofline, and the bench history's commands.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -379,7 +382,27 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    iteration on a [2, 2] mesh within rtol 2e-4 / atol 2e-5 of the
    unsharded one, and `simulate --mesh` from the shell equal to
    `simulate`;
-20. one JSON line listing every kernel and lane instantiation, the
+20. the device-time observatory (the main path of the seventeenth
+   slice, `obs/costmodel.py`, `obs/bench_history.py`; no new kernel:
+   `perf` drives the rule, carbon, MLP and plan kernels), multiregion
+   B = 32768 x T = 2880, stochastic: (a) the bandwidth probe within
+   0.5-1.05 x 3.35 TB/s; (b) the package's `rollout_cost` equal to
+   :func:`lane_bound` and phase 6's rule bound on every row of the kernel
+   table (the default rule path; rule, carbon, MLP and plan on the plain,
+   severe and mixed streams): bytes, operations, every term, the bound
+   and the unit that sets it; (c) `perf`'s path in this process (modes
+   rule, carbon, neural and plan, 2 repeats), the counters zeroed just
+   before and read just after: each mode's row 3 dispatches or more,
+   analytic, its count that of `rollout_cost`, its allocations beyond
+   the stream from the summary's bytes to 64 MiB (the generation's peak
+   at least the stream's), its achieved fraction in (0, 1.05], its
+   occupancy fractions summing to 1, its summary bitwise an unwatched
+   run; (d) `perf --json` from the shell, its rows' counts those of (c);
+   `bench-diff` and `scaling-curve --json` on a copy of the records
+   equal to the in-process calls. The shells start before phase 19;
+   `perf` waits before its first CUDA call until (a) and (c) are done,
+   and runs beside (b), which is host work;
+21. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -5608,6 +5631,334 @@ def mesh_phase(dev, card: str, setup) -> dict:
     return rec
 
 
+# ---- the observatory (phase 20)
+
+# 20b: PERF.md's kernel table, each row at B = 32768 x T = 2880,
+# stochastic: the default rule path and the multiregion rows on three of
+# the boards' streams; the script's policy names against the package's
+# modes.
+OBS_ROWS = (("default", "rule", "plain"),) + tuple(
+    ("multiregion", policy, name) for name in ("plain", "severe", "mixed")
+    for policy in ("rule", "carbon", "mlp", "plan"))
+OBS_MODE = {"rule": "rule", "carbon": "carbon", "mlp": "neural",
+            "plan": "plan"}
+OBS_MODES = ("rule", "carbon", "neural", "plan")
+KERNEL_OF_MODE = {"rule": "rollout_profiles_kernel",
+                  "carbon": "rollout_profiles_kernel<CARBON>",
+                  "neural": "rollout_mlp_kernel",
+                  "plan": "rollout_profiles_kernel<PLAN>"}
+OBS_REPEATS = 2
+OBS_BW_GATE = (0.5, 1.05)      # 20a: the probe against the HBM rate
+OBS_FRACTION_MAX = 1.05        # 20c: a share of the roofline above it
+                               # is a broken count or clock
+OBS_RISE_MAX = 64 << 20        # 20c: a mode's kernel reads the stream in
+                               # place; what it allocates besides (the
+                               # [24, B] summary and its scratch, about
+                               # 6.3 MB at B = 32768) stays under 64 MiB
+# 20d's `perf` shell: `python -m ccka_tpu_torch <argv[2:]>`, its imports
+# made at once and one tick counted on the CPU (the count's dispatch mode
+# and the CPU trace import ~12 s of torch and scipy modules on first use),
+# its first CUDA call held until the file argv[1] exists (it gives up if
+# this process goes first), so that its start-up hides behind phase 19
+# and its run overlaps no timed window of phase 20.
+PERF_SHELL = """
+import os, runpy, sys, time
+import torch
+import ccka_tpu_torch.cli, ccka_tpu_torch.bridge, ccka_tpu_torch.models.nets
+import ccka_tpu_torch.obs.occupancy, ccka_tpu_torch.obs.trace
+import ccka_tpu_torch.signals.live, ccka_tpu_torch.sim.megakernel
+import ccka_tpu_torch.kernels.build
+from ccka_tpu_torch import PRESETS
+from ccka_tpu_torch.obs.costmodel import tick_ops
+tick_ops(PRESETS["multiregion"](), "rule", stochastic=True)
+gate, parent = sys.argv[1], os.getppid()
+while not os.path.exists(gate):
+    if os.getppid() != parent:
+        sys.exit(3)
+    time.sleep(0.02)
+sys.argv = [sys.argv[0], *sys.argv[2:]]
+runpy.run_module("ccka_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def record_copy() -> str:
+    """A temporary copy of the checkout's bench records (`BENCH_r*.json`,
+    `MULTICHIP_r*.json`, `data/lane_times.json`) for 20d's host-only
+    subcommands, so nothing is written into the checkout."""
+    import glob
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    for path in sorted(glob.glob(os.path.join(root, "BENCH_r*.json"))
+                       + glob.glob(os.path.join(root, "MULTICHIP_r*.json"))):
+        shutil.copy(path, tmp)
+    os.makedirs(os.path.join(tmp, "data"))
+    shutil.copy(os.path.join(root, "data", "lane_times.json"),
+                os.path.join(tmp, "data"))
+    return tmp
+
+
+def start_observatory_shells() -> dict:
+    """20d's shells, each in a process of its own, started before phase
+    19 and joined in phase 20: `bench-diff` and `scaling-curve --json` on
+    a copy of the records (host only), and `perf` at phase 20's
+    arguments through :data:`PERF_SHELL`, held before its first CUDA
+    call until phase 20 writes the file at "gate"."""
+    root = record_copy()
+    gate = os.path.join(root, "perf.go")
+    return {"root": root, "gate": gate,
+            "perf": start_side_process(
+                ["-c", PERF_SHELL, gate, "--preset", "multiregion", "perf",
+                 "--batch", str(B_MAIN), "--steps", str(T_DAY), "--modes",
+                 ",".join(OBS_MODES), "--repeats", str(OBS_REPEATS),
+                 "--json"]),
+            "bench-diff": start_side_process(
+                ["-m", "ccka_tpu_torch", "bench-diff", "--root", root]),
+            "scaling-curve": start_side_process(
+                ["-m", "ccka_tpu_torch", "scaling-curve", "--root", root,
+                 "--out", os.path.join(root, "shell_curve.csv"),
+                 "--json"])}
+
+
+def observatory_phase(dev, card: str, setup, shells: dict) -> dict:
+    """20: the device-time observatory (`obs/costmodel.py`,
+    `obs/bench_history.py`, `perf`, `bench-diff`, `scaling-curve`), the
+    multiregion preset, B = 32768 x T = 2880, stochastic, modes rule,
+    carbon, neural and plan, 2 repeats. (a) `measured_stream_bandwidth`
+    on the card within 0.5-1.05 x 3.35 TB/s. (c) `cli.perf_record` at
+    those arguments in this process, the launch counters zeroed just
+    before and read just after: each mode's row 3 dispatches or more,
+    "analytic", its operations and bytes those of `rollout_cost`, its
+    peak memory less the stream's bytes (its argument) from the [24, B]
+    summary's bytes to :data:`OBS_RISE_MAX`, the generation's peak at
+    least the stream's bytes, its achieved fraction in (0, 1.05], its
+    occupancy fractions summing to 1 within 1e-6, its last measured
+    summary bitwise the unwatched `packed_mode_summary` on the same
+    stream and seed. Only then is the `perf` shell (started before phase
+    19, see :func:`start_observatory_shells`) let onto the card, so that
+    no timed window of (a), (c) or the shell shares it. (b), host work
+    beside the shell: `rollout_cost` against :func:`lane_bound` and phase
+    6's rule bound on every row of :data:`OBS_ROWS`: bytes, operations,
+    every term, the bound and the unit that sets it, exactly. (d) the
+    `perf` shell exits 0, its rows' operations and bytes those of (c);
+    `bench-diff` and `scaling-curve --json` print what the in-process
+    calls return, the CSV equal. Returns the phase's record."""
+    import shutil
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.cli import perf_record
+    from ccka_tpu_torch.obs import bench_history as bh
+    from ccka_tpu_torch.obs import costmodel as cm
+    from ccka_tpu_torch.obs.compile import stats_for
+    from ccka_tpu_torch.signals.live import make_signal_source
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.lanes import stream_layout
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.workloads.scenarios import WORKLOAD_SCENARIOS
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> float:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    rec: dict = {"seconds": {}}
+
+    # (a) the bandwidth probe
+    bw = cm.measured_stream_bandwidth(dev)
+    lo, hi = (g * HBM_BYTES_PER_S for g in OBS_BW_GATE)
+    rec["bandwidth_bytes_per_s"] = bw
+    rec["seconds"]["20a probe"] = lap()
+    log(f"# 20a bandwidth probe: {bw / 1e12:.4f} TB/s, "
+        f"{bw / HBM_BYTES_PER_S:.4f} of {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+        f"({card})")
+    if not lo <= bw <= hi:
+        fail(f"20a: the bandwidth probe read {bw / 1e12:.4f} TB/s, outside "
+             f"{OBS_BW_GATE[0]}-{OBS_BW_GATE[1]} x "
+             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+    # (c) perf's path in this process
+    cfg = PRESETS["multiregion"]()
+    names = [f"megakernel.mode.{m}" for m in OBS_MODES]
+    calls0 = {n: (stats_for(n).calls if stats_for(n) else 0) for n in names}
+    summaries: dict = {}
+    torch.cuda.synchronize()
+    kernel_counts(clear=True)
+    doc = perf_record(cfg, OBS_MODES, steps=T_DAY, batch=B_MAIN,
+                      repeats=OBS_REPEATS, device=dev, summaries=summaries)
+    torch.cuda.synchronize()
+    path = kernel_counts()
+    rec["seconds"]["20c perf"] = lap()
+    rec["launches_by_path"] = {"observatory (phase 20)": path}
+    log(f"# 20c perf multiregion B={B_MAIN} T={T_DAY} stochastic, "
+        f"{OBS_REPEATS} repeats: launches {path}")
+    rows = {r["name"]: r for r in doc["programs"]}
+    log(cm.render_program_table([rows[n] for n in
+                                 ["perf.packed_generation"] + names]))
+    src = make_signal_source(cfg.cluster, cfg.workload, cfg.sim,
+                             cfg.signals, faults=cfg.faults,
+                             workloads=cfg.workloads)
+    params = SimParams.from_config(cfg, device=dev)
+    stream_bytes = rows["perf.packed_generation"]["bytes_accessed"]
+    faults, workloads = stream_layout(src.packed_rows(), cfg.cluster.n_zones)
+    rates = cm.device_rates(dev)
+    stochastic = not doc["virtual"]
+    gen_peak = rows["perf.packed_generation"]["peak_memory_bytes"]
+    log(f"#   perf.packed_generation: peak memory {gen_peak} bytes, the "
+        f"stream {stream_bytes} bytes")
+    if gen_peak is None or gen_peak < stream_bytes:
+        fail(f"20c: the generation's peak memory {gen_peak} is below the "
+             f"stream's {stream_bytes} bytes")
+    out_bytes = OUT_ROWS * B_MAIN * 4
+    rec["modes"] = {}
+    for mode, name in zip(OBS_MODES, names):
+        row, m, s = rows[name], doc["modes"][mode], summaries[mode]
+        cost = cm.rollout_cost(cfg, mode, B_MAIN, T_DAY,
+                               stochastic=stochastic,
+                               net_params=s["net_params"], faults=faults,
+                               workloads=workloads, plan_broadcast=True,
+                               rates=rates)
+        calls = row["dispatches"] - calls0[name]
+        rise = (None if row["peak_memory_bytes"] is None
+                else row["peak_memory_bytes"] - stream_bytes)
+        frac = m["achieved_roofline_fraction"]
+        occ = sum(s["ledger"].fractions().values())
+        stream = src.packed_trace_device(T_DAY, s["stream_seed"], B_MAIN,
+                                         device=dev)
+        want = mk.packed_mode_summary(params, cfg.cluster, mode, stream,
+                                      T_DAY, s["seed"],
+                                      stochastic=stochastic,
+                                      net_params=s["net_params"])
+        same = bitwise(s["summary"], want)
+        del stream, want
+        rec["modes"][mode] = dict(
+            m, dispatches=calls, flops=row["flops"],
+            bytes_accessed=row["bytes_accessed"],
+            peak_memory_bytes=row["peak_memory_bytes"],
+            bound_ms=cost.bound_ms, bound_by=cost.bound_by,
+            set_by=cost.set_by, bitwise=same)
+        log(f"#   {mode}: kernel {m['kernel_seconds'] * 1e3:.4f} ms mean of "
+            f"{OBS_REPEATS}; bound {cost.bound_ms:.4f} ms ({cost.bound_by}, "
+            f"{cost.set_by}); achieved {frac}; occupancy "
+            f"{m['occupancy']['fractions']} (sum {occ!r}); {calls} "
+            f"dispatches; peak memory {row['peak_memory_bytes']} bytes, "
+            f"{rise} beyond the stream; bitwise the unwatched run {same}")
+        if calls < 3 or row["analysis"] != "analytic":
+            fail(f"20c {mode}: {calls} dispatches, analysis "
+                 f"{row['analysis']!r}")
+        if (row["flops"], row["bytes_accessed"]) != (
+                cost.flops, float(cost.bytes_accessed)):
+            fail(f"20c {mode}: the row counts {row['flops']} operations "
+                 f"and {row['bytes_accessed']} bytes, rollout_cost "
+                 f"{cost.flops} and {cost.bytes_accessed}")
+        if rise is None or not out_bytes <= rise <= OBS_RISE_MAX:
+            fail(f"20c {mode}: the call allocated {rise} bytes beyond its "
+                 f"{stream_bytes}-byte stream, outside {out_bytes} (the "
+                 f"summary) to {OBS_RISE_MAX}")
+        if frac is None or not 0.0 < frac <= OBS_FRACTION_MAX:
+            fail(f"20c {mode}: achieved fraction {frac} outside "
+                 f"(0, {OBS_FRACTION_MAX}]")
+        if abs(occ - 1.0) > 1e-6:
+            fail(f"20c {mode}: occupancy fractions sum to {occ!r}")
+        if not same:
+            fail(f"20c {mode}: the measured summary differs from the "
+                 f"unwatched packed_mode_summary on the same stream")
+        if path.get(KERNEL_OF_MODE[mode], 0) < 1:
+            fail(f"20c {mode}: {KERNEL_OF_MODE[mode]} never launched")
+    rec["seconds"]["20c checks"] = lap()
+    with open(shells["gate"], "w"):
+        pass
+    t_gate = time.perf_counter()
+
+    # (b) the package's count against the script's, host work beside the
+    # `perf` shell
+    rec["counts"] = []
+    presets = {p: setup(p) for p in {row[0] for row in OBS_ROWS}}
+    for preset, policy, name in OBS_ROWS:
+        cfg_p, _, _, _, _, net = presets[preset]
+        sc = WORKLOAD_SCENARIOS.get(name)
+        lanes = dict(faults=(sc is None and name != "plain")
+                     or bool(sc and sc.fault_preset),
+                     workloads=sc is not None)
+        net = net if policy == "mlp" else None
+        b_ms, b_by, terms, ops = lane_bound(cfg_p, policy, name, net,
+                                            B=B_MAIN, T=T_DAY)
+        cost = cm.rollout_cost(cfg_p, OBS_MODE[policy], B_MAIN, T_DAY,
+                               stochastic=True, net_params=net,
+                               rates=rates, **lanes)
+        got = (cost.bound_ms, cost.bound_by, cost.terms, cost.tick_ops)
+        same = got == (b_ms, b_by, terms, ops)
+        if preset == "default":
+            Z = cfg_p.cluster.n_zones
+            rule = bound(rollout_bytes(Z, B_MAIN, T_DAY),
+                         {"tick": (ops * B_MAIN * T_DAY,
+                                   F32_UNFUSED_OPS_PER_S, "float32")})
+            same = same and got[:3] == rule
+        rec["counts"].append(dict(preset=preset, policy=policy, stream=name,
+                                  bound_ms=cost.bound_ms,
+                                  bound_by=cost.bound_by,
+                                  set_by=cost.set_by, tick_ops=ops,
+                                  bytes=cost.bytes_accessed, equal=same))
+        log(f"# 20b {preset} {policy} {name}: rollout_cost "
+            f"{cost.bound_ms:.4f} ms ({cost.bound_by}, {cost.set_by}), "
+            f"{cost.bytes_accessed} bytes, {cost.tick_ops} operations a "
+            f"cluster-tick; lane_bound {b_ms:.4f} ms; equal {same}")
+        if not same:
+            fail(f"20b {preset} {policy} {name}: rollout_cost gives {got}, "
+                 f"the script {(b_ms, b_by, terms, ops)}")
+    rec["seconds"]["20b counts"] = lap()
+
+    # (d) the shells
+    shell = shells["perf"]
+    out = join_side_process(shell, "20d: `perf --json`", 600)
+    rec["shell_after_gate_s"] = time.perf_counter() - t_gate
+    sdoc = json.loads(out)
+    srows = {r["name"]: r for r in sdoc["programs"]}
+    for name in ["perf.packed_generation"] + names:
+        if (srows[name]["flops"], srows[name]["bytes_accessed"]) != (
+                rows[name]["flops"], rows[name]["bytes_accessed"]):
+            fail(f"20d: the shell's {name} row counts "
+                 f"{srows[name]['flops']} / {srows[name]['bytes_accessed']},"
+                 f" this process's {rows[name]['flops']} / "
+                 f"{rows[name]['bytes_accessed']}")
+    rec["shell_modes"] = sdoc["modes"]
+    log(f"# 20d `perf --json` from the shell ({shell['s']:.2f} s from its "
+        f"start, {rec['shell_after_gate_s']:.2f} s after the gate): rows "
+        f"equal in operations and bytes; its modes "
+        f"{json.dumps(sdoc['modes'])}")
+    root = shells["root"]
+    diff_out = join_side_process(shells["bench-diff"], "20d: `bench-diff`",
+                                 300)
+    curve_out = join_side_process(shells["scaling-curve"],
+                                  "20d: `scaling-curve`", 300)
+    hist = bh.load_bench_history(root)
+    want_diff = json.dumps(bh.bench_diff(hist), indent=2) + "\n"
+    curve = bh.scaling_curve(root)
+    want_curve = json.dumps(curve, indent=2) + "\n"
+    csv_path = bh.write_scaling_csv(curve, os.path.join(root, "curve.csv"))
+    with open(csv_path, "rb") as a, \
+            open(os.path.join(root, "shell_curve.csv"), "rb") as b:
+        same_csv = a.read() == b.read()
+    shutil.rmtree(root)
+    if diff_out != want_diff or curve_out != want_curve or not same_csv:
+        fail(f"20d: the shells printed what the in-process calls do not: "
+             f"bench-diff {diff_out == want_diff}, scaling-curve "
+             f"{curve_out == want_curve}, CSV {same_csv}")
+    log(f"# 20d `bench-diff` ({shells['bench-diff']['s']:.2f} s, "
+        f"{len(json.loads(diff_out)['comparisons'])} comparisons) and "
+        f"`scaling-curve --json` ({shells['scaling-curve']['s']:.2f} s, "
+        f"{len(curve['points'])} points) equal the in-process calls, the "
+        f"CSV too")
+    rec["seconds"]["20d shells"] = lap()
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"# phase 20 seconds: {json.dumps(rec['seconds'])} ({card})")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -6214,11 +6565,17 @@ def main() -> None:
     flywheel_rec = flywheel_phase(dev, smi)
 
     clock("19")
-    # ---- 19. the device mesh: see mesh_phase.
+    # ---- 19. the device mesh: see mesh_phase. Phase 20's shells start
+    # first, in processes of their own (`perf` held off the card).
+    obs_shells = start_observatory_shells()
     mesh_rec = mesh_phase(dev, smi, setup)
 
     clock("20")
-    # ---- 20. the kernels, the card, the result
+    # ---- 20. the observatory: see observatory_phase.
+    obs_rec = observatory_phase(dev, smi, setup, obs_shells)
+
+    clock("21")
+    # ---- 21. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -6381,6 +6738,15 @@ def main() -> None:
         missing = set(counts) - names
         if missing:
             fail(f"phase 19 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for path, counts in obs_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 20 launched {sorted(missing)}, which the kernels "
                  f"line has no row for")
         for row in kernels:
             if row["name"] in counts:

@@ -2,7 +2,8 @@
 subcommand through ``ccka_tpu_torch.cli.main([..., "--device", "cpu"])``
 and ``ccka_tpu.cli.main`` with the same argv. This file holds the
 profile commands, ``show-config``, ``observe``, ``simulate``, the
-unported subcommands and the device rule, and the helpers;
+device rule and the helpers (`tests/test_torch_observatory.py` holds
+``perf``, ``bench-diff`` and ``scaling-curve``);
 `tests/test_torch_cli_scoring.py` holds evaluate, forecast-eval,
 distill-factory, train, capture, report and obs, and
 `tests/test_torch_cli_boards.py` the boards.
@@ -13,9 +14,8 @@ planners' float sums, `tests/test_torch_mpc.py`); deterministic
 ``simulate`` within 1e-5 relative (ppo over a fleet at the flagship's
 1e-3), stochastic runs the same keys and finite values (the two
 frameworks draw from different streams); a stream with lanes scored
-by the packed entry. Unported subcommands exit 2 naming their ROADMAP
-item, and without a GPU every subcommand that runs torch work exits
-naming the device unless asked for the CPU.
+by the packed entry. Without a GPU every subcommand that runs torch
+work exits naming the device unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -211,16 +211,7 @@ def test_simulate_profile_dir_writes_a_trace(tmp_path):
                os.walk(tmp_path / "prof") for name in files)
 
 
-# ---- what is not ported, and the device rule
-
-
-@pytest.mark.parametrize("argv,item", [
-    ([name], item) for name, item in sorted(cli.NOT_PORTED.items())],
-    ids=lambda a: " ".join(a) if isinstance(a, list) else a)
-def test_unported_subcommands_exit_2_naming_their_item(argv, item):
-    rc, out, err = _run(tmain, argv)
-    assert rc == 2 and out == ""
-    assert f"not ported yet (ROADMAP {item})" in err
+# ---- the device rule
 
 
 @pytest.mark.parametrize("backend", ("rule", "carbon", "neutral"))

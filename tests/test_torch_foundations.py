@@ -259,7 +259,8 @@ for want in ("kernels.build", "policy.carbon", "models.nets", "bridge",
              "harness.watch", "harness.dashboard", "harness.pipeline",
              "harness.fleet", "obs.recorder", "obs.incidents",
              "obs.decisions", "obs.tournament", "graphs", "cli",
-             "__main__", "obs.burnrate", "obs.costmodel", "harness.service",
+             "__main__", "obs.burnrate", "obs.costmodel",
+             "obs.bench_history", "harness.service",
              "harness.overload", "harness.fleetscale", "regions",
              "regions.process", "regions.migrate", "regions.geo",
              "regions.pareto", "search", "search.params", "search.axis",
