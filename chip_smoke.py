@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Fourteen main paths. The rule-profile fleet rollout: a batch of clusters
+Fifteen main paths. The rule-profile fleet rollout: a batch of clusters
 gets one simulated day (T = 2880 ticks of 30 s) of synthetic price, carbon
 and demand signals, is stepped under the Peak/Off-Peak rule, and is
 folded into one EpisodeSummary per cluster. The three-policy scoreboard:
@@ -38,7 +38,11 @@ by the MLP kernel on the cells' worlds, shadowed and gated, promoted and
 rolled back. The device mesh: a fleet split into shards, each launch on
 its shard's first cluster, bitwise the single launch. The device-time
 observatory: `perf` at full width, each kernel's analytic count and
-measured share of its roofline, and the bench history's commands.
+measured share of its roofline, and the bench history's commands. The
+replay-training and probe scripts' twins: the committed replay stores
+rebuilt, the zone-spread probe card against CPU, the shipped replay
+checkpoint's selection tier re-scored on its holdout windows and two ES
+generations from it, the carbon-frontier trainer's command line.
 Phases, in order; any failure ends the run with a nonzero exit code:
 
 1. the card: nvidia-smi's name and power limit, device properties;
@@ -402,7 +406,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    equal to the in-process calls. The shells start before phase 19;
    `perf` waits before its first CUDA call until (a) and (c) are done,
    and runs beside (b), which is host work;
-21. one JSON line listing every kernel and lane instantiation, the
+21. the twins of the JAX-era replay-training and probe scripts (the
+   main path of the eighteenth slice, `scripts/torch_*.py`; no new
+   kernel: the ES generations run the rule, carbon and MLP kernels), two
+   processes of their own beside this one: (a, on the CPU) the trace
+   twin's four variants, every field bitwise the committed
+   `data/replay_*.npz`; (b) the probe twin at 5 traces x 360 ticks on
+   traces drawn on the CPU, run on the CPU and on the card: keys and
+   verdicts equal, every unrounded number within 1e-4 relative; (c, in
+   this process) the replay twin's `split_sources` on the committed
+   9-day store, its windows on the card bitwise the host slices; the rule
+   and the shipped replay checkpoint scored by `consider` on the 5
+   day-long holdout windows, the tier (`all_windows_win`, `wins_both`)
+   the recorded one, the gaps to the recorded scoreboard and the
+   worst-window ratios reported; 2 ES generations from it through
+   `refine_chunk` (64 x 128 x 2880), counted, generation 0's rule,
+   carbon and population launches held against their plain versions on
+   its draws' first 360 ticks (the population member by member within
+   NEURAL_MEAN_PARITY_TOLERANCES); (d, on the card) the frontier twin's
+   `main` at 2 generations of 128 traces, selection on 5 x 360, counted,
+   its checkpoint well formed; then a generation at its CEMConfig (32
+   x 128, multiregion) from that checkpoint held the same way. It
+   writes `runs/chip_smoke_twins/`;
+22. one JSON line listing every kernel and lane instantiation, the
    card's line, and the result.
 
 
@@ -5959,6 +5985,507 @@ def observatory_phase(dev, card: str, setup, shells: dict) -> dict:
     return rec
 
 
+# ---- the replay-training and probe scripts' twins (phase 21) ---------------
+
+# 21b: the probe at a cut depth (5 traces x 360 ticks from the held-out
+# seed block), card against CPU on traces drawn once on the CPU.
+TWIN_PROBE_STEPS, TWIN_PROBE_TRACES, TWIN_PROBE_SEED0 = 360, 5, 10_000
+TWIN_PROBE_RTOL = 1e-4
+# 21c: the ES generations after the tier check; 21d: the frontier twin's
+# command line (the mega engine takes a multiple of 128 traces).
+TWIN_ES_GENERATIONS = 2
+TWIN_ES_TRACES = 128
+# The generations held against their plain versions: their draws' seed,
+# and the ticks from midnight they are held over (as phases 4-5c, 7, 9).
+TWIN_DRAW_SEED, TWIN_CHECK_T = 21, 360
+TWIN_FRONTIER_ARGV = ["--generations", "2", "--eval-every", "2",
+                      "--traces-per-gen", str(TWIN_ES_TRACES),
+                      "--eval-steps", "360",
+                      "--distill-iterations", "50"]
+TWIN_KERNELS = ("rollout_profiles_kernel", "rollout_profiles_kernel<CARBON>",
+                "rollout_mlp_kernel")   # one launch each a generation
+TWIN_DIR = os.path.join("runs", "chip_smoke_twins")
+
+
+def twin_script(name: str):
+    """``scripts/<name>.py`` of this checkout as a module of its own."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twin_probe_traces():
+    """21b's held-out traces, drawn on the CPU, and their digest."""
+    import hashlib
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.train.evaluate import heldout_traces
+
+    cfg = PRESETS["default"]()
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    traces = heldout_traces(src, steps=TWIN_PROBE_STEPS,
+                            n=TWIN_PROBE_TRACES, seed0=TWIN_PROBE_SEED0,
+                            device="cpu")
+    h = hashlib.sha256()
+    for x in traces:
+        h.update(x.numpy().tobytes())
+    return traces, h.hexdigest()
+
+
+def twin_generation_check(cfg, net, ccfg, teacher, d, dev) -> dict:
+    """An ES generation's three launches held against their plain
+    versions on the stream's first :data:`TWIN_CHECK_T` ticks, as phase
+    11b holds its own: the generation of `cem_refine` on the draws ``d``
+    (a `CEMDraws`) from the incumbent ``net`` at ``ccfg``'s sigma0 and
+    mask, launched through the mega engine's `_mega_generation`; the
+    population member by member within NEURAL_MEAN_PARITY_TOLERANCES,
+    the rule and ``teacher`` bars at phase 4's stochastic standard
+    (`mean_parity_violations` empty, at least 99 % of clusters within
+    2e-3). Returns the record; ``violations`` empty is parity."""
+    from ccka_tpu_torch.policy.rule import RulePolicy
+    from ccka_tpu_torch.sim import megakernel as mk
+    from ccka_tpu_torch.sim.rollout import (batched_rollout_summary,
+                                            initial_state)
+    from ccka_tpu_torch.sim.types import SimParams
+    from ccka_tpu_torch.train import cem
+
+    params = SimParams.from_config(cfg, device=dev)
+    flat0, spec = cem._flatten(net, dev)
+    cand = cem.candidates(
+        flat0, torch.tensor(ccfg.sigma0, dtype=torch.float32, device=dev),
+        d.noise, cem.perturbation_mask(net, ccfg, cfg.cluster, dev))
+    generation = cem._mega_generation(cfg, params, teacher, spec,
+                                      TWIN_CHECK_T, None, dev)
+    pop_k, rule_k, teach_k = generation(cand, d.worlds, d.world_seed)
+    t0 = time.perf_counter()
+    pop_p = mk.population_plain_summary(params, cfg.cluster,
+                                        cem._unflatten(cand, spec), d.worlds,
+                                        TWIN_CHECK_T, d.world_seed)
+    views = mk.unpack_exo(d.worlds, TWIN_CHECK_T, cfg.cluster.n_zones)
+
+    def plain(policy):
+        return batched_rollout_summary(
+            params, initial_state(cfg, views.is_peak.shape[0], dev),
+            policy.action_fn(), views, d.world_seed, stochastic=True)[1]
+
+    bars_p = {"rule": plain(RulePolicy(cfg.cluster, dev)),
+              "teacher": plain(teacher)}
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    viol, n_bitwise, pop_abs = {}, 0, 0.0
+    for m in range(cand.shape[0]):
+        km = type(pop_k)(*(x[m] for x in pop_k))
+        pm = type(pop_p)(*(x[m] for x in pop_p))
+        v = mk.mean_parity_violations(km, pm,
+                                      mk.NEURAL_MEAN_PARITY_TOLERANCES)
+        if v:
+            viol[f"member {m}"] = v
+        n_bitwise += bitwise(km, pm)
+        pop_abs = max(pop_abs, per_cluster_share(km, pm)[3])
+    bars = {}
+    for name, k in (("rule", rule_k), ("teacher", teach_k)):
+        share, _, _, max_abs = per_cluster_share(k, bars_p[name])
+        v = mk.mean_parity_violations(k, bars_p[name])
+        if v or share < 0.99:
+            viol[name] = dict(v, share_within_2e_3=share)
+        bars[name] = {"bitwise": bitwise(k, bars_p[name]),
+                      "share_within_2e_3": share, "max_abs_err": max_abs}
+    return {"members": int(cand.shape[0]),
+            "traces": int(views.is_peak.shape[0]), "T": TWIN_CHECK_T,
+            "bitwise_members": n_bitwise, "population_max_abs_err": pop_abs,
+            "bars": bars, "plain_s": plain_s, "violations": viol}
+
+
+def twin_cpu_side() -> None:
+    """21a and 21b's CPU half, run by twins_phase in a process of its own
+    on the CPU only: the trace twin builds all four variants, each field
+    held bitwise against the committed store; then the probe twin on
+    21b's traces, unrounded. Prints one JSON line."""
+    from ccka_tpu_torch import PRESETS
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    mk_trace = twin_script("torch_make_replay_trace")
+    cfg = PRESETS["default"]()
+    stores = {}
+    for variant, (seed, days, path) in mk_trace.VARIANTS.items():
+        t = time.perf_counter()
+        trace, meta = mk_trace.build_trace(cfg, seed=seed, days=days)
+        with np.load(path) as z:
+            same = {f: bool(np.array_equal(getattr(trace, f).numpy(), z[f]))
+                    for f in trace._fields}
+            stored = json.loads(bytes(z["__meta__"]).decode())
+        stores[variant] = {"file": os.path.basename(path),
+                           "steps": trace.steps, "bitwise": same,
+                           "description_equal": stored["description"]
+                           == meta.description,
+                           "s": time.perf_counter() - t}
+    t_a = time.perf_counter() - t0
+    t = time.perf_counter()
+    traces, digest = twin_probe_traces()
+    probe = twin_script("torch_zone_spread_probe").run_probe(
+        TWIN_PROBE_STEPS, TWIN_PROBE_TRACES, TWIN_PROBE_SEED0, device="cpu",
+        traces=traces, digits=None)
+    print(json.dumps({"stores": stores, "trace_s": t_a, "digest": digest,
+                      "probe": probe, "probe_s": time.perf_counter() - t}))
+
+
+def twin_card_side(out_dir: str) -> None:
+    """21b's card half and 21d, run by twins_phase in a process of its own
+    on the card: the probe twin on 21b's CPU-drawn traces moved to the
+    card, unrounded; then the frontier twin's `main` at
+    :data:`TWIN_FRONTIER_ARGV`, the launch counters zeroed just before and
+    read just after; then a generation at the twin's CEMConfig (32
+    members x 128 traces, multiregion) from the checkpoint it wrote, on
+    draws made as `cem_refine` makes them, held by
+    :func:`twin_generation_check`. Prints one JSON line."""
+    import contextlib
+    import io
+
+    from ccka_tpu_torch.config import multi_region_config
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.signals.synthetic import SyntheticSignalSource
+    from ccka_tpu_torch.train import cem
+    from ccka_tpu_torch.train.checkpoint import load_params_npz
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    traces, digest = twin_probe_traces()
+    probe = twin_script("torch_zone_spread_probe").run_probe(
+        TWIN_PROBE_STEPS, TWIN_PROBE_TRACES, TWIN_PROBE_SEED0,
+        device=dev, traces=traces, digits=None)
+    torch.cuda.synchronize()
+    t_probe = time.perf_counter() - t0
+    frontier = twin_script("torch_train_carbon_frontier")
+    out = os.path.join(out_dir, "mr_frontier.npz")
+    text = io.StringIO()
+    kernel_counts(clear=True)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = frontier.main(TWIN_FRONTIER_ARGV + ["--out", out])
+    torch.cuda.synchronize()
+    t_front = time.perf_counter() - t
+    launches = kernel_counts()
+    t = time.perf_counter()
+    cfg = multi_region_config()
+    src = SyntheticSignalSource(cfg.cluster, cfg.workload, cfg.sim,
+                                cfg.signals)
+    ccfg = cem.CEMConfig(traces_per_gen=TWIN_ES_TRACES, usd_bar="rule",
+                         co2_bar="teacher", attain_bar="rule")
+    net, _ = load_params_npz(out)
+    rng = torch.Generator(device=dev).manual_seed(TWIN_DRAW_SEED)
+    seeds = torch.randint(2 ** 30, (2,), generator=rng, device=dev).tolist()
+    d = cem.CEMDraws(
+        src.packed_trace_device(ccfg.eval_steps, seeds[0],
+                                ccfg.traces_per_gen, device=dev), seeds[1],
+        torch.randn((ccfg.popsize - 1, cem._flatten(net)[0].shape[0]),
+                    generator=rng, device=dev))
+    check = twin_generation_check(cfg, net, ccfg,
+                                  CarbonAwarePolicy(cfg.cluster, device=dev),
+                                  d, dev)
+    check["s"] = time.perf_counter() - t
+    print(json.dumps({"digest": digest, "probe": probe, "probe_s": t_probe,
+                      "frontier_rc": rc, "frontier": json.loads(
+                          text.getvalue()), "frontier_s": t_front,
+                      "launches": launches, "generation": check}))
+
+
+def json_leaves(doc, path: str = "") -> dict:
+    """{path: leaf} of a nested JSON document."""
+    if isinstance(doc, dict):
+        return {k: v for key, val in doc.items()
+                for k, v in json_leaves(val, f"{path}.{key}").items()}
+    if isinstance(doc, list):
+        return {k: v for i, val in enumerate(doc)
+                for k, v in json_leaves(val, f"{path}[{i}]").items()}
+    return {path: doc}
+
+
+def twins_phase(dev, card: str) -> dict:
+    """21: the twins of the replay-training and probe scripts
+    (`scripts/torch_*.py`; no new kernel: 21c's and 21d's ES generations
+    run the rule, carbon and MLP kernels, one launch each a generation).
+    Two processes of their own start first: (a, CPU) the trace twin's four
+    variants, every field bitwise the committed `data/replay_*.npz`; (b)
+    the probe twin at 5 traces x 360 ticks on traces drawn on the CPU, run
+    on the CPU in the first and on the card in the second: traces' digests
+    equal, keys and every `monetizes_carbon` equal, every unrounded number
+    within :data:`TWIN_PROBE_RTOL` relative; (d, card) the frontier twin's
+    `main` at :data:`TWIN_FRONTIER_ARGV`, counted: it ends, its checkpoint
+    loads with its digest and its history holds generations 0 and 2;
+    then a generation at the twin's CEMConfig (32 members x 128 traces)
+    from that checkpoint, held by :func:`twin_generation_check`. In
+    this process meanwhile: (c) the replay twin's `split_sources` on the
+    committed 9-day store on the card, its windows and training days
+    bitwise the host slices; the rule and the shipped
+    `ccka_tpu_torch/checkpoints/ppo_flagship_replay.npz` scored by
+    `consider` on the 5 day-long holdout windows (stochastic, the port's
+    Philox draws): the tier (`all_windows_win`, `wins_both`) the
+    checkpoint's recorded one, each scoreboard value's gap to the recorded
+    `selection_scoreboard` and the worst-window ratios reported; then
+    :data:`TWIN_ES_GENERATIONS` ES generations from it through
+    `refine_chunk` (the mega engine, the carbon teacher's bars), counted:
+    one rule, one carbon and one population launch a generation, the
+    params finite, the sigma inside its envelope, every run-log event
+    registered; generation 0's draws (supplied through `refine_chunk`'s
+    `draws=`) kept and its three launches held by
+    :func:`twin_generation_check` at 64 members x 128 traces. It writes
+    `runs/chip_smoke_twins/`. Returns the phase's record."""
+    import shutil
+
+    from ccka_tpu_torch import PRESETS
+    from ccka_tpu_torch.obs.runlog import RUNLOG_EVENTS, RunLog, read_runlog
+    from ccka_tpu_torch.policy.carbon import CarbonAwarePolicy
+    from ccka_tpu_torch.policy.rule import RulePolicy
+    from ccka_tpu_torch.train import cem
+    from ccka_tpu_torch.train.cem import CEMConfig
+    from ccka_tpu_torch.train.checkpoint import load_params_npz
+    from ccka_tpu_torch.train.evaluate import evaluate_backend
+
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap() -> float:
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, TWIN_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cpu_side = start_side_process(
+        ["-c", "import chip_smoke; chip_smoke.twin_cpu_side()"],
+        CUDA_VISIBLE_DEVICES="")
+    card_side = start_side_process(
+        ["-c", f"import chip_smoke; chip_smoke.twin_card_side({out_dir!r})"])
+    rec: dict = {"seconds": {}, "launches_by_path": {}}
+
+    # ---- 21c: the replay twin on the committed 9-day store
+    replay = twin_script("torch_train_replay_flagship")
+    cfg = PRESETS["default"]()
+    spd = int(86400 / cfg.sim.dt_s)
+    train_src, sel = replay.split_sources(replay.TRAIN_TRACE, spd,
+                                          device=dev)
+    with np.load(replay.TRAIN_TRACE) as z:
+        host = {f: z[f] for f in train_src._trace._fields}
+    stored = host["is_peak"].shape[0]
+    holdout = replay._HOLDOUT_DAYS * spd
+    stride = (holdout - spd) // (replay._SEL_WINDOWS - 1)
+    bad = [f"{f}[{i}]" for f in host for i in range(replay._SEL_WINDOWS)
+           if not np.array_equal(getattr(sel, f)[i].cpu().numpy(), host[f][
+               stored - holdout + i * stride:
+               stored - holdout + i * stride + spd])]
+    bad += [f"train.{f}" for f in host if not np.array_equal(
+        getattr(train_src._trace, f).numpy(), host[f][:stored - holdout])]
+    if bad or sel.is_peak.device.type != dev.type:
+        fail(f"21c: split_sources' windows on {sel.is_peak.device} differ "
+             f"from the host slices: {bad}")
+    log(f"# 21c split_sources: {replay._SEL_WINDOWS} windows of {spd} ticks "
+        f"on the card and {stored - holdout} training steps, bitwise the "
+        f"host slices of {os.path.basename(replay.TRAIN_TRACE)}")
+    rec["seconds"]["21c split"] = lap()
+    rule_res = evaluate_backend(cfg, RulePolicy(cfg.cluster, device=dev),
+                                sel)
+    rec["seconds"]["21c rule evaluation"] = lap()
+    params, meta = load_params_npz(replay.OUT)
+    rl = RunLog(os.path.join(out_dir, "replay.jsonl"), kind="replay-flagship",
+                echo=lambda s: log("#   " + s))
+    cand = replay.consider(cfg, sel, rule_res, rl, "shipped", params,
+                           int(meta["selected_iteration"]), device=dev)
+    rec["seconds"]["21c consider"] = lap()
+    recorded = meta["selection_scoreboard"]
+    gaps = {who: {k: res[k] / recorded[who][k] - 1.0 for k in recorded[who]}
+            for who, res in (("rule", rule_res), ("ppo", cand["res"]))}
+    tier = {"all_windows_win": cand["all_windows_win"],
+            "wins_both": bool(cand["wins"])}
+    rec["replay"] = {
+        "tier": tier, "gaps": gaps,
+        "worst_window_usd": cand["worst_window_usd"],
+        "worst_window_co2": cand["worst_window_co2"],
+        "recorded_worst": [meta["worst_window_usd_ratio"],
+                           meta["worst_window_co2_ratio"]],
+        "rule": {k: rule_res[k] for k in recorded["rule"]},
+        "ppo": {k: cand["res"][k] for k in recorded["ppo"]}}
+    log(f"# 21c the shipped replay checkpoint ({meta['selected']}) on the 5 "
+        f"day-long holdout windows: tier {json.dumps(tier)}; worst window "
+        f"usd x{cand['worst_window_usd']:.6f} co2 "
+        f"x{cand['worst_window_co2']:.6f} (recorded "
+        f"{meta['worst_window_usd_ratio']} / "
+        f"{meta['worst_window_co2_ratio']}); gaps to the recorded "
+        f"scoreboard {json.dumps(gaps)}")
+    if tier != {"all_windows_win": meta["all_windows_win"],
+                "wins_both": meta["wins_both"]}:
+        fail(f"21c: the shipped replay checkpoint scored tier "
+             f"{json.dumps(tier)}, not its recorded all_windows_win "
+             f"{meta['all_windows_win']} / wins_both {meta['wins_both']}")
+    teacher = CarbonAwarePolicy(cfg.cluster, device=dev)
+    ccfg = CEMConfig(popsize=64, traces_per_gen=TWIN_ES_TRACES,
+                     eval_steps=spd, sigma_min=1e-3)   # refine_chunk's
+    rng = torch.Generator(device=dev).manual_seed(TWIN_DRAW_SEED)
+    dim = cem._flatten(params)[0].shape[0]
+    first = []
+
+    def draw(gen: int) -> cem.CEMDraws:
+        seeds = torch.randint(2 ** 30, (2,), generator=rng,
+                              device=dev).tolist()
+        d = cem.CEMDraws(
+            train_src.packed_trace_device(spd, seeds[0], TWIN_ES_TRACES,
+                                          device=dev), seeds[1],
+            torch.randn((ccfg.popsize - 1, dim), generator=rng, device=dev))
+        if not first:
+            first.append(d)
+        return d
+
+    kernel_counts(clear=True)
+    es_params, sigma = replay.refine_chunk(
+        cfg, params, train_src, teacher, generations=TWIN_ES_GENERATIONS,
+        sigma=ccfg.sigma0, seed=0, steps_per_day=spd, popsize=ccfg.popsize,
+        traces=TWIN_ES_TRACES, log=lambda s: log("#   cem " + s), rl=rl,
+        draws=draw, device=dev)
+    torch.cuda.synchronize()
+    es_launches = kernel_counts()
+    rec["seconds"]["21c ES generations"] = lap()
+    check = twin_generation_check(cfg, params, ccfg, teacher, first[0], dev)
+    rec["seconds"]["21c generation 0 against plain"] = lap()
+    rec["generation_checks"] = {"21c": check}
+    log(f"# 21c generation 0's launches against their plain versions at "
+        f"{check['members']} members x {check['traces']} traces x "
+        f"T={check['T']} ({check['plain_s']:.3f} s plain): "
+        f"{check['bitwise_members']} members bitwise, population max abs "
+        f"diff {check['population_max_abs_err']:.4g}; bars "
+        f"{json.dumps(check['bars'])}; violations "
+        f"{json.dumps(check['violations'])}")
+    if check["violations"]:
+        fail(f"21c: generation 0's launches and their plain versions "
+             f"disagree: {check['violations']}")
+    rl.close(selected="shipped")
+    events = read_runlog(os.path.join(out_dir, "replay.jsonl"), strict=True)
+    kinds = [r["event"] for r in events]
+    leaves = [np.asarray(v) for v in json_leaves(es_params).values()]
+    log(f"# 21c {TWIN_ES_GENERATIONS} ES generations (64 x 128 x {spd}) "
+        f"from the shipped params: launches {json.dumps(es_launches)}, "
+        f"sigma {sigma:.6f}; run log {len(events)} events")
+    if es_launches != dict.fromkeys(TWIN_KERNELS, TWIN_ES_GENERATIONS):
+        fail(f"21c: the ES generations launched {es_launches}")
+    if (not all(np.isfinite(x).all() for x in leaves)
+            or not 1e-3 <= sigma <= CEMConfig().sigma_max
+            or not set(kinds) <= RUNLOG_EVENTS
+            or kinds.count("gen") != TWIN_ES_GENERATIONS
+            or kinds.count("eval") != 1):
+        fail(f"21c: the ES chunk's params, sigma {sigma} or run log "
+             f"{kinds} are malformed")
+    rec["launches_by_path"]["replay twin, 2 ES generations (phase 21c)"] = (
+        es_launches)
+
+    # ---- the side processes: 21a, 21b, 21d
+    cpu = json.loads(join_side_process(cpu_side, "21a/21b CPU side",
+                                       600).splitlines()[-1])
+    side = json.loads(join_side_process(card_side, "21b/21d card side",
+                                        600).splitlines()[-1])
+    rec["seconds"]["21a trace twin (CPU side)"] = cpu["trace_s"]
+    rec["seconds"]["21b probe, CPU (CPU side)"] = cpu["probe_s"]
+    rec["seconds"]["21b probe, card (card side)"] = side["probe_s"]
+    rec["seconds"]["21d frontier main (card side)"] = side["frontier_s"]
+    rec["seconds"]["21d generation against plain (card side)"] = side[
+        "generation"]["s"]
+    rec["seconds"]["CPU side"] = cpu_side["s"]
+    rec["seconds"]["card side"] = card_side["s"]
+    rec["seconds"]["21 joined"] = lap()
+    for variant, s in cpu["stores"].items():
+        log(f"# 21a {variant}: {s['steps']} steps, every field bitwise "
+            f"{s['file']}: {all(s['bitwise'].values())}; description "
+            f"equal: {s['description_equal']} ({s['s']:.3f} s)")
+        if not all(s["bitwise"].values()):
+            fail(f"21a: the trace twin's {variant} differs from "
+                 f"{s['file']}: {s['bitwise']}")
+    if side["digest"] != cpu["digest"]:
+        fail("21b: the two processes drew different probe traces")
+    got, want = json_leaves(side["probe"]), json_leaves(cpu["probe"])
+    if set(got) != set(want):
+        fail(f"21b: the probe's keys differ: {sorted(set(got) ^ set(want))}")
+    worst, worst_at, worst_ratio = 0.0, "", 0.0
+    for path, w in want.items():
+        g = got[path]
+        if isinstance(w, (bool, str)) or not isinstance(w, (int, float)):
+            if g != w:
+                fail(f"21b: {path} is {g} on the card, {w} on the CPU")
+            continue
+        rel = abs(g - w) / max(abs(w), 1e-12)
+        if rel > worst:
+            worst, worst_at = rel, path
+        if path.endswith("_ratio") or "_ratio_per_trace" in path:
+            worst_ratio = max(worst_ratio, rel)
+    rec["probe"] = {"worst_rel": worst, "worst_at": worst_at,
+                    "worst_ratio_rel": worst_ratio,
+                    "verdict": cpu["probe"]["any_probe_monetizes_carbon"],
+                    "card": side["probe"]}
+    log(f"# 21b probe at {TWIN_PROBE_TRACES} x {TWIN_PROBE_STEPS}: card "
+        f"against CPU, keys and flags equal, largest relative difference "
+        f"{worst:.3g} at {worst_at}, of a ratio {worst_ratio:.3g} (gate "
+        f"{TWIN_PROBE_RTOL} on every number); any probe "
+        f"monetizes carbon: {cpu['probe']['any_probe_monetizes_carbon']}; "
+        f"spread {side['probe']['zone_carbon_spread']:.6f}")
+    for name, p in side["probe"]["probes"].items():
+        log(f"#   {name}: usd x{p['usd_ratio']:.6f} co2 x{p['co2_ratio']:.6f}"
+            f" attain {p['slo_attainment']:.6f} 2-sigma "
+            f"{p['co2_noise_2sigma']:.6f} monetizes {p['monetizes_carbon']}")
+    if worst > TWIN_PROBE_RTOL:
+        fail(f"21b: {worst_at} differs by {worst:.3g} relative between the "
+             f"card and the CPU")
+    doc = side["frontier"]
+    path = os.path.join(out_dir, "mr_frontier.npz")
+    fparams, fmeta = load_params_npz(path)
+    history = [h["generation"] for h in fmeta["history"]]
+    log(f"# 21d frontier twin `main` {' '.join(TWIN_FRONTIER_ARGV)}: exit "
+        f"{side['frontier_rc']}, {side['frontier_s']:.2f} s, launches "
+        f"{json.dumps(side['launches'])}; history generations {history}, "
+        f"claimed {fmeta['frontier_claimed']}, selected generation "
+        f"{fmeta['selected_iteration']}, wins_both {fmeta['wins_both']}")
+    for h in fmeta["history"]:
+        log(f"#   gen {h['generation']}: usd x{h['usd_ratio']:.6f} co2 "
+            f"x{h['co2_ratio']:.6f} (teacher x{h['co2_vs_teacher']:.6f}) "
+            f"attain {h['slo_attainment']:.6f} feasible {h['feasible']}")
+    if (side["frontier_rc"] != 0 or doc["checkpoint"] != path
+            or history != [0, 2]
+            or side["launches"] != dict.fromkeys(TWIN_KERNELS, 2)
+            or fmeta["selected_iteration"] not in (0, 2)
+            or not all(np.isfinite(np.asarray(v)).all()
+                       for v in json_leaves(fparams).values())):
+        fail(f"21d: the frontier twin's run is malformed: rc "
+             f"{side['frontier_rc']}, history {history}, launches "
+             f"{side['launches']}")
+    check = side["generation"]
+    rec["generation_checks"]["21d"] = check
+    log(f"# 21d a generation at the twin's CEMConfig from its checkpoint "
+        f"against the plain versions at {check['members']} members x "
+        f"{check['traces']} traces x T={check['T']} ({check['plain_s']:.3f} s "
+        f"plain): {check['bitwise_members']} members bitwise, population "
+        f"max abs diff {check['population_max_abs_err']:.4g}; bars "
+        f"{json.dumps(check['bars'])}; violations "
+        f"{json.dumps(check['violations'])}")
+    if check["violations"]:
+        fail(f"21d: a generation at the twin's CEMConfig and its plain "
+             f"versions disagree: {check['violations']}")
+    rec["frontier"] = {k: fmeta[k] for k in (
+        "frontier_claimed", "selected_iteration", "wins_both", "history",
+        "selection_scoreboard")}
+    rec["launches_by_path"]["frontier twin main, 2 generations (phase "
+                            "21d)"] = side["launches"]
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    with open(os.path.join(out_dir, "phase21.json"), "w") as fh:
+        json.dump(rec, fh, indent=1, default=float)
+    log(f"# phase 21 seconds: {json.dumps(rec['seconds'])} ({card})")
+    return rec
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -6575,7 +7102,12 @@ def main() -> None:
     obs_rec = observatory_phase(dev, smi, setup, obs_shells)
 
     clock("21")
-    # ---- 21. the kernels, the card, the result
+    # ---- 21. the replay-training and probe scripts' twins: see
+    # twins_phase.
+    twin_rec = twins_phase(dev, smi)
+
+    clock("22")
+    # ---- 22. the kernels, the card, the result
     def train_paths(name: str) -> dict:
         return {"CEM generations (phase 11b)":
                     train_rec["cem"]["launches"][name],
@@ -6747,6 +7279,15 @@ def main() -> None:
         missing = set(counts) - names
         if missing:
             fail(f"phase 20 launched {sorted(missing)}, which the kernels "
+                 f"line has no row for")
+        for row in kernels:
+            if row["name"] in counts:
+                row.setdefault("launches_by_path", {})[path] = counts[
+                    row["name"]]
+    for path, counts in twin_rec["launches_by_path"].items():
+        missing = set(counts) - names
+        if missing:
+            fail(f"phase 21 launched {sorted(missing)}, which the kernels "
                  f"line has no row for")
         for row in kernels:
             if row["name"] in counts:

@@ -434,6 +434,21 @@ gather(sharded_megakernel_summary_from_packed(
 streaming_rollout_summary(src, params, cfg.cluster, "rule", key=1, batch=4,
                           T=16, block_T=8, t_chunk=8, mesh=mesh,
                           device="cpu")
+# The twins of the replay-training and probe scripts, by path.
+import importlib.util
+import os
+twins = {}
+for twin in ("torch_make_replay_trace", "torch_zone_spread_probe",
+             "torch_train_replay_flagship", "torch_train_carbon_frontier"):
+    spec = importlib.util.spec_from_file_location(
+        twin, os.path.join("scripts", twin + ".py"))
+    twins[twin] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twins[twin])
+assert twins["torch_make_replay_trace"].build_trace(
+    dcfg, days=1)[0].steps == 2880
+with contextlib.redirect_stderr(io.StringIO()):
+    assert not twins["torch_zone_spread_probe"].run_probe(
+        4, 1, 10_000, device="cpu")["any_probe_monetizes_carbon"]
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("PORT_JAX_FREE", len(names))
 """

@@ -1,6 +1,7 @@
 """The timing guard of `tests/test_timing_guard.py`, over the port.
 
-Any function of ``ccka_tpu_torch/`` that reads a wall clock
+Any function of ``ccka_tpu_torch/`` or of the port's scripts
+(``scripts/torch_*.py``) that reads a wall clock
 (``time.perf_counter()``, ``time.time()``, ``time.monotonic()``) and
 touches torch must also hold a fence in scope: a ``device_fence`` or
 ``synchronize`` call (or the factory's ``_fenced``, which makes one),
@@ -21,6 +22,7 @@ from test_timing_guard import _enclosing_function, _segment, _timing_calls
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "ccka_tpu_torch")
+SCRIPTS = os.path.join(ROOT, "scripts")
 EXEMPT = {os.path.join(PORT, "obs", "trace.py")}
 # `train/factory.py::_fenced` synchronizes the device before it reads
 # the clock.
@@ -36,6 +38,10 @@ def _python_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+    # The port's twins of the JAX-era scripts.
+    for f in sorted(os.listdir(SCRIPTS)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(SCRIPTS, f)
 
 
 def test_no_unfenced_device_timing_in_the_port():
@@ -88,5 +94,8 @@ def test_guard_scans_the_control_loop():
                 ("train", "flywheel.py"), ("harness", "flywheel.py"),
                 ("parallel", "mesh.py"), ("parallel", "sharded.py"),
                 ("parallel", "sharded_kernel.py"), ("obs", "occupancy.py"),
-                ("cli.py",)):
+                ("cli.py",), ("scripts", "torch_make_replay_trace.py"),
+                ("scripts", "torch_zone_spread_probe.py"),
+                ("scripts", "torch_train_replay_flagship.py"),
+                ("scripts", "torch_train_carbon_frontier.py")):
         assert any(p.endswith(os.path.join(*rel)) for p in files), rel
